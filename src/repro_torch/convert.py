@@ -1,0 +1,47 @@
+"""Import the JAX pipeline's state into the port.
+
+``from_reference_state`` takes the state of ``repro``'s
+``StreamingEmbedPipeline`` (its ``_state_tree()``, with every array
+already converted to numpy) and returns the port's tensors on a chosen
+device, so that both packages can continue from the same state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.corpus import ring_import
+from repro_torch.device import resolve_device
+from repro_torch.graph.csr import CSRGraph
+
+
+def _key(raw) -> tuple:
+    k0, k1 = np.asarray(raw, np.uint32).reshape(2).tolist()
+    return (k0, k1)
+
+
+def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """Reference state (numpy) -> {"phi_in", "phi_out": (S, N, d) float32,
+    "ring": CorpusRing, "key_walk", "key_train": prng keys, "stats": walk
+    counters as ints, "graph": CSRGraph (when the tree holds one)}."""
+    dev = resolve_device(device)
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    state = {
+        "phi_in": f32(tree["phi_in"]),
+        "phi_out": f32(tree["phi_out"]),
+        "ring": ring_import(tree["ring"], dev),
+        "key_walk": _key(tree["key_walk"]),
+        "key_train": _key(tree["key_train"]),
+        "stats": {k: int(np.asarray(v)) for k, v in tree.get("stats", {}).items()},
+    }
+    g = tree.get("graph")
+    if g is not None:
+        copy = lambda name, dtype: (None if name not in g else
+                                    torch.from_numpy(np.array(g[name], dtype)).to(dev))
+        state["graph"] = CSRGraph(
+            indptr=copy("indptr", np.int64), indices=copy("indices", np.int64),
+            weights=copy("weights", np.float32), edge_cm=copy("edge_cm", np.int32))
+    return state

@@ -1,0 +1,125 @@
+"""InCoM — incremental information-centric computing (paper §3.1).
+
+The walker's information state is the ten scalars of Example 1; this
+module keeps the seven that evolve, batched over walkers:
+
+* Theorem 1 / Eq. 8 — O(1) incremental entropy update,
+* Eq. 13 — O(1) incremental running means / cross-moment (with the
+  cross-moment erratum fix documented in ``repro_torch.core.info``),
+* Eq. 12 — R(H, L) from the running expectations.
+
+``n(v)`` is a masked count over the walker's fixed-length path buffer.
+The arithmetic is the reference's, op for op; only ``log2`` differs in
+its last bits between torch and XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass
+class InfoState:
+    """Per-walker incremental information state (all shape (B,), float32).
+
+    ``L`` is the current walk length (number of nodes, source included).
+    The running expectations are over the series {(L_i, H_i)}_{i=1..L},
+    seeded with the initial point (L=1, H=0).
+    """
+
+    H: torch.Tensor
+    L: torch.Tensor
+    EH: torch.Tensor
+    EL: torch.Tensor
+    EHL: torch.Tensor
+    EH2: torch.Tensor
+    EL2: torch.Tensor
+
+    @classmethod
+    def init(cls, batch: int, device) -> "InfoState":
+        z = torch.zeros(batch, dtype=torch.float32, device=device)
+        one = torch.ones(batch, dtype=torch.float32, device=device)
+        return cls(H=z, L=one, EH=z, EL=one, EHL=z, EH2=z, EL2=one)
+
+    def where(self, mask: torch.Tensor, other: "InfoState") -> "InfoState":
+        """Field-wise ``torch.where(mask, self, other)``."""
+        return InfoState(**{
+            f.name: torch.where(mask, getattr(self, f.name), getattr(other, f.name))
+            for f in dataclasses.fields(self)})
+
+
+def _xlogx(x: torch.Tensor) -> torch.Tensor:
+    """x * log2(x) with the 0*log(0) = 0 convention."""
+    safe = torch.where(x > 0, x, 1.0)
+    return torch.where(x > 0, x * torch.log2(safe), 0.0)
+
+
+def entropy_step(H: torch.Tensor, L: torch.Tensor, n_v: torch.Tensor) -> torch.Tensor:
+    """Theorem 1: H(W^{L+1}) from H(W^L), L, and n(v) of the accepted node.
+
+        H^{L+1} = (H^L * L - log2 T) / (L + 1)
+        log2 T  = L log2 L - (L+1) log2 (L+1) + (n+1) log2 (n+1) - n log2 n
+    """
+    n = n_v.to(torch.float32)
+    log_t = _xlogx(L) - _xlogx(L + 1.0) + _xlogx(n + 1.0) - _xlogx(n)
+    return (H * L - log_t) / (L + 1.0)
+
+
+def stats_step(s: InfoState, h_new: torch.Tensor, l_new: torch.Tensor,
+               reg_start: int = 1) -> InfoState:
+    """Eq. 13 running updates with the new series point (l_new, h_new),
+    the regression series starting at length L0 = ``reg_start``."""
+    p = torch.clamp_min(l_new - float(reg_start) + 1.0, 1.0)
+    w_prev = (p - 1.0) / p
+    return InfoState(
+        H=h_new,
+        L=l_new,
+        EH=w_prev * s.EH + h_new / p,
+        EL=w_prev * s.EL + l_new / p,
+        EHL=(w_prev * s.EHL) + (h_new * l_new) / p,
+        EH2=(w_prev * s.EH2) + (h_new * h_new) / p,
+        EL2=(w_prev * s.EL2) + (l_new * l_new) / p,
+    )
+
+
+def r_squared(s: InfoState, eps: float = 1e-12) -> torch.Tensor:
+    """Eq. 12: R^2(H, L) from the running expectations."""
+    cov = s.EHL - s.EH * s.EL
+    vh = torch.clamp_min(s.EH2 - s.EH * s.EH, 0.0)
+    vl = torch.clamp_min(s.EL2 - s.EL * s.EL, 0.0)
+    denom = vh * vl
+    return torch.where(denom > eps, (cov * cov) / torch.clamp_min(denom, eps), 0.0)
+
+
+def count_in_path(path: torch.Tensor, length: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """n(v): occurrences of v among the first ``length`` entries of ``path``.
+
+    path: (B, max_len) int32, padded with -1; length: (B,); v: (B,)."""
+    pos = torch.arange(path.shape[-1], device=path.device)[None, :]
+    hit = (path == v[:, None]) & (pos < length[:, None])
+    return hit.sum(dim=-1)
+
+
+def accept_update(
+    s: InfoState,
+    path: torch.Tensor,
+    v: torch.Tensor,
+    reg_start: int = 1,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[InfoState, torch.Tensor]:
+    """Apply one accepted step: n(v), H^{L+1}, running stats, and the path
+    with v appended at position L (on ``mask`` lanes only; an append past
+    the buffer writes nothing)."""
+    n_v = count_in_path(path, s.L.to(torch.int64), v)
+    h_new = entropy_step(s.H, s.L, n_v)
+    s_new = stats_step(s, h_new, s.L + 1.0, reg_start)
+    pos = torch.arange(path.shape[1], device=path.device)[None, :]
+    hit = pos == s.L.to(torch.int64)[:, None]
+    if mask is not None:
+        hit = hit & mask[:, None]
+    path_new = torch.where(hit, v[:, None].to(path.dtype), path)
+    return s_new, path_new

@@ -1,0 +1,109 @@
+"""Where the PyTorch port's time goes on the card, phase by phase.
+
+Runs the main path's two phases on one GPU — the first 40 walk supersteps
+of round 0 and 100 DSGL training steps over round 0's walks, as
+``embed_graph(PAPER_EMBED)`` runs them on the yt-sim R-MAT preset — each
+first timed plainly and then under ``torch.profiler``. For each phase it
+prints the wall time per step, the device-busy time per step (the sum of
+the kernels' times in the trace), their ratio, the kernel launches per
+step and the kernels that take the most device time.
+
+    PYTHONPATH=src python3 -m repro_torch.profile
+
+It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+PRESET = "yt-sim"
+SUPERSTEPS = 40
+STEPS = 100
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_window(torch, label: str, fn, count: int) -> None:
+    """Time ``fn`` (``count`` steps) plainly, then once more under the
+    profiler; print the per-step numbers and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+    busy_us = sum(_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f"[{label}] wall {wall / count * 1e3:.4f} ms/step over {count} steps; "
+          f"device busy {busy_us / count / 1e3:.4f} ms/step "
+          f"({busy_us / 1e6 / wall * 100:.2f}% of the plain wall time); "
+          f"{launches / count:.1f} device ops/step", flush=True)
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        print(f"[{label}]   {_device_us(e) / count / 1e3:9.4f} ms/step  x{e.count / count:6.1f}  "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("repro_torch.profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import prng
+    from repro_torch.configs.distger import GRAPH_PRESETS, PAPER_EMBED
+    from repro_torch.core.api import make_walk_plan
+    from repro_torch.core.dsgl import DSGLConfig, build_alias_table
+    from repro_torch.core.walker import _superstep, init_batch
+    from repro_torch.graph.generators import rmat_graph
+    from repro_torch.runtime.trainer import StreamingEmbedPipeline
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    preset = GRAPH_PRESETS[PRESET]
+    dev = torch.device("cuda")
+    graph = rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev)
+    cfg = PAPER_EMBED
+    policy, spec, rounds = make_walk_plan(cfg)
+    pipe = StreamingEmbedPipeline(
+        graph, policy, spec, rounds,
+        DSGLConfig(dim=cfg.dim, window=cfg.window, negatives=cfg.negatives,
+                   epochs=cfg.epochs, lr=cfg.lr, multi_windows=cfg.multi_windows,
+                   seed=cfg.seed))
+    print(f"[setup] {preset.name}: |V|={graph.num_nodes} Cm {pipe.cm_seconds:.3f} s", flush=True)
+
+    # Walks: the first supersteps of round 0, all lanes busy.
+    def walk_window():
+        st = init_batch(pipe.sources, prng.fold_in(prng.fold_in(pipe.key_walk, 0), 0), spec)
+        for _ in range(SUPERSTEPS):
+            st = _superstep(pipe.graph, policy, spec, st)
+            bool(st.active.any())                     # the loop's per-superstep sync
+
+    profile_window(torch, "walk", walk_window, SUPERSTEPS)
+
+    # Training: steps over round 0's ring slots, as the pipeline runs them.
+    pipe._append(pipe._run_round(0))
+    ocn = pipe.ring.ocn.cpu().numpy()
+    table = build_alias_table(ocn, pipe.cfg.neg_power, dev)
+    n = graph.num_nodes
+    profile_window(torch, "train",
+                   lambda: pipe._train_slots(0, n, ocn, STEPS, table=table),
+                   STEPS)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,224 @@
+"""The fused walk -> train pipeline (``StreamingEmbedPipeline``).
+
+Walk rounds append into a device-resident ``CorpusRing``; DSGL training
+consumes ring slots through one device gather per chunk of lifetimes, so
+walks never round-trip through host numpy between sampler and learner.
+
+Per round r the host (1) reads the (|V|,) occurrence counts back once —
+the Eq. 7 controller input, also used to build the round's negative alias
+table; (2) trains on round r's slots; (3) if the controller says continue,
+walks round r+1 and appends it. After sampling stops, training keeps
+consuming re-shuffled ring slots until the learning-rate schedule, fixed a
+priori at ``epochs * max_rounds * steps_per_round`` steps, completes.
+
+Every source of randomness is keyed off the run's state: round keys are
+fold_in(key_walk, r), chunk keys fold_in(key_train, global_step), so a run
+is a pure function of the graph and the configuration.
+
+This slice runs one replica (``num_shards=1``): the MPGP partition, the
+sharded walk engine and the hotness-block sync come with ``num_shards > 1``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core.corpus import Corpus, CorpusRing, ring_append, ring_to_numpy
+from repro_torch.core.dsgl import build_alias_table, init_embeddings, train_chunk
+from repro_torch.core.info import relative_entropy_dpq
+from repro_torch.core.termination import WalkCountController
+from repro_torch.core.walker import MAX_LANES, WalkerBatchState, run_walk_batch
+from repro_torch.data.pipeline import ring_chunk_indices
+
+
+class StreamingEmbedPipeline:
+    """walks -> device corpus ring -> DSGL, on one device."""
+
+    def __init__(self, graph, policy, spec, rounds_cfg: Dict, dsgl_cfg, *,
+                 num_shards: int = 1):
+        if num_shards != 1:
+            raise NotImplementedError(
+                "num_shards > 1 (MPGP partition, sharded walks, hotness sync) "
+                "is not ported yet")
+        self.cm_seconds = 0.0
+        if getattr(policy, "needs_edge_cm", False) and graph.edge_cm is None:
+            t0 = time.perf_counter()
+            graph = graph.with_edge_cm()
+            if graph.device.type == "cuda":
+                torch.cuda.synchronize(graph.device)
+            self.cm_seconds = time.perf_counter() - t0
+        self.graph = graph
+        self.device = graph.device
+        self.policy = policy
+        self.spec = spec
+        self.cfg = dsgl_cfg
+        self.num_shards = num_shards
+        self.controller = WalkCountController(**rounds_cfg)
+        self.degrees = graph.degrees().cpu().numpy()
+
+        n = graph.num_nodes
+        self.sources = torch.arange(n, device=self.device)
+        # Retain as many full rounds as fit a ~0.5 GB slot budget; older
+        # rounds retire on wrap. One round is the floor.
+        budget_rounds = max(1, (1 << 27) // max(spec.max_len * n, 1))
+        self.ring_rounds = min(self.controller.max_rounds, budget_rounds)
+        if self.ring_rounds * n * spec.max_len >= 2**31:
+            raise ValueError(
+                f"one walk round (|V|={n} x max_len={spec.max_len}) exceeds "
+                "the device corpus-ring budget")
+        self.ring = CorpusRing.create(self.ring_rounds * n, spec.max_len, n,
+                                      self.device)
+        per = dsgl_cfg.batch_groups * dsgl_cfg.multi_windows
+        self.steps_per_round = max(n // self.num_shards // per, 1)
+        self.total_steps = (dsgl_cfg.epochs * self.controller.max_rounds
+                            * self.steps_per_round)
+        self.global_step = 0
+
+        key = prng.PRNGKey(dsgl_cfg.seed)
+        self.key_walk, self.key_train, *rep_keys = prng.split(key, 2 + num_shards)
+        reps = [init_embeddings(n, dsgl_cfg.dim, k, self.device) for k in rep_keys]
+        self.phi_in = torch.stack([r[0] for r in reps])      # (S, N, d)
+        self.phi_out = torch.stack([r[1] for r in reps])
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._stats: Dict[str, Any] = {"supersteps": 0, "accepts": zero,
+                                       "rejects": zero}
+        self.batch_supersteps: List[int] = []   # supersteps of every walk batch
+        self.phase_s = {"walk": 0.0, "train": 0.0}  # host wall time per phase
+
+    def adopt_state(self, state: Dict[str, Any]) -> None:
+        """Continue from imported state (``convert.from_reference_state``):
+        the replica matrices, the ring and both RNG keys."""
+        self.phi_in = state["phi_in"].to(self.device)
+        self.phi_out = state["phi_out"].to(self.device)
+        self.ring = state["ring"]
+        self.key_walk, self.key_train = state["key_walk"], state["key_train"]
+
+    # --- walk side --------------------------------------------------------
+    def _run_round(self, r: int) -> List[Tuple[torch.Tensor, WalkerBatchState]]:
+        """Walk round r from every source; returns (chunk sources, state) pairs."""
+        round_key = prng.fold_in(self.key_walk, r)
+        pairs = []
+        for start in range(0, len(self.sources), MAX_LANES):
+            chunk = self.sources[start:start + MAX_LANES]
+            pairs.append((chunk, run_walk_batch(
+                self.graph, chunk, prng.fold_in(round_key, start),
+                self.policy, self.spec)))
+        return pairs
+
+    def _append(self, pairs) -> None:
+        for _, st in pairs:
+            ring_append(self.ring, st.path, st.info.L)
+            self._stats["supersteps"] += st.supersteps
+            self._stats["accepts"] = self._stats["accepts"] + st.accepts
+            self._stats["rejects"] = self._stats["rejects"] + st.rejects
+            self.batch_supersteps.append(st.supersteps)
+
+    # --- train side -------------------------------------------------------
+    def _lrs(self, count: int) -> np.ndarray:
+        fracs = (self.global_step + np.arange(count)) / max(self.total_steps, 1)
+        return np.maximum(self.cfg.lr * (1.0 - fracs),
+                          self.cfg.min_lr).astype(np.float32)
+
+    def _train_slots(self, base: int, pool: int, ocn_host: np.ndarray,
+                     steps: int, table=None) -> None:
+        """Train ``steps`` lifetime batches over ring slots [base, base+pool)."""
+        cfg = self.cfg
+        if table is None:
+            table = build_alias_table(ocn_host, cfg.neg_power, self.device)
+        chunk = max(min(cfg.sync_period, steps), 1)
+        done = 0
+        while done < steps:
+            count = min(chunk, steps - done)
+            idx = ring_chunk_indices(
+                prng.fold_in(self.key_train, self.global_step), base, pool,
+                count, self.num_shards, cfg.batch_groups, cfg.multi_windows,
+                self.device)
+            walks = self.ring.walks[idx]                   # (C,S,G,W,T) gather
+            key = prng.fold_in(self.key_train,
+                               2 * self.total_steps + self.global_step)
+            train_chunk(self.phi_in, self.phi_out, walks, table, key,
+                        self._lrs(count), cfg.window, cfg.negatives)
+            self.global_step += count
+            done += count
+
+    # --- run loop ---------------------------------------------------------
+    def _timed(self, phase: str, fn, *args, **kwargs) -> None:
+        """Run one phase and add its wall time, the device drained at the end
+        (one sync per round: the walk loop syncs every superstep anyway)."""
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.phase_s[phase] += time.perf_counter() - t0
+
+    def _walk(self, r: int) -> None:
+        self._timed("walk", lambda: self._append(self._run_round(r)))
+
+    def _train(self, *args, **kwargs) -> None:
+        self._timed("train", self._train_slots, *args, **kwargs)
+
+    def run(self) -> Dict[str, Any]:
+        """Walk rounds gated by the ΔD controller, training each round, then
+        the schedule-completion tail. Returns the run's summary."""
+        t0 = time.perf_counter()
+        n = len(self.sources)
+        self._walk(0)
+        r = 0
+        while True:
+            ocn_host = self.ring.ocn.cpu().numpy()            # per-round sync
+            cont = self.controller.update_d(
+                relative_entropy_dpq(self.degrees, ocn_host))
+            self._train((r * n) % self.ring.capacity, n, ocn_host,
+                        self.steps_per_round)
+            if not cont:
+                break
+            self._walk(r + 1)
+            r += 1
+
+        # Tail: re-consume the filled ring until the a-priori lr schedule
+        # ends. ocn is frozen now, so one alias table serves every call.
+        ocn_host = self.ring.ocn.cpu().numpy()
+        filled = self.ring.num_filled
+        table = build_alias_table(ocn_host, self.cfg.neg_power, self.device)
+        while self.global_step < self.total_steps:
+            self._train(0, filled, ocn_host,
+                        min(self.steps_per_round,
+                            self.total_steps - self.global_step), table=table)
+
+        phi_in, phi_out = self.embeddings()
+        return {
+            "phi_in": phi_in, "phi_out": phi_out,
+            "rounds": self.controller.rounds,
+            "steps": self.global_step,
+            "ring": self.ring,
+            "stats": self.stats(),
+            "cm_s": self.cm_seconds,
+            "wall_s": time.perf_counter() - t0,
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        stats = {k: int(v) for k, v in self._stats.items()}
+        stats["mean_len"] = (float(self.ring.lengths.sum())
+                             / max(self.ring.num_filled, 1))
+        stats["d_history"] = list(self.controller.history)
+        stats["batch_supersteps"] = list(self.batch_supersteps)
+        stats["phase_s"] = dict(self.phase_s)
+        return stats
+
+    def corpus(self) -> Corpus:
+        """The ring as a host ``Corpus`` (API boundary only)."""
+        walks, lengths = ring_to_numpy(self.ring)
+        stats = self.stats()
+        stats["mean_len"] = float(lengths.mean()) if len(lengths) else 0.0
+        return Corpus(walks=walks, lengths=lengths,
+                      ocn=self.ring.ocn.cpu().numpy().astype(np.int64),
+                      rounds=self.controller.rounds, stats=stats)
+
+    def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Current (phi_in, phi_out) in node space (the one replica)."""
+        return self.phi_in[0], self.phi_out[0]

@@ -1,0 +1,99 @@
+"""The PyTorch port end to end, against the JAX reference; and the rules
+the port keeps: it imports neither JAX nor the reference package, and a
+run asked for the card never falls back to the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks.common import link_prediction_auc as reference_auc
+from repro.core.api import EmbedConfig as JaxEmbedConfig
+from repro.core.api import embed_graph as jax_embed_graph
+from repro_torch.core.api import EmbedConfig, embed_graph
+from repro_torch.eval import link_prediction_auc
+from repro_torch.graph.generators import rmat_graph
+
+# Small CPU tensors, and several test workers share the cores: one
+# intra-op thread each keeps torch's thread pool from spinning against them.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("lr,auc_floor", [(0.05, None), (0.01, 0.8)])
+def test_embed_graph_auc_matches_reference(medium_graph, lr, auc_floor):
+    """The tests/test_e2e.py recipe at num_shards=1, both packages, one
+    scorer: the port within 0.02 of the reference. At the recipe's lr 0.05
+    a single replica overshoots and the reference itself stays far below
+    0.8 (its 0.87 there needs two replicas), so the > 0.8 bar is held at
+    lr 0.01. Run with -s to see both AUCs."""
+    kw = dict(dim=32, epochs=1, lr=lr, delta=1e-4, max_len=40, min_len=10,
+              window=6, negatives=4)
+    ref_in, _ = jax_embed_graph(medium_graph, JaxEmbedConfig(**kw), num_shards=1)
+    graph = rmat_graph(1024, 10, seed=3, device="cpu")
+    phi_in, phi_out, stats = embed_graph(graph, EmbedConfig(**kw), num_shards=1,
+                                         return_stats=True, device="cpu")
+    assert phi_in.shape == (1024, 32) and torch.isfinite(phi_in).all()
+    assert torch.isfinite(phi_out).all()
+    assert stats["steps"] == 20 * (1024 // 128)
+    auc_ref = link_prediction_auc(graph, np.asarray(ref_in), np.random.default_rng(0))
+    auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0))
+    # The port's scorer draws the reference scorer's pairs: same AUC.
+    assert auc_ref == reference_auc(medium_graph, np.asarray(ref_in),
+                                    np.random.default_rng(0))
+    print(f"lr {lr}: AUC port {auc:.6f}, reference {auc_ref:.6f}")
+    assert abs(auc - auc_ref) <= 0.02, (auc, auc_ref)
+    if auc_floor is not None:
+        assert auc > auc_floor, auc
+
+
+def test_num_shards_above_one_is_not_ported(small_graph):
+    graph = rmat_graph(256, 8, seed=7, device="cpu")
+    with pytest.raises(NotImplementedError):
+        embed_graph(graph, EmbedConfig(dim=8, max_len=12, min_len=4),
+                    num_shards=2, device="cpu")
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the request succeeds")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rmat_graph(64, 4, seed=0)                      # device defaults to "cuda"
+    graph = rmat_graph(64, 4, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        embed_graph(graph, EmbedConfig(dim=8, max_len=12, min_len=4))
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    bad = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)[\s.])")
+    offending = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+                 for p in _port_sources()
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if bad.match(line)]
+    assert not offending, offending
+
+
+def test_importing_the_port_loads_neither_jax_nor_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
