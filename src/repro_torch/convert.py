@@ -1,9 +1,13 @@
-"""Import the JAX pipeline's state into the port.
+"""Import the JAX package's state into the port.
 
 ``from_reference_state`` takes the state of ``repro``'s
 ``StreamingEmbedPipeline`` (its ``_state_tree()``, with every array
 already converted to numpy) and returns the port's tensors on a chosen
 device, so that both packages can continue from the same state.
+
+``lm_params_from_reference`` takes a language model's parameters from the
+reference's ``init_params`` (as numpy) and returns them in the port's
+layout, so that both packages compute with the same weights.
 """
 
 from __future__ import annotations
@@ -45,3 +49,37 @@ def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
             indptr=copy("indptr", np.int64), indices=copy("indices", np.int64),
             weights=copy("weights", np.float32), edge_cm=copy("edge_cm", np.int32))
     return state
+
+
+def _map(tree, fn):
+    """``fn`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tensor(leaf, dev) -> torch.Tensor:
+    a = np.array(leaf)
+    if a.dtype.name == "bfloat16":      # numpy's bfloat16 extension type: exact via f32
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(a).to(dev)
+
+
+def lm_params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """Reference LM parameters (numpy leaves) -> the port's tree.
+
+    Every ``group_<i>`` of the reference stacks its repetitions on a
+    leading axis (``wq`` (L, d, H, hd), ``ln1.scale`` (L, d), ...); the port
+    keeps a list with one dict per repetition. Other entries (``embed``,
+    ``final_norm``) carry over as they are. Dtypes are kept."""
+    dev = resolve_device(device)
+    out = {}
+    for name, sub in tree.items():
+        if name.startswith("group_"):
+            lengths = set()
+            _map(sub, lambda a: lengths.add(len(a)))
+            (n_rep,) = lengths             # every leaf stacks the same repetitions
+            out[name] = [_map(sub, lambda a, r=r: _tensor(a[r], dev)) for r in range(n_rep)]
+        else:
+            out[name] = _map(sub, lambda a: _tensor(a, dev))
+    return out

@@ -21,7 +21,8 @@ import torch
 from repro_torch import prng
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.transition import Policy
-from repro_torch.core.walker import MAX_LANES, WalkSpec, batch_stats, run_walk_batch
+from repro_torch.core.walker import (MAX_LANES, REF_CHUNK, LaneKeys, WalkSpec, batch_stats,
+                                    run_walk_batch)
 from repro_torch.graph.csr import CSRGraph
 
 
@@ -137,10 +138,18 @@ def generate_corpus(
     keep_walking = True
     while keep_walking:
         key, round_key = prng.split(key)
-        for start in range(0, n, MAX_LANES):
+        # The reference splits a fresh key off the round key for each of its
+        # REF_CHUNK-source chunks in turn: a chain, derived on the host once
+        # per round (one split per chunk).
+        chunk_keys = []
+        for _ in range(0, n, REF_CHUNK):
             round_key, k = prng.split(round_key)
-            st = run_walk_batch(graph, sources[start:start + MAX_LANES], k,
-                                policy, spec)
+            chunk_keys.append(k)
+        for start in range(0, n, MAX_LANES):
+            chunk = sources[start:start + MAX_LANES]
+            keys = LaneKeys.of(chunk_keys[start // REF_CHUNK:(start + MAX_LANES) // REF_CHUNK],
+                               REF_CHUNK, len(chunk), dev)
+            st = run_walk_batch(graph, chunk, keys, policy, spec)
             ring_append(ring, st.path, st.info.L)
             s = batch_stats(st)
             for field in agg:

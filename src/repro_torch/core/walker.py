@@ -13,7 +13,9 @@ reference's loop runs.
 
 Two information modes: ``incom`` (DistGER) and ``fixed`` (routine walks of
 ``fixed_len``). RNG is per lane and stateless (``rng_mode="lane"``): lane
-i's draws at superstep t depend only on (root key, t, i).
+i's draws at superstep t depend only on (its block's key, t, i % width),
+where a batch's lanes fall into blocks of ``width`` lanes, each with its
+own key (``LaneKeys``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,16 @@ from repro_torch.graph.csr import CSRGraph
 # Most lanes in one walk batch. A batch's state takes about 2 KB per lane at
 # max_len=100 (a whole yt-sim run, 1.14 M lanes in one batch, peaks at
 # 3.9 GiB on an 80 GB H100), so every preset up to or-sim walks a round as
-# one batch. Lane draws are keyed by batch position, so this is fixed rather
-# than chosen per call: the walks are a function of the graph and the
-# configuration. Up to 4,096 sources it matches the reference's batching.
+# one batch.
 MAX_LANES = 1 << 22
+# The reference pipeline's chunk width: it walks a round in chunks of this
+# many sources (``walker_batch`` of ``repro.runtime.trainer``'s pipeline and
+# of ``repro.core.corpus.generate_corpus``), each chunk under its own key,
+# lane j of a chunk drawing counter j. The port walks up to MAX_LANES lanes
+# at once and gives lane i the key of the reference's chunk i // REF_CHUNK
+# and counter i % REF_CHUNK, so its walks are the reference's, bit for bit,
+# at any |V|. A constant of the reference's stream, not a knob.
+REF_CHUNK = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +76,55 @@ class WalkSpec:
         return max(self.min_len, self.reg_start + 3)
 
 
+# Supersteps whose block keys derive together, in one device pass: the
+# key schedule of a superstep is three threefry passes over the blocks, a
+# few hundred tiny device ops, so it runs once per this many supersteps.
+STEP_KEY_WINDOW = 64
+
+
+class LaneKeys:
+    """The keys of one walk batch of ``lanes`` lanes: lane i draws what a
+    batch keyed ``(k0[i // width], k1[i // width])`` draws at its lane
+    ``i % width``."""
+
+    def __init__(self, k0: torch.Tensor, k1: torch.Tensor, width: int, lanes: int):
+        self.k0, self.k1, self.width = k0, k1, int(width)   # (blocks,) int64 key words
+        lane = torch.arange(lanes, dtype=torch.int64, device=k0.device)
+        self.block = lane // self.width
+        self.counter = lane - self.block * self.width
+        self._window = (None, None)          # (first superstep, its step keys)
+
+    @staticmethod
+    def of(keys, width: int, lanes: int, device) -> "LaneKeys":
+        k = torch.tensor(list(keys), dtype=torch.int64).reshape(-1, 2).to(device)
+        return LaneKeys(k[:, 0], k[:, 1], width, lanes)
+
+    @staticmethod
+    def for_round(round_key: prng.Key, first: int, b: int, device) -> "LaneKeys":
+        """Lanes ``first .. first + b`` of a round as the reference pipeline
+        keys them: chunk ``start`` under ``fold_in(round_key, start)``,
+        computed on the device for every block at once."""
+        if first % REF_CHUNK:
+            raise ValueError(f"a batch starts on a {REF_CHUNK}-lane block, not {first}")
+        starts = torch.arange(first, first + b, REF_CHUNK, dtype=torch.int64,
+                              device=device)
+        k0, k1 = prng.fold_in_tensor(round_key[0], round_key[1], starts)
+        return LaneKeys(k0, k1, REF_CHUNK, b)
+
+    def step_keys(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """split(fold_in(block key, t)) for every block: (k0, k1), each
+        (2, blocks), row 0 the candidate draw's key and row 1 the accept
+        draw's. Derived for STEP_KEY_WINDOW supersteps at a time."""
+        t0 = t - t % STEP_KEY_WINDOW
+        if self._window[0] != t0:
+            ts = torch.arange(t0, t0 + STEP_KEY_WINDOW, dtype=torch.int64,
+                              device=self.k0.device)[:, None]
+            s0, s1 = prng.fold_in_tensor(self.k0[None], self.k1[None], ts)
+            self._window = (t0, prng.split_tensor(s0, s1))     # each (2, T, blocks)
+        k0, k1 = self._window[1]
+        return k0[:, t - t0], k1[:, t - t0]
+
+
 @dataclasses.dataclass
 class WalkerBatchState:
     """State of one batch of walkers."""
@@ -77,13 +134,13 @@ class WalkerBatchState:
     path: torch.Tensor         # (B, max_len) int32, -1 padded
     info: incom.InfoState      # (B,) scalars
     active: torch.Tensor       # (B,) bool
-    key: prng.Key              # root key; lane keys derive from (key, t, lane)
+    keys: LaneKeys             # lane i's draws derive from (its block key, t, i % width)
     supersteps: int = 0
     accepts: torch.Tensor = None   # () int64
     rejects: torch.Tensor = None   # () int64
 
 
-def init_batch(sources: torch.Tensor, key: prng.Key, spec: WalkSpec) -> WalkerBatchState:
+def init_batch(sources: torch.Tensor, keys: LaneKeys, spec: WalkSpec) -> WalkerBatchState:
     b, dev = sources.shape[0], sources.device
     path = torch.full((b, spec.max_len), -1, dtype=torch.int32, device=dev)
     path[:, 0] = sources.to(torch.int32)
@@ -92,14 +149,16 @@ def init_batch(sources: torch.Tensor, key: prng.Key, spec: WalkSpec) -> WalkerBa
         cur=sources.to(torch.int64), prev=sources.to(torch.int64), path=path,
         info=incom.InfoState.init(b, dev),
         active=torch.ones(b, dtype=torch.bool, device=dev),
-        key=key, accepts=zero, rejects=zero)
+        keys=keys, accepts=zero, rejects=zero)
 
 
-def step_uniforms(root_key: prng.Key, superstep: int, b: int,
-                  device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u_cand, u_accept), each (B,): lane i's draws are a pure function of
-    (root, superstep, i). Both come from one threefry pass."""
-    u = prng.uniform(prng.split(prng.fold_in(root_key, superstep)), (b,), device)
+def step_uniforms(keys: LaneKeys, superstep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u_cand, u_accept), each (B,): what the reference's ``step_uniforms``
+    draws for lane i % width under block key i // width — split(fold_in(key,
+    superstep)) gives (k1, k2) and the lane reads counter i % width of each.
+    The block keys derive on the device, then one threefry pass draws both."""
+    k0, k1 = keys.step_keys(superstep)                         # (2, blocks)
+    u = prng.uniform_at(k0[:, keys.block], k1[:, keys.block], keys.counter)
     return u[0], u[1]
 
 
@@ -138,7 +197,7 @@ def absorb(spec: WalkSpec, info: incom.InfoState, path: torch.Tensor,
 
 def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
                st: WalkerBatchState) -> WalkerBatchState:
-    u1, u2 = step_uniforms(st.key, st.supersteps, st.cur.shape[0], st.cur.device)
+    u1, u2 = step_uniforms(st.keys, st.supersteps)
     cand, _, accept_raw, has_nbrs = propose(graph, policy, st.cur, st.prev, u1, u2)
     accept = st.active & accept_raw
     dead_end = st.active & ~has_nbrs     # no neighbours: terminate now
@@ -149,17 +208,19 @@ def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
         path=new_path,
         info=new_info,
         active=st.active & ~(done_now | dead_end),
-        key=st.key,
+        keys=st.keys,
         supersteps=st.supersteps + 1,
         accepts=st.accepts + accept.sum(),
         rejects=st.rejects + (st.active & has_nbrs & ~accept_raw).sum(),
     )
 
 
-def run_walk_batch(graph: CSRGraph, sources: torch.Tensor, key: prng.Key,
+def run_walk_batch(graph: CSRGraph, sources: torch.Tensor, keys: LaneKeys,
                    policy: Policy, spec: WalkSpec) -> WalkerBatchState:
-    """Run one walk per source until every lane terminates (or the cap)."""
-    st = init_batch(sources, key, spec)
+    """Run one walk per source until every lane terminates (or the cap).
+    ``supersteps`` counts the supersteps of this batch, the most any of its
+    blocks needs."""
+    st = init_batch(sources, keys, spec)
     cap = spec.supersteps_cap()
     while st.supersteps < cap and bool(st.active.any()):   # host sync
         st = _superstep(graph, policy, spec, st)

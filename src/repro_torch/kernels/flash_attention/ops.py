@@ -1,0 +1,107 @@
+"""Dispatch for flash attention (online softmax, GQA-native).
+
+``flash_attention`` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D).
+Tensors on the CPU go to the plain version (``ref.mha_reference``);
+tensors on the card go to the CUDA kernel (``csrc/flash_attention.cu``),
+or the call raises — there is no fallback from the card to the plain
+version. The kernel reads ragged lengths with bounds checks, so the
+wrapper pads nothing; it still refuses what the reference's wrapper
+refuses (non-causal attention over a key length that is not a multiple
+of the reference's key tile), so the two stay interchangeable.
+
+``LAUNCHES`` counts kernel launches, so that a run can show it went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.flash_attention import ref
+
+LAUNCHES = 0
+REF_BLOCK_K = 256                 # the reference wrapper's default key tile
+HEAD_DIMS = (16, 32, 64, 96, 128)  # head dimensions the kernel is built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = ([ptr] * 4 + [i32] * 9
+                                           + [ctypes.c_float, ptr])
+    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_error_string.argtypes = [i32]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary("flash_attention",
+                      Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+                      _declare)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """softmax(q kᵀ · sm_scale) v per query head, the query head h reading
+    KV head h // (Hq / Hkv); with ``causal``, query i sees keys
+    j <= i + q_offset. sm_scale defaults to D ** -0.5. Returns q's dtype."""
+    skv = k.shape[2]
+    if not causal and skv % min(REF_BLOCK_K, max(skv, 1)) != 0:
+        raise ValueError("non-causal flash requires Skv % block_k == 0")
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return ref.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, bool(causal), float(sm_scale), int(q_offset))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous rows at a 16-byte-aligned base: the kernel loads 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float, q_offset: int) -> torch.Tensor:
+    global LAUNCHES
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be 4-D (B, H, S, D)")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k and v must share one of "
+                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if tuple(k.shape) != (b, hkv, skv, d) or tuple(v.shape) != (b, hkv, skv, d):
+        raise ValueError(f"flash_attention: k and v must be {(b, hkv, skv, d)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of Hkv={hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid's 65,535 rows")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            b, hq, hkv, sq, skv, d, int(causal), q_offset, ctypes.c_float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    LAUNCHES += 1
+    return out

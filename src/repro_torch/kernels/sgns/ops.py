@@ -14,14 +14,33 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.sgns import build, ref
+from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.sgns import ref
 
 LAUNCHES = 0
 SMEM_LIMIT = 232_448     # bytes of shared memory one Hopper block may use
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sgns_lifetime_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr]
+    lib.sgns_lifetime_launch.restype = i32
+    lib.sgns_lifetime_smem_bytes.argtypes = [i32] * 5
+    lib.sgns_lifetime_smem_bytes.restype = ctypes.c_size_t
+    lib.sgns_lifetime_max_cols.argtypes = []
+    lib.sgns_lifetime_max_cols.restype = i32
+    lib.sgns_lifetime_error_string.argtypes = [i32]
+    lib.sgns_lifetime_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary("sgns_lifetime",
+                      Path(__file__).resolve().parent / "csrc" / "sgns_lifetime.cu",
+                      _declare)
 
 
 def sgns_lifetime_batch(
@@ -53,7 +72,7 @@ def _launch(ctx, out, neg, valid, lr: float, window: int):
     if tuple(valid.shape) != (g_cnt, w_cnt, t_len) or valid.device != ctx.device:
         raise ValueError(f"sgns_lifetime_batch: valid must be {(g_cnt, w_cnt, t_len)} "
                          f"on {ctx.device}, got {tuple(valid.shape)} on {valid.device}")
-    lib = build.load()
+    lib = LIBRARY.load()
     if w_cnt + k > lib.sgns_lifetime_max_cols():
         raise ValueError(f"sgns_lifetime_batch: W + K = {w_cnt + k} exceeds "
                          f"{lib.sgns_lifetime_max_cols()} target columns")

@@ -1,0 +1,154 @@
+"""Decoder LM assembly: blocks, layer groups, KV caches, prefill and decode.
+
+The port of the JAX package's ``models/transformer.py`` for attention
+blocks (kind ``"a"``) without MLA or MoE. ``cfg.block_cycle`` repeats to
+cover ``num_layers`` as in the reference (``_groups``), but the layers of
+a group are a list of per-repetition dicts run by an ordinary loop, not a
+stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
+Caches mirror the same structure. ``repro_torch.convert.lm_params_from_reference``
+unstacks a reference tree into this layout.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
+)
+
+Params = Dict[str, Any]
+
+
+def _check(cfg: ModelConfig) -> None:
+    """Refuse what this slice does not run, naming where it is planned."""
+    if cfg.use_mla:
+        raise NotImplementedError("MLA attention is not ported yet (ROADMAP.md item 12)")
+    if cfg.moe:
+        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md item 12)")
+    if cfg.encdec or cfg.frontend != "none":
+        raise NotImplementedError("encoder-decoder models and frontends are not "
+                                  "ported yet (ROADMAP.md item 12)")
+    kinds = set(cfg.block_cycle) - {"a"}
+    if kinds:
+        raise NotImplementedError(f"block kinds {sorted(kinds)} (mamba2 / xLSTM mixers, "
+                                  "kernel K3) are not ported yet (ROADMAP.md item 12)")
+
+
+def _groups(cfg: ModelConfig):
+    cyc, n, rem = cfg.layer_cycles
+    out = []
+    if n:
+        out.append((tuple(cyc), n))
+    if rem:
+        out.append((tuple(rem), 1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One block
+# ---------------------------------------------------------------------------
+
+def init_block(gen, cfg: ModelConfig, dtype, device) -> Params:
+    d = cfg.d_model
+    return {
+        "ln1": init_rmsnorm(d, dtype, device),
+        "attn": attn_mod.init_attention(gen, cfg, dtype, device),
+        "ln2": init_rmsnorm(d, dtype, device),
+        "ffn": init_mlp(gen, d, cfg.d_ff, dtype, device),
+    }
+
+
+def apply_block(x, p: Params, cfg: ModelConfig, positions, *, cache=None,
+                cache_len=None, causal: bool = True):
+    """Pre-norm attention, then pre-norm SwiGLU; the cache fills in place."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=causal,
+                               cache=cache, cache_len=cache_len)
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(h, p["ffn"])
+
+
+# ---------------------------------------------------------------------------
+# Parameters and caches
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random weights with the reference's distribution (N(0, 1) times
+    fan_in ** -0.5, the embedding table at scale 1.0, cast to cfg.dtype),
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    The bits are not JAX's; ``convert`` carries a reference tree over."""
+    _check(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p: Params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, dev,
+                                cfg.tie_embeddings),
+        "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+    for gi, (pattern, n_rep) in enumerate(_groups(cfg)):
+        p[f"group_{gi}"] = [{f"b{j}": init_block(gen, cfg, dtype, dev)
+                             for j in range(len(pattern))} for _ in range(n_rep)]
+    return p
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Params:
+    _check(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    return {f"group_{gi}": [{f"b{j}": attn_mod.init_cache(cfg, batch, max_len, dtype, dev)
+                             for j in range(len(pattern))} for _ in range(n_rep)]
+            for gi, (pattern, n_rep) in enumerate(_groups(cfg))}
+
+
+def _run_groups(params: Params, x, cfg: ModelConfig, positions, *,
+                caches: Optional[Params] = None, cache_len=None, causal: bool = True):
+    for gi, (pattern, _) in enumerate(_groups(cfg)):
+        reps: List[Params] = params[f"group_{gi}"]
+        for r, rep in enumerate(reps):
+            for j in range(len(pattern)):
+                cache = caches[f"group_{gi}"][r][f"b{j}"] if caches is not None else None
+                x = apply_block(x, rep[f"b{j}"], cfg, positions, cache=cache,
+                                cache_len=cache_len, causal=causal)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def forward_loss(params, cfg, tokens, labels):
+    raise NotImplementedError("training (forward_loss, K2's backward, the optimizer "
+                              "and Trainer) is not ported yet (ROADMAP.md item 12)")
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int) -> Tuple[torch.Tensor, Params]:
+    """Fill fresh caches with a prompt (B, S); returns (last-token logits
+    (B, vocab) in cfg.dtype, caches)."""
+    b, s = tokens.shape
+    x = embed(tokens, params["embed"])
+    positions = torch.arange(s, device=x.device)
+    caches = init_caches(cfg, b, max_len, x.device)
+    x = _run_groups(params, x, cfg, positions, caches=caches)
+    x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"])[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, caches: Params,
+                token: torch.Tensor, cache_len: int) -> Tuple[torch.Tensor, Params]:
+    """One serving step: token (B, 1) given ``cache_len`` cached tokens.
+    The caches are updated in place and returned."""
+    x = embed(token, params["embed"])
+    positions = cache_len + torch.arange(1, device=x.device)
+    x = _run_groups(params, x, cfg, positions, caches=caches, cache_len=cache_len)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"])[:, 0], caches

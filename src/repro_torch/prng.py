@@ -64,6 +64,27 @@ def split(key: Key, num: int = 2) -> list:
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
+def fold_in_tensor(k0, k1, data):
+    """``fold_in`` elementwise: key words and data are int64 tensors or
+    ints, broadcast together. Returns the new key words (k0, k1)."""
+    return threefry2x32(k0, k1, 0, data & M32)
+
+
+def split_tensor(k0: torch.Tensor, k1: torch.Tensor, num: int = 2):
+    """``split`` elementwise over tensors of keys: (k0, k1), each of shape
+    (num, *k0.shape), row i the i-th subkey of every key."""
+    parts = [threefry2x32(k0, k1, 0, i) for i in range(num)]
+    return (torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+
+
+def uniform_at(k0: torch.Tensor, k1: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """Element ``counter`` of ``uniform(key, shape)`` for each key (k0, k1),
+    broadcast elementwise: the draw depends on the position only, not on
+    the shape drawn. Counters lie below 2**32."""
+    b0, b1 = threefry2x32(k0, k1, 0, counter)
+    return _bits_to_unit_float(b0 ^ b1)
+
+
 def _is_single(key: KeyLike) -> bool:
     return isinstance(key[0], int)
 

@@ -1,8 +1,11 @@
 """Where the PyTorch port's time goes on the card, phase by phase.
 
-Runs the main path's two phases on one GPU — the first 40 walk supersteps
-of round 0 and 100 DSGL training steps over round 0's walks, as
-``embed_graph(PAPER_EMBED)`` runs them on the yt-sim R-MAT preset — each
+Runs the embedding path's two phases on one GPU — the first 40 walk
+supersteps of round 0 and 100 DSGL training steps over round 0's walks,
+as ``embed_graph(PAPER_EMBED)`` runs them on the yt-sim R-MAT preset —
+and the LM serving path's two — one prefill of 4 prompts of 2,048 tokens
+and 10 decode steps after it, qwen3-1.7b at full width over a
+4,096-position cache, as ``chip_smoke.py``'s server runs them — each
 first timed plainly and then under ``torch.profiler``. For each phase it
 prints the wall time per step, the device-busy time per step (the sum of
 the kernels' times in the trace), their ratio, the kernel launches per
@@ -22,6 +25,7 @@ import time
 PRESET = "yt-sim"
 SUPERSTEPS = 40
 STEPS = 100
+LM_ARCH, LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = "qwen3-1.7b", 4, 2048, 4096, 10
 
 
 def _device_us(evt) -> float:
@@ -66,7 +70,7 @@ def main() -> int:
     from repro_torch.configs.distger import GRAPH_PRESETS, PAPER_EMBED
     from repro_torch.core.api import make_walk_plan
     from repro_torch.core.dsgl import DSGLConfig, build_alias_table
-    from repro_torch.core.walker import _superstep, init_batch
+    from repro_torch.core.walker import LaneKeys, _superstep, init_batch
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.runtime.trainer import StreamingEmbedPipeline
 
@@ -87,7 +91,9 @@ def main() -> int:
 
     # Walks: the first supersteps of round 0, all lanes busy.
     def walk_window():
-        st = init_batch(pipe.sources, prng.fold_in(prng.fold_in(pipe.key_walk, 0), 0), spec)
+        keys = LaneKeys.for_round(prng.fold_in(pipe.key_walk, 0), 0,
+                                  len(pipe.sources), dev)
+        st = init_batch(pipe.sources, keys, spec)
         for _ in range(SUPERSTEPS):
             st = _superstep(pipe.graph, policy, spec, st)
             bool(st.active.any())                     # the loop's per-superstep sync
@@ -102,7 +108,35 @@ def main() -> int:
     profile_window(torch, "train",
                    lambda: pipe._train_slots(0, n, ocn, STEPS, table=table),
                    STEPS)
+    del pipe, graph, table
+    torch.cuda.empty_cache()
+    lm_windows(torch, dev)
     return 0
+
+
+def lm_windows(torch, dev) -> None:
+    """One prefill and the decode steps after it, as the server runs them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config(LM_ARCH)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    prefill, decode = zoo.prefill_fn(cfg, LM_MAX_LEN), zoo.decode_fn(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_SLOTS, LM_PROMPT), generator=gen, device=dev)
+    state = {}
+
+    def prefill_window():
+        state["logits"], state["caches"] = prefill(params, {"tokens": tokens})
+
+    def decode_window():
+        logits, caches = state["logits"], state["caches"]
+        for t in range(LM_DECODE_STEPS):
+            cur = torch.argmax(logits, dim=-1)[:, None]
+            logits, caches = decode(params, caches, cur, LM_PROMPT + t)
+
+    profile_window(torch, "prefill", prefill_window, 1)
+    profile_window(torch, "decode", decode_window, LM_DECODE_STEPS)
 
 
 if __name__ == "__main__":

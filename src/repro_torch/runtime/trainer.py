@@ -32,7 +32,7 @@ from repro_torch.core.corpus import Corpus, CorpusRing, ring_append, ring_to_num
 from repro_torch.core.dsgl import build_alias_table, init_embeddings, train_chunk
 from repro_torch.core.info import relative_entropy_dpq
 from repro_torch.core.termination import WalkCountController
-from repro_torch.core.walker import MAX_LANES, WalkerBatchState, run_walk_batch
+from repro_torch.core.walker import MAX_LANES, LaneKeys, WalkerBatchState, run_walk_batch
 from repro_torch.data.pipeline import ring_chunk_indices
 
 
@@ -100,14 +100,17 @@ class StreamingEmbedPipeline:
 
     # --- walk side --------------------------------------------------------
     def _run_round(self, r: int) -> List[Tuple[torch.Tensor, WalkerBatchState]]:
-        """Walk round r from every source; returns (chunk sources, state) pairs."""
+        """Walk round r from every source; returns (chunk sources, state)
+        pairs. Lane i draws what the reference pipeline's lane i draws: the
+        key of its 4,096-source chunk (``walker.REF_CHUNK``) is
+        fold_in(round_key, chunk start)."""
         round_key = prng.fold_in(self.key_walk, r)
         pairs = []
         for start in range(0, len(self.sources), MAX_LANES):
             chunk = self.sources[start:start + MAX_LANES]
-            pairs.append((chunk, run_walk_batch(
-                self.graph, chunk, prng.fold_in(round_key, start),
-                self.policy, self.spec)))
+            keys = LaneKeys.for_round(round_key, start, len(chunk), self.device)
+            pairs.append((chunk, run_walk_batch(self.graph, chunk, keys,
+                                                self.policy, self.spec)))
         return pairs
 
     def _append(self, pairs) -> None:

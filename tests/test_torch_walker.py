@@ -26,7 +26,7 @@ from repro_torch.core import incom
 from repro_torch.core.api import EmbedConfig, sample_corpus
 from repro_torch.core.corpus import FrequencyOrder
 from repro_torch.core.transition import make_policy, row_contains
-from repro_torch.core.walker import WalkSpec, run_walk_batch
+from repro_torch.core.walker import STEP_KEY_WINDOW, LaneKeys, WalkSpec, run_walk_batch
 from repro_torch.graph.generators import rmat_graph
 
 # Small CPU tensors, and several test workers share the cores: one
@@ -47,7 +47,8 @@ def test_fixed_mode_walks_bit_exact(small_graph, small_port, method, p, q):
     ref = jax_run_walk_batch(small_graph, jnp.asarray(sources), jax.random.PRNGKey(5),
                              jax_make_policy(method, p=p, q=q), JaxWalkSpec(**kw))
     got = run_walk_batch(small_port, torch.as_tensor(sources, dtype=torch.int64),
-                         prng.PRNGKey(5), make_policy(method, p=p, q=q), WalkSpec(**kw))
+                         LaneKeys.of([prng.PRNGKey(5)], len(sources), len(sources), "cpu"),
+                         make_policy(method, p=p, q=q), WalkSpec(**kw))
     np.testing.assert_array_equal(np.asarray(ref.path), got.path.numpy())
     np.testing.assert_array_equal(np.asarray(ref.info.L), got.info.L.numpy())
     assert int(ref.supersteps) == got.supersteps
@@ -146,3 +147,59 @@ def test_huge_incom_walks_by_distribution(medium_graph):
     assert abs(mean_got - mean_ref) <= 0.02 * mean_ref, (mean_got, mean_ref)
     assert relative_entropy_dpq(ref.ocn, got.ocn) < 0.01
     assert abs(ref.rounds - got.rounds) <= 2
+
+
+# --- walks above one reference chunk ----------------------------------------
+# The reference walks a round in chunks of 4,096 sources, each under its own
+# key; the port walks them in one device batch. Two full chunks and a ragged
+# third (2 * 4096 + 517 nodes), low degree and short walks to stay fast.
+BIG_N = 2 * 4096 + 517
+
+
+@pytest.fixture(scope="module")
+def big_graphs():
+    from repro.graph.generators import rmat_graph as jax_rmat_graph
+    return jax_rmat_graph(BIG_N, 3, seed=11), rmat_graph(BIG_N, 3, seed=11, device="cpu")
+
+
+@pytest.mark.parametrize("method,p,q", [("deepwalk", 1.0, 1.0), ("node2vec", 4.0, 0.25)])
+def test_pipeline_round_above_one_chunk_bit_exact(big_graphs, method, p, q):
+    """Two walk rounds of the streaming pipeline in fixed mode: the port's
+    ring is the reference's, bit for bit. node2vec's rejections stretch a
+    round past 64 supersteps, so the port derives its step keys in more
+    than one window."""
+    from repro.core.dsgl import DSGLConfig as JaxDSGLConfig
+    from repro.runtime.trainer import StreamingEmbedPipeline as JaxPipeline
+    from repro_torch.core.dsgl import DSGLConfig
+    from repro_torch.runtime.trainer import StreamingEmbedPipeline
+    jax_graph, graph = big_graphs
+    kw = dict(max_len=10, info_mode="fixed", fixed_len=10)
+    rounds = dict(delta=-1.0, min_rounds=2, max_rounds=2)
+    ref = JaxPipeline(jax_graph, jax_make_policy(method, p=p, q=q), JaxWalkSpec(**kw),
+                      rounds, JaxDSGLConfig(dim=4, seed=3))
+    got = StreamingEmbedPipeline(graph, make_policy(method, p=p, q=q), WalkSpec(**kw),
+                                 rounds, DSGLConfig(dim=4, seed=3))
+    for r in range(2):
+        ref._append(ref._run_round(r), r)
+        got._append(got._run_round(r))
+    np.testing.assert_array_equal(np.asarray(ref.ring.walks), got.ring.walks.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.ring.lengths), got.ring.lengths.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.ring.ocn), got.ring.ocn.numpy())
+    assert (np.asarray(ref.ring.lengths)[:BIG_N] > 1).mean() > 0.5   # the walks move
+    assert int(ref._stats["accepts"]) == got.stats()["accepts"]
+    assert int(ref._stats["rejects"]) == got.stats()["rejects"]
+    if method == "node2vec":
+        assert max(got.batch_supersteps) > STEP_KEY_WINDOW
+
+
+def test_sample_corpus_above_one_chunk_bit_exact(big_graphs):
+    """The two-phase sampler keys its chunks by a split chain: the same
+    corpus from both packages above 4,096 sources."""
+    jax_graph, graph = big_graphs
+    kw = dict(method="deepwalk", info_termination=False, fixed_len=8,
+              fixed_rounds=2, seed=2)
+    ref = jax_sample_corpus(jax_graph, JaxEmbedConfig(**kw))
+    got = sample_corpus(graph, EmbedConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(ref.walks, got.walks)
+    np.testing.assert_array_equal(ref.lengths, got.lengths)
+    np.testing.assert_array_equal(ref.ocn, got.ocn)
