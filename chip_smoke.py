@@ -5,28 +5,40 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each failure raises and ends the run with a non-zero exit):
 
-1. Build both kernels with nvcc for sm_90a, one nvcc each, started
-   together: the SGNS lifetime kernel (``kernels/sgns/csrc``) and the flash
-   attention kernel (``kernels/flash_attention/csrc``). Print the
-   compiler's register/shared-memory report and the card's name and
-   power limit.
+1. Build the three kernels with nvcc for sm_90a, one nvcc each, started
+   together: the SGNS lifetime kernel (``kernels/sgns/csrc``), the flash
+   attention kernel (``kernels/flash_attention/csrc``) and the chunked SSD
+   scan (``kernels/ssm_scan/csrc``). Print the compiler's
+   register/shared-memory report and the card's name and power limit.
 2. Hold each kernel against its plain torch version on the card: SGNS at
    the paper width and two ragged shapes (5e-4); flash attention at the
-   reference's test shapes and at the LM path's prefill shape (2e-3 in
-   float32, 2e-2 in bfloat16).
+   reference's test shapes, at head dim 112 and at both LM paths' prefill
+   shapes (2e-3 in float32, 2e-2 in bfloat16); the SSD scan at the
+   reference's test shapes and chunks and at zamba2's prefill shape with
+   the model's decay, where the masked decay overflows above the
+   diagonal (3e-3, y and the final state).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
    ``yt-sim`` R-MAT preset (1,138,499 nodes), one replica. The SGNS
    kernel must have launched; phi must be finite and the link-prediction
    AUC above 0.75. Then time SGNS on a lifetime batch gathered from this
    run's corpus and embeddings.
-4. The LM path: ``Server`` serving qwen3-1.7b at full width (28 layers,
-   d 2048, bf16, seeded random weights) to 8 requests with prompts of
-   512-2,048 tokens and 32 new tokens each, in waves of 4 slots over a
-   4,096-position cache. Flash attention must have launched 28 times per
-   prefill. A fresh prefill over each wave's prompts plus its first n
-   generated tokens (n = 1, 16, 31) must give decode step n's logits.
-   Then time flash attention at the prefill shape, against its plain
-   version and ``scaled_dot_product_attention``.
+4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
+   layers, d 2048, bf16, seeded random weights) to 8 requests with
+   prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
+   slots over a 4,096-position cache. Flash attention must have launched
+   28 times per prefill. A fresh prefill over each wave's prompts plus its
+   first n generated tokens (n = 1, 16, 31) must give decode step n's
+   logits and every layer's cached k and v; three cache faults must fail
+   that check. Then time flash attention at the prefill shape, against
+   its plain version and ``scaled_dot_product_attention``.
+5. The hybrid LM path: the same traffic served by zamba2-7b at full width
+   and depth (81 blocks: 68 Mamba2, 13 attention; d 3584, bf16, seeded
+   random weights). The SSD scan must have launched 68 times and flash
+   attention 13 times per prefill. The fresh-prefill check also holds
+   every Mamba2 layer's conv window and ssm state after step n; the
+   three k/v faults and two state faults (the conv window shifted by one,
+   a decode step without the decay) must fail it. Then time the SSD scan
+   and flash attention at zamba2's prefill shapes.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers and, last, the
@@ -57,15 +69,36 @@ FLASH_CASES = [(1, 1, 1, 128, 128, 64, c, 0, "float32") for c in (True, False)] 
               [(2, 1, 1, 384, 384, 128, True, 0, "float32"),
                (1, 2, 2, 256, 256, 64, True, 0, "float32"),
                (1, 2, 2, 256, 256, 64, True, 0, "bfloat16"),
-               (1, 2, 2, 128, 256, 64, True, 128, "float32")]
+               (1, 2, 2, 128, 256, 64, True, 128, "float32")] + \
+              [(1, 2, 2, 256, 256, 112, True, 0, dt) for dt in ("float32", "bfloat16")] + \
+              [(2, 4, 4, 200, 200, 112, False, 0, "float32")]
+SSD_TOL = 3e-3
+# The reference's SSD kernel test cases (tests/test_kernels.py):
+# (BH, S, P, N, chunk).
+SSD_CASES = [(2, 64, 16, 8, 32), (4, 128, 32, 16, 32), (1, 200, 64, 32, 32),
+             (3, 96, 8, 64, 32)] + [(2, 128, 16, 8, q) for q in (16, 64, 128)]
 LM_ARCH = "qwen3-1.7b"
+HYBRID_ARCH = "zamba2-7b"
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
-KV_CHECK_TOL = 2e-2            # of the largest |logit|
-KV_STATE_TOL = 5e-2            # of the largest |k| or |v| entry, per layer
+# Decode against a fresh prefill: the logits, of the largest |logit|, and
+# the served caches, of each tensor's largest entry, per layer (attention
+# k and v; Mamba2's conv window and ssm state). Each bound sits well above
+# what the correct bf16 model measures on an H100 and well below what the
+# injected faults give (PERF.md): qwen3-1.7b logits 0.00625, k/v 0.01255,
+# faults 0.79-0.99; zamba2-7b logits up to 0.028, k/v 0.111, conv 0.083,
+# ssm 0.081 (these move by up to 2x between runs: 1e-5 changes in K3's
+# output reround differently through 81 bf16 blocks), k/v faults
+# 0.69-1.00, conv fault 1.56, ssm fault 1.15. In float32 zamba2's decode
+# equals a fresh prefill within 1e-3 (tests/test_torch_zamba2.py, on the
+# card): the rest is bf16 rounding that differs between the batched
+# prefill and the one-token decode.
+BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
+          "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3}}
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, SXM, 700 W
+H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -174,21 +207,109 @@ def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# --- the LM path ------------------------------------------------------------
+def flash_times(torch, fa_ops, fa_ref, case, device) -> tuple:
+    """Kernel, plain and SDPA ms and the bound at a causal prefill case."""
+    b, hq, hkv, s, _, d, _, _, dtype = case
+    q, k, v = flash_inputs(torch, b, hq, hkv, s, s, d, dtype, seed=7, device=device)
+    kernel_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 20)
+    plain_ms = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v), 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+    bound, by = flash_bound_ms(b, hq, hkv, s, d, q.element_size())
+    log(f"[time] flash_attention at the prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
+        f"{dtype}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
+        f"bound {bound:.6f} ms ({by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return kernel_ms, plain_ms, sdpa_ms, bound, by
+
+
+# --- chunked SSD scan (K3) --------------------------------------------------
+
+def ssd_inputs(torch, bh, s, p, n, seed, device, model_decay=False):
+    """xdt, b, c ~ N(0, 1); loga ~ -U(0, 0.2) as the reference's kernel tests
+    draw it, or with ``model_decay`` as the Mamba2 mixer draws it at init:
+    -exp(A_log = 0) * softplus(dt ~ N(0, 1)), about -0.8 per step, so that
+    exp(cum_i - cum_j) above a 128-step chunk's diagonal overflows."""
+    gen = torch.Generator().manual_seed(seed)
+    xdt = torch.randn(bh, s, p, generator=gen)
+    if model_decay:
+        loga = -torch.nn.functional.softplus(torch.randn(bh, s, generator=gen))
+    else:
+        loga = -torch.rand(bh, s, generator=gen) * 0.2
+    b, c = torch.randn(bh, s, n, generator=gen), torch.randn(bh, s, n, generator=gen)
+    return tuple(t.to(device) for t in (xdt, loga, b, c))
+
+
+def ssd_check(torch, ssd_ops, ssd_ref, case, seed, device, model_decay=False) -> float:
+    """Kernel against ``ssd_chunked_ref`` on the card, y and the final state
+    within SSD_TOL; raises otherwise, or on a non-finite output."""
+    bh, s, p, n, chunk = case
+    args = ssd_inputs(torch, bh, s, p, n, seed, device, model_decay)
+    y, st = ssd_ops.ssd_chunked_scan(*args, chunk=chunk)
+    want_y, want_s = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"ssd_scan {case}: non-finite output")
+    err = 0.0
+    for name, got, want in (("y", y, want_y), ("state", st, want_s)):
+        if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
+            raise AssertionError(f"ssd_scan {case}: {name} differs by "
+                                 f"{(got - want).abs().max().item():.3e}")
+        err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def ssd_bound_ms(bh, s, p, n, chunk) -> tuple:
+    """Least time for the scan on an H100: xdt, loga, b, c read once and y
+    and the final state written once (float32) over the memory rate,
+    against the products the function needs per chunk of L valid steps
+    (scores and the intra-chunk product over the L(L+1)/2 lower-triangle
+    pairs, the inter-chunk product and the state update over L·N·P) over
+    the TF32 tensor-core peak. Returns (ms, "bytes" | "operations")."""
+    nbytes = 4 * (2 * bh * s * p + bh * s + 2 * bh * s * n + bh * n * p)
+    q = min(chunk, s)
+    flops = 0
+    for t0 in range(0, s, q):
+        steps = min(q, s - t0)
+        tri = steps * (steps + 1) // 2
+        flops += 2 * tri * (n + p) + 4 * steps * n * p
+    flops *= bh
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- the LM paths -----------------------------------------------------------
 
 def lm_prompts(np, vocab: int):
-    """The LM path's traffic: 8 prompts, lengths uniform on 512..2,048,
+    """The LM paths' traffic: 8 prompts, lengths uniform on 512..2,048,
     tokens uniform over the vocabulary, from numpy seed 0."""
     rng = np.random.default_rng(0)
     lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, LM_REQUESTS)
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
+def block_kinds(cfg) -> list:
+    """The kind of each of cfg's layers, in order."""
+    cyc, n, rem = cfg.layer_cycles
+    return list(cyc) * n + list(rem)
+
+
+def recurrent_states(caches) -> dict:
+    """A copy of every Mamba2 layer's (conv, ssm) state, by layer."""
+    return {(g, r, blk): {name: t.clone() for name, t in entry.items()}
+            for g, reps in caches.items() for r, rep in enumerate(reps)
+            for blk, entry in rep.items() if "ssm" in entry}
+
+
 def tap(torch, server, seconds):
     """Record each prefill's and decode step's logits, each wave's caches
-    (a prefill makes them, decode updates them in place), and the wall time
-    of each kind of call (the device drained before and after)."""
-    calls, wave_caches = [], []
+    (a prefill makes them, decode updates them in place), a copy of the
+    recurrent states after decode steps KV_CHECK_STEPS (decode overwrites
+    them), and the wall time of each kind of call (the device drained
+    before and after)."""
+    calls, wave_caches, snapshots = [], [], []
     prefill, decode = server._prefill, server._decode
 
     def timed(kind, fn, *args):
@@ -200,34 +321,58 @@ def tap(torch, server, seconds):
         calls.append(logits)
         if kind == "prefill":
             wave_caches.append(caches)
+            snapshots.append({"step": 0})
+        else:
+            snapshots[-1]["step"] += 1
+            step = snapshots[-1]["step"]
+            if step in KV_CHECK_STEPS:
+                snapshots[-1][step] = recurrent_states(caches)
         return logits, caches
 
     server._prefill = lambda *a: timed("prefill", prefill, *a)
     server._decode = lambda *a: timed("decode", decode, *a)
-    return calls, wave_caches
+    return calls, wave_caches, snapshots
 
 
-def cache_diff(served, fresh, rows: int) -> float:
-    """Largest |served - fresh| over cache positions [0, rows) of every
-    layer's k and v, over that tensor's largest |fresh| entry."""
-    worst = 0.0
+def cache_diff(served, fresh, rows: int, states=None) -> dict:
+    """For each kind of cache entry ("kv": every attention layer's k and v
+    at positions [0, rows); "conv" and "ssm": every Mamba2 layer's state,
+    from ``states`` when given, else from ``served``), the largest
+    |served - fresh| over that tensor's largest |fresh| entry."""
+    worst = {}
     for group, reps in fresh.items():
-        for rep_served, rep_fresh in zip(served[group], reps):
-            for block, kv in rep_fresh.items():
-                for name, want in kv.items():
-                    want = want[:, :, :rows].float()
-                    got = rep_served[block][name][:, :, :rows].float()
-                    worst = max(worst, (got - want).abs().max().item() / want.abs().max().item())
+        for r, (rep_served, rep_fresh) in enumerate(zip(served[group], reps)):
+            for block, entry in rep_fresh.items():
+                for name, want in entry.items():
+                    if name in ("k", "v"):
+                        kind = "kv"
+                        want = want[:, :, :rows]
+                        got = rep_served[block][name][:, :, :rows]
+                    else:
+                        kind = name
+                        src = states[(group, r, block)] if states is not None else rep_served[block]
+                        got = src[name]
+                    want, got = want.float(), got.float()
+                    d = (got - want).abs().max().item() / want.abs().max().item()
+                    worst[kind] = max(worst.get(kind, 0.0), d)
     return worst
 
 
-def kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches) -> tuple:
+def fmt_diff(diff: dict, bounds: dict) -> str:
+    return ", ".join(f"{k} {v:.5f} (bound {bounds[k]})" for k, v in sorted(diff.items()))
+
+
+def kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches, snapshots,
+                   bounds) -> tuple:
     """For each wave and n in KV_CHECK_STEPS, a fresh prefill over the
     wave's left-padded prompts plus its first n generated tokens must give
-    decode step n's last-token logits (within KV_CHECK_TOL x max |logit|)
-    and the served cache's first plen + n positions (within KV_STATE_TOL x
-    max |entry|, in every layer's k and v). Returns the worst of each."""
-    worst, worst_state = 0.0, 0.0
+    decode step n's last-token logits, within bounds["logits"] of the
+    largest |logit|, and the served caches (every attention layer's k and
+    v at the first plen + n positions, every Mamba2 layer's conv and ssm
+    state after step n), each kind within bounds[kind] of its tensor's
+    largest entry. Returns
+    the worst logits ratio and the worst of each kind."""
+    worst, worst_state = 0.0, {}
     per_wave = LM_NEW_TOKENS                    # one prefill + budget-1 decode steps
     for w, wave in enumerate(waves):
         plen = max(len(r.prompt) for r in wave)
@@ -242,35 +387,51 @@ def kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches) -> tup
             fresh = fresh.float()
             diff = (fresh - step).abs().max().item()
             scale = step.abs().max().item()
-            state = cache_diff(wave_caches[w], fresh_caches, plen + n)
+            state = cache_diff(wave_caches[w], fresh_caches, plen + n, snapshots[w][n])
             log(f"[lm] wave {w} step {n}: fresh prefill vs decode max |diff| {diff:.4f} "
-                f"(max |logit| {scale:.2f}); cache positions 0..{plen + n - 1} differ by "
-                f"{state:.5f} of the largest entry")
-            if not diff <= KV_CHECK_TOL * scale:
-                raise AssertionError(f"wave {w} step {n}: KV-cache logits differ by {diff} "
-                                     f"> {KV_CHECK_TOL} x {scale}")
-            if not state <= KV_STATE_TOL:
-                raise AssertionError(f"wave {w} step {n}: the served cache differs from a "
-                                     f"fresh prefill's by {state} > {KV_STATE_TOL}")
+                f"(max |logit| {scale:.2f}); cache over positions 0..{plen + n - 1} differs "
+                f"by, of the largest entry: {fmt_diff(state, bounds)}")
+            if not diff <= bounds["logits"] * scale:
+                raise AssertionError(f"wave {w} step {n}: decode logits differ by {diff} "
+                                     f"> {bounds['logits']} x {scale}")
+            for kind, d in state.items():
+                if not d <= bounds[kind]:
+                    raise AssertionError(f"wave {w} step {n}: the served {kind} cache differs "
+                                         f"from a fresh prefill's by {d} > {bounds[kind]}")
             top2 = step.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > diff
             if not torch.equal(fresh.argmax(-1)[sure], step.argmax(-1)[sure]):
                 raise AssertionError(f"wave {w} step {n}: argmax differs where the "
                                      f"top-2 margin exceeds {diff}")
             worst = max(worst, diff / scale)
-            worst_state = max(worst_state, state)
+            for kind, d in state.items():
+                worst_state[kind] = max(worst_state.get(kind, 0.0), d)
             del fresh_caches
     return worst, worst_state
 
 
-def kv_cache_mutation(torch, np, server, prefill, decode, wave) -> None:
+def _entries(caches, name):
+    for reps in caches.values():
+        for rep in reps:
+            for entry in rep.values():
+                if name in entry:
+                    yield entry
+
+
+def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> None:
     """The power of ``kv_cache_check``: decode step 1 of ``wave`` with a
-    cache fault must fail it. The faults: the cache length off by -1 or +1
-    (the new token's key and value land in the wrong slot, and its rope
-    phase shifts with it), and the rope phase alone off by +1 (decoded at
-    +1, then its entries moved back to the right slot). Each fault's cache
-    must differ from a fresh prefill's by more than KV_STATE_TOL; the
-    logits' difference is printed beside it."""
+    cache fault must fail it. With attention layers: the cache length off
+    by -1 or +1 (the new token's key and value land in the wrong slot, and
+    its rope phase shifts with it), and the rope phase alone off by +1
+    (decoded at +1, then its entries moved back to the right slot); each
+    must move the k/v cache beyond its bound. With Mamba2 layers: the conv
+    window shifted back by one step before the decode (it sees
+    x_{t-3}, x_{t-3}, x_{t-2}, x_t), which must move the conv state beyond
+    its bound, and a decode step that skips the decay exp(loga), which
+    must move the ssm state beyond its bound. The logits' difference is
+    printed beside each."""
+    from repro_torch.models import mamba2 as mamba_mod
+
     plen = max(len(r.prompt) for r in wave)
     toks = np.zeros((len(wave), plen + 1), np.int64)
     for i, r in enumerate(wave):
@@ -280,38 +441,65 @@ def kv_cache_mutation(torch, np, server, prefill, decode, wave) -> None:
     fresh, fresh_caches = prefill(server.params, {"tokens": toks})
     fresh = fresh.float()
     scale = fresh.abs().max().item()
-    for fault, shift, move_back in (("cache length -1", -1, False),
-                                    ("cache length +1", 1, False),
-                                    ("rope phase +1", 1, True)):
+
+    def shift_kv_back(caches):
+        for kv in _entries(caches, "k"):
+            for name in ("k", "v"):
+                kv[name][:, :, plen] = kv[name][:, :, plen + 1]
+                kv[name][:, :, plen + 1] = 0
+
+    def shift_conv(caches):
+        for st in _entries(caches, "conv"):
+            st["conv"][:, 1:] = st["conv"][:, :-1].clone()
+
+    orig_step = mamba_mod.ssd_decode_step
+    no_decay = lambda state, xdt, loga, b, c: orig_step(state, xdt, torch.zeros_like(loga), b, c)
+    faults = []          # (name, kind that must fail, cache_len shift, before, after, decode step)
+    if "a" in kinds:
+        faults += [("cache length -1", "kv", -1, None, None, None),
+                   ("cache length +1", "kv", 1, None, None, None),
+                   ("rope phase +1", "kv", 1, None, shift_kv_back, None)]
+    if "m" in kinds:
+        faults += [("conv window shifted by one", "conv", 0, shift_conv, None, None),
+                   ("decode skips the decay exp(loga)", "ssm", 0, None, None, no_decay)]
+    for fault, kind, shift, before, after, step_fn in faults:
         _, caches = prefill(server.params, {"tokens": toks[:, :plen]})
-        step, caches = decode(server.params, caches, toks[:, plen:], plen + shift)
-        if move_back:
-            for reps in caches.values():
-                for rep in reps:
-                    for kv in rep.values():
-                        for t in kv.values():
-                            t[:, :, plen] = t[:, :, plen + 1]
-                            t[:, :, plen + 1] = 0
+        if before:
+            before(caches)
+        if step_fn:
+            mamba_mod.ssd_decode_step = step_fn
+        try:
+            step, caches = decode(server.params, caches, toks[:, plen:], plen + shift)
+        finally:
+            mamba_mod.ssd_decode_step = orig_step
+        if after:
+            after(caches)
         state = cache_diff(caches, fresh_caches, plen + 1)
         logit = (step.float() - fresh).abs().max().item() / scale
-        log(f"[lm] mutation {fault}: cache differs by {state:.5f} of the largest entry "
-            f"(bound {KV_STATE_TOL}); logits by {logit:.5f} of the largest (bound {KV_CHECK_TOL})")
-        if not state > KV_STATE_TOL:
-            raise AssertionError(f"the KV-cache check misses a fault ({fault}): "
-                                 f"{state} <= {KV_STATE_TOL}")
+        log(f"[lm] mutation {fault}: cache differs by, of the largest entry: "
+            f"{fmt_diff(state, bounds)}; logits by {logit:.5f} of the largest "
+            f"(bound {bounds['logits']})")
+        if not state[kind] > bounds[kind]:
+            raise AssertionError(f"the cache check misses a fault ({fault}): {kind} "
+                                 f"{state[kind]} <= {bounds[kind]}")
         del caches
+    del fresh_caches
 
 
-def lm_path(torch, np, fa_ops, counters, cfg, prompts, device="cuda") -> int:
-    """Serve ``cfg`` (qwen3-1.7b at full width) to ``prompts`` and check the
-    KV cache; returns the flash kernel's launches while serving."""
+def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
+    """Serve ``cfg`` at full width to ``prompts`` with every launch count set
+    to 0 just before, check the launches (K2 once per attention layer and
+    K3 once per Mamba2 layer in each prefill, nothing else), the outputs
+    and the caches; returns the launch counts read just after serving."""
     from repro_torch.models import zoo
     from repro_torch.runtime.server import Request, Server, ServerConfig, throughput_stats
 
+    kinds = block_kinds(cfg)
     t0 = time.perf_counter()
     params = zoo.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
-    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads {cfg.num_heads}/"
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({kinds.count('a')} attention, "
+        f"{kinds.count('m')} Mamba2), d {cfg.d_model}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count()} parameters (seed 0) in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -319,20 +507,20 @@ def lm_path(torch, np, fa_ops, counters, cfg, prompts, device="cuda") -> int:
                     device=device)
     prefill, decode = server._prefill, server._decode
     seconds = {"prefill": 0.0, "decode": 0.0}
-    calls, wave_caches = tap(torch, server, seconds)
+    calls, wave_caches, snapshots = tap(torch, server, seconds)
     requests = [Request(i, p, LM_NEW_TOKENS) for i, p in enumerate(prompts)]
     log(f"[lm] {len(requests)} requests, prompt lengths {[len(p) for p in prompts]}, "
         f"{LM_NEW_TOKENS} new tokens each, {LM_SLOTS} slots, cache {LM_MAX_LEN}")
 
     torch.cuda.reset_peak_memory_stats()
-    for name in counters:
-        counters[name].LAUNCHES = 0
+    for mod in counters.values():
+        mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = server.serve(requests)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_ops.LAUNCHES
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     waves = [done[i:i + LM_SLOTS] for i in range(0, len(done), LM_SLOTS)]
@@ -340,15 +528,18 @@ def lm_path(torch, np, fa_ops, counters, cfg, prompts, device="cuda") -> int:
     n_out = sum(len(r.output) for r in done)
     n_prompt = sum(len(p) for p in prompts)
     stats = throughput_stats(n_out, wall)
-    log(f"[lm] serve wall {wall:.3f} s: prefill {seconds['prefill']:.3f} s "
+    log(f"[lm] {cfg.name} serve wall {wall:.3f} s: prefill {seconds['prefill']:.3f} s "
         f"({prefills} calls, {n_prompt} prompt tokens, "
         f"{n_prompt / seconds['prefill']:.1f} prompt tok/s), decode {seconds['decode']:.3f} s "
         f"({len(calls) - prefills} steps, {seconds['decode'] / (len(calls) - prefills) * 1e3:.3f} "
         f"ms/step); {stats['tokens']} generated tokens, {stats['tok_per_s']:.2f} tok/s")
-    log(f"[lm] peak device memory {peak:.3f} GiB; flash_attention launches {launches}")
-    if launches != cfg.num_layers * prefills:
-        raise AssertionError(f"flash_attention launched {launches} times, not "
-                             f"{cfg.num_layers} x {prefills} prefills")
+    log(f"[lm] {cfg.name} peak device memory {peak:.3f} GiB; launches {launches}")
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = kinds.count("a") * prefills
+    expected["ssd_scan"] = kinds.count("m") * prefills
+    if launches != expected:
+        raise AssertionError(f"{cfg.name}: launches {launches}, expected {expected} "
+                             f"({prefills} prefills)")
     for r in done:
         if r.output is None or r.output.shape != (LM_NEW_TOKENS,) or \
                 not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
@@ -356,12 +547,14 @@ def lm_path(torch, np, fa_ops, counters, cfg, prompts, device="cuda") -> int:
     if not all(torch.isfinite(c.float()).all() for c in calls):
         raise AssertionError("non-finite logits")
     log(f"[lm] first request's tokens {done[0].output.tolist()}")
-    worst, worst_state = kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches)
-    log(f"[lm] KV-cache consistency: worst |diff| / max |logit| {worst:.5f} "
-        f"(bound {KV_CHECK_TOL}); worst cache |diff| / max |entry| {worst_state:.5f} "
-        f"(bound {KV_STATE_TOL})")
-    del wave_caches, calls
-    kv_cache_mutation(torch, np, server, prefill, decode, waves[0])
+    bounds = BOUNDS[cfg.name]
+    worst, worst_state = kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches,
+                                        snapshots, bounds)
+    log(f"[lm] {cfg.name} cache consistency: worst |diff| / max |logit| {worst:.5f} "
+        f"(bound {bounds['logits']}); worst cache |diff| / max |entry|: "
+        f"{fmt_diff(worst_state, bounds)}")
+    del wave_caches, calls, snapshots
+    cache_mutation(torch, np, server, prefill, decode, waves[0], set(kinds), bounds)
     return launches
 
 
@@ -387,16 +580,19 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.sgns import ops, ref
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_scan import ref as ssd_ref
 
-    counters = {"sgns_lifetime": ops, "flash_attention": fa_ops}
+    counters = {"sgns_lifetime": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    build_all([ops.LIBRARY, fa_ops.LIBRARY])
-    log(f"[build] {ops.LIBRARY.library_path().name}, {fa_ops.LIBRARY.library_path().name} "
+    build_all(libs)
+    log(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
         f"in {time.perf_counter() - t0:.2f} s")
-    for lib in (ops.LIBRARY, fa_ops.LIBRARY):
+    for lib in libs:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.name}: {line.strip()}")
@@ -417,16 +613,34 @@ def main() -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg = get_config(LM_ARCH)
+    lm_cfg, hy_cfg = get_config(LM_ARCH), get_config(HYBRID_ARCH)
     prompts = lm_prompts(np, lm_cfg.vocab_size)
+    hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
     s_prefill = max(len(p) for p in prompts)     # the longest padded prompt
     prefill_case = (LM_SLOTS, lm_cfg.num_heads, lm_cfg.num_kv_heads, s_prefill, s_prefill,
                     lm_cfg.resolved_head_dim, True, 0, "bfloat16")
+    hy_prefill_case = (LM_SLOTS, hy_cfg.num_heads, hy_cfg.num_kv_heads, s_prefill, s_prefill,
+                       hy_cfg.resolved_head_dim, True, 0, "bfloat16")
     flash_err = 0.0
-    for i, case in enumerate([*FLASH_CASES, prefill_case]):
+    for i, case in enumerate([*FLASH_CASES, prefill_case, hy_prefill_case]):
         err = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, device=dev)
         flash_err = max(flash_err, err)
         log(f"[check] flash_attention {case}: max abs err {err:.3e}")
+        torch.cuda.empty_cache()
+
+    hy_d_in = hy_cfg.ssm_expand * hy_cfg.d_model
+    hy_heads = hy_d_in // hy_cfg.ssm_head_dim
+    ssd_prefill_case = (LM_SLOTS * hy_heads, s_prefill, hy_cfg.ssm_head_dim, hy_cfg.ssm_state,
+                        hy_cfg.ssm_chunk)
+    ssd_err = 0.0
+    for i, case in enumerate([*SSD_CASES, ssd_prefill_case]):
+        model_decay = case == ssd_prefill_case
+        err = ssd_check(torch, ssd_ops, ssd_ref, case, seed=200 + i, device=dev,
+                        model_decay=model_decay)
+        ssd_err = max(ssd_err, err)
+        log(f"[check] ssd_scan {case}{' (model decay)' if model_decay else ''}: "
+            f"max abs err {err:.3e}")
+    torch.cuda.empty_cache()
 
     # 3. the embedding path ------------------------------------------------------
     preset = GRAPH_PRESETS["yt-sim"]
@@ -451,7 +665,7 @@ def main() -> int:
         f"training {ws['phase_s']['train']:.2f} s)")
     log(f"[main] walks/round {graph.num_nodes} rounds {stats['rounds']} "
         f"training steps {stats['steps']} K1 launches {sgns_launches} "
-        f"K2 launches {fa_ops.LAUNCHES}")
+        f"K2 launches {fa_ops.LAUNCHES} K3 launches {ssd_ops.LAUNCHES}")
     log(f"[main] mean walk length {ws['mean_len']:.4f} supersteps {ws['supersteps']} "
         f"per batch {ws['batch_supersteps']} accepts {ws['accepts']} rejects {ws['rejects']}")
     log(f"[main] D history {ws['d_history']}")
@@ -487,25 +701,36 @@ def main() -> int:
     del phi_in, phi_out, corpus, graph, ctx, out, neg, got, want
     torch.cuda.empty_cache()
 
-    # 4. the LM path -------------------------------------------------------------
-    flash_launches = lm_path(torch, np, fa_ops, counters, lm_cfg, prompts)
-    b, hq, hkv, s, _, d, _, _, dtype = prefill_case
-    q, k, v = flash_inputs(torch, b, hq, hkv, s, s, d, dtype, seed=7, device=dev)
-    flash_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 20)
-    flash_plain = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v), 5)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
-    flash_bound, flash_by = flash_bound_ms(b, hq, hkv, s, d, q.element_size())
-    log(f"[time] flash_attention at the prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
-        f"{dtype}: kernel {flash_ms:.4f} ms, plain {flash_plain:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
-        f"bound {flash_bound:.6f} ms ({flash_by})")
+    # 4. the dense LM path -------------------------------------------------------
+    launches = {LM_ARCH: lm_path(torch, np, counters, lm_cfg, prompts)}
+    torch.cuda.empty_cache()
+    flash_ms, flash_plain, sdpa_ms, flash_bound, flash_by = flash_times(
+        torch, fa_ops, fa_ref, prefill_case, dev)
 
+    # 5. the hybrid LM path --------------------------------------------------------
+    launches[HYBRID_ARCH] = lm_path(torch, np, counters, hy_cfg, hy_prompts)
+    torch.cuda.empty_cache()
+    flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
+    bh, s, p, n, chunk = ssd_prefill_case
+    args = ssd_inputs(torch, bh, s, p, n, seed=8, device=dev, model_decay=True)
+    ssd_ms = time_ms(torch, lambda: ssd_ops.ssd_chunked_scan(*args, chunk=chunk), 20)
+    ssd_plain = time_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk), 5)
+    ssd_bound, ssd_by = ssd_bound_ms(bh, s, p, n, chunk)
+    log(f"[time] ssd_scan at zamba2's prefill shape (BH, S, P, N, chunk) {ssd_prefill_case} "
+        f"float32: kernel {ssd_ms:.4f} ms, plain {ssd_plain:.4f} ms, bound {ssd_bound:.6f} ms "
+        f"({ssd_by}); no single PyTorch call computes it")
+    del args
+    total = {name: sum(path[name] for path in launches.values()) for name in counters}
+    total["sgns_lifetime"] += sgns_launches
+    log(f"[main] launches by path: sgns_lifetime yt-sim {sgns_launches}; {launches}")
+
+    by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
     print(json.dumps({"kernels": [{
         "name": "sgns_lifetime",
         "route": "cuda",
         "source": "src/repro_torch/kernels/sgns/csrc/sgns_lifetime.cu",
         "replaces": "src/repro/kernels/sgns/kernel.py:121",
-        "launches": sgns_launches,
+        "launches": total["sgns_lifetime"],
         "max_abs_err": sgns_err,
         "ms": sgns_ms,
         "plain_ms": sgns_plain,
@@ -517,13 +742,27 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
-        "launches": flash_launches,
+        "launches": total["flash_attention"],
+        "launches_by_path": by_path("flash_attention"),
         "max_abs_err": flash_err,
         "ms": flash_ms,
         "plain_ms": flash_plain,
         "bound_ms": flash_bound,
         "bound_by": flash_by,
         "library_ms": sdpa_ms,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
+        "launches": total["ssd_scan"],
+        "launches_by_path": by_path("ssd_scan"),
+        "max_abs_err": ssd_err,
+        "ms": ssd_ms,
+        "plain_ms": ssd_plain,
+        "bound_ms": ssd_bound,
+        "bound_by": ssd_by,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

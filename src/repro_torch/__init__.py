@@ -3,6 +3,8 @@
 The JAX package ``repro`` is the reference; this package mirrors its
 layout module by module (``repro_torch.graph.csr`` <-> ``repro.graph.csr``)
 and imports nothing of it. Entry points take ``device=`` and default to
-``"cuda"``; the one hand-written kernel on the main path, the SGNS
-lifetime update, lives in ``repro_torch.kernels.sgns``.
+``"cuda"``. The hand-written kernels live under ``repro_torch.kernels``:
+the SGNS lifetime update (``sgns``, the embedding path), flash attention
+(``flash_attention``) and the chunked SSD scan (``ssm_scan``), the last
+two on the LM serving path.
 """

@@ -14,9 +14,10 @@
 // Design (a first, simple kernel): one CTA of 128 threads per
 // (b * Hq + h, tile of BQ queries), looping over tiles of 32 keys. A tile
 // of K and of V is staged in shared memory as float32 (32 KB at D = 128),
-// shared by the CTA's queries. TPR = min(8, D/4) threads share one query
-// row: each holds D/TPR of its dimensions (interleaved in 16-byte pieces,
-// so the loads of one row hit distinct banks) for two query rows, scores
+// shared by the CTA's queries. TPR threads (8, or 4 at D = 16 and 112)
+// share one query row: each holds D/TPR of its dimensions (interleaved
+// in 16-byte pieces, so the loads of one row hit distinct banks) for two
+// query rows, scores
 // 8 keys at a time with f32 FMA, sums the partial dots with warp shuffles,
 // and applies one online-softmax update per 8 keys. P stays float32 for
 // P.V, as in the TPU kernel. Key tiles strictly above the diagonal are
@@ -57,7 +58,11 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float
 
 template <int D>
 struct Layout {
-  static constexpr int TPR = (D / 4 < 8) ? D / 4 : 8;   // threads per query row
+  // Threads per query row: the largest power of two up to 8 that divides
+  // the row's D/4 16-byte pieces (4 at D = 16 and D = 112, else 8), so the
+  // partial dots of one row sum over aligned lanes by xor shuffles.
+  static constexpr int TPR =
+      (D / 4) % 8 == 0 ? 8 : (D / 4) % 4 == 0 ? 4 : (D / 4) % 2 == 0 ? 2 : 1;
   static constexpr int NV = D / (4 * TPR);              // 16-byte pieces per thread
   static constexpr int GROUPS = kThreads / TPR;         // row groups per CTA
   static constexpr int BQ = GROUPS * kRows;             // query rows per CTA
@@ -235,6 +240,7 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
     case 32: return launch_typed<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 64: return launch_typed<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 96: return launch_typed<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 112: return launch_typed<T, 112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 128: return launch_typed<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }

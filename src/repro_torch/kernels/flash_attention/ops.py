@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = 0
 REF_BLOCK_K = 256                 # the reference wrapper's default key tile
-HEAD_DIMS = (16, 32, 64, 96, 128)  # head dimensions the kernel is built for
+HEAD_DIMS = (16, 32, 64, 96, 112, 128)  # head dimensions the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,12 +1,16 @@
-"""Decoder LM assembly: blocks, layer groups, KV caches, prefill and decode.
+"""Decoder LM assembly: blocks, layer groups, KV and state caches, prefill
+and decode.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-blocks (kind ``"a"``) without MLA or MoE. ``cfg.block_cycle`` repeats to
+blocks (kind ``"a"``) without MLA or MoE and Mamba2 blocks (kind ``"m"``).
+``cfg.block_cycle`` repeats to
 cover ``num_layers`` as in the reference (``_groups``), but the layers of
 a group are a list of per-repetition dicts run by an ordinary loop, not a
 stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
-Caches mirror the same structure. ``repro_torch.convert.lm_params_from_reference``
-unstacks a reference tree into this layout.
+Caches mirror the same structure: {k, v} for an attention block, {conv,
+ssm} for a Mamba2 block, both updated in place.
+``repro_torch.convert.lm_params_from_reference`` unstacks a reference tree
+into this layout.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
@@ -34,10 +39,10 @@ def _check(cfg: ModelConfig) -> None:
     if cfg.encdec or cfg.frontend != "none":
         raise NotImplementedError("encoder-decoder models and frontends are not "
                                   "ported yet (ROADMAP.md item 12)")
-    kinds = set(cfg.block_cycle) - {"a"}
+    kinds = set(cfg.block_cycle) - {"a", "m"}
     if kinds:
-        raise NotImplementedError(f"block kinds {sorted(kinds)} (mamba2 / xLSTM mixers, "
-                                  "kernel K3) are not ported yet (ROADMAP.md item 12)")
+        raise NotImplementedError(f"block kinds {sorted(kinds)} (the xLSTM mixers) are "
+                                  "not ported yet (ROADMAP.md item 12)")
 
 
 def _groups(cfg: ModelConfig):
@@ -54,8 +59,11 @@ def _groups(cfg: ModelConfig):
 # One block
 # ---------------------------------------------------------------------------
 
-def init_block(gen, cfg: ModelConfig, dtype, device) -> Params:
+def init_block(gen, kind: str, cfg: ModelConfig, dtype, device) -> Params:
     d = cfg.d_model
+    if kind == "m":
+        return {"ln": init_rmsnorm(d, dtype, device),
+                "mixer": mamba_mod.init_mamba(gen, cfg, dtype, device)}
     return {
         "ln1": init_rmsnorm(d, dtype, device),
         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
@@ -64,9 +72,29 @@ def init_block(gen, cfg: ModelConfig, dtype, device) -> Params:
     }
 
 
-def apply_block(x, p: Params, cfg: ModelConfig, positions, *, cache=None,
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    if kind == "m":
+        return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+    return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=None,
                 cache_len=None, causal: bool = True):
-    """Pre-norm attention, then pre-norm SwiGLU; the cache fills in place."""
+    """Kind "a": pre-norm attention, then pre-norm SwiGLU. Kind "m":
+    pre-norm Mamba2 mixer. With ``cache`` and no ``cache_len`` (prefill)
+    a Mamba2 block writes its final state into the cache; with
+    ``cache_len`` (decode) it steps the cached state, as the reference's
+    modes do. Caches change in place."""
+    if kind == "m":
+        decode = cache_len is not None
+        h = rmsnorm(x, p["ln"], cfg.norm_eps)
+        y, new_state = mamba_mod.mamba_mixer(
+            h, p["mixer"], cfg, state=cache if decode else None,
+            return_state=cache is not None and not decode)
+        if new_state is not None:
+            cache["conv"].copy_(new_state["conv"])
+            cache["ssm"].copy_(new_state["ssm"])
+        return x + y
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=causal,
                                cache=cache, cache_len=cache_len)
@@ -93,8 +121,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
     }
     for gi, (pattern, n_rep) in enumerate(_groups(cfg)):
-        p[f"group_{gi}"] = [{f"b{j}": init_block(gen, cfg, dtype, dev)
-                             for j in range(len(pattern))} for _ in range(n_rep)]
+        p[f"group_{gi}"] = [{f"b{j}": init_block(gen, kind, cfg, dtype, dev)
+                             for j, kind in enumerate(pattern)} for _ in range(n_rep)]
     return p
 
 
@@ -102,8 +130,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Pa
     _check(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
-    return {f"group_{gi}": [{f"b{j}": attn_mod.init_cache(cfg, batch, max_len, dtype, dev)
-                             for j in range(len(pattern))} for _ in range(n_rep)]
+    return {f"group_{gi}": [{f"b{j}": init_block_cache(kind, cfg, batch, max_len, dtype, dev)
+                             for j, kind in enumerate(pattern)} for _ in range(n_rep)]
             for gi, (pattern, n_rep) in enumerate(_groups(cfg))}
 
 
@@ -112,9 +140,9 @@ def _run_groups(params: Params, x, cfg: ModelConfig, positions, *,
     for gi, (pattern, _) in enumerate(_groups(cfg)):
         reps: List[Params] = params[f"group_{gi}"]
         for r, rep in enumerate(reps):
-            for j in range(len(pattern)):
+            for j, kind in enumerate(pattern):
                 cache = caches[f"group_{gi}"][r][f"b{j}"] if caches is not None else None
-                x = apply_block(x, rep[f"b{j}"], cfg, positions, cache=cache,
+                x = apply_block(x, rep[f"b{j}"], kind, cfg, positions, cache=cache,
                                 cache_len=cache_len, causal=causal)
     return x
 

@@ -8,6 +8,7 @@ Batch convention: {"tokens": (B, S) int64}. Encoder-decoder models (their
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
 from repro_torch.models import transformer as transformer_mod
 from repro_torch.models.config import ModelConfig
@@ -44,12 +45,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 # Reduced ("smoke") configs — same family, tiny dims, for CPU tests
 # ---------------------------------------------------------------------------
 
-def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """Scale a dense decoder-only config down to CPU-smoke size: the
-    reference's ``reduce_config`` for that family (2 layers, d 64)."""
-    return dataclasses.replace(
-        cfg,
-        num_layers=2,
+def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Scale a decoder-only config down to CPU-smoke size with the
+    reference's rules (its ``reduce_config``): d 64, 2 layers for a dense
+    model, two repetitions of the block cycle for a hybrid, and 4 SSD
+    heads of state 16 for an SSM family; ``overrides`` last."""
+    small: Dict[str, Any] = dict(
+        num_layers=max(2, min(4, len(cfg.block_cycle))),
         d_model=64,
         num_heads=4,
         num_kv_heads=min(4, max(1, cfg.num_kv_heads * 4 // max(cfg.num_heads, 1))),
@@ -60,3 +62,9 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         remat="none",
         fsdp=False,
     )
+    if cfg.ssm_state:
+        small.update(ssm_state=16, ssm_heads=4, ssm_head_dim=0)
+    if len(cfg.block_cycle) > 1:
+        small["num_layers"] = 2 * len(cfg.block_cycle)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -3,13 +3,15 @@
 Runs the embedding path's two phases on one GPU — the first 40 walk
 supersteps of round 0 and 100 DSGL training steps over round 0's walks,
 as ``embed_graph(PAPER_EMBED)`` runs them on the yt-sim R-MAT preset —
-and the LM serving path's two — one prefill of 4 prompts of 2,048 tokens
-and 10 decode steps after it, qwen3-1.7b at full width over a
-4,096-position cache, as ``chip_smoke.py``'s server runs them — each
-first timed plainly and then under ``torch.profiler``. For each phase it
-prints the wall time per step, the device-busy time per step (the sum of
-the kernels' times in the trace), their ratio, the kernel launches per
-step and the kernels that take the most device time.
+and the LM serving paths' two each — one prefill of 4 prompts of 2,048
+tokens and 10 decode steps after it, qwen3-1.7b and then zamba2-7b at
+full width over a 4,096-position cache, as ``chip_smoke.py``'s server
+runs them — each first timed plainly and then under ``torch.profiler``.
+For each phase it prints the wall time per step, the device-busy time per
+step (the sum of the kernels' times in the trace), their ratio, the
+kernel launches per step, the kernels that take the most device time and
+the share of the port's own kernels (K1 ``sgns``, K2 ``flash``, K3
+``ssd_scan``) in the device time.
 
     PYTHONPATH=src python3 -m repro_torch.profile
 
@@ -25,7 +27,9 @@ import time
 PRESET = "yt-sim"
 SUPERSTEPS = 40
 STEPS = 100
-LM_ARCH, LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = "qwen3-1.7b", 4, 2048, 4096, 10
+LM_ARCHS = ("qwen3-1.7b", "zamba2-7b")
+LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
+OWN_KERNELS = ("sgns_lifetime_kernel", "flash_kernel", "ssd_scan_kernel")
 
 
 def _device_us(evt) -> float:
@@ -58,6 +62,13 @@ def profile_window(torch, label: str, fn, count: int) -> None:
     for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
         print(f"[{label}]   {_device_us(e) / count / 1e3:9.4f} ms/step  x{e.count / count:6.1f}  "
               f"{e.key[:90]}", flush=True)
+    for name in OWN_KERNELS:
+        own = [e for e in kernels if name in e.key]
+        if own:
+            us = sum(_device_us(e) for e in own)
+            print(f"[{label}]   {name}: {us / count / 1e3:.4f} ms/step over "
+                  f"{sum(e.count for e in own) / count:.1f} launches/step, "
+                  f"{us / busy_us * 100:.2f}% of the device-busy time", flush=True)
 
 
 def main() -> int:
@@ -110,16 +121,18 @@ def main() -> int:
                    STEPS)
     del pipe, graph, table
     torch.cuda.empty_cache()
-    lm_windows(torch, dev)
+    for arch in LM_ARCHS:
+        lm_windows(torch, dev, arch)
+        torch.cuda.empty_cache()
     return 0
 
 
-def lm_windows(torch, dev) -> None:
+def lm_windows(torch, dev, arch: str) -> None:
     """One prefill and the decode steps after it, as the server runs them."""
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     params = zoo.init_params(cfg, seed=0, device=dev)
     prefill, decode = zoo.prefill_fn(cfg, LM_MAX_LEN), zoo.decode_fn(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -135,8 +148,8 @@ def lm_windows(torch, dev) -> None:
             cur = torch.argmax(logits, dim=-1)[:, None]
             logits, caches = decode(params, caches, cur, LM_PROMPT + t)
 
-    profile_window(torch, "prefill", prefill_window, 1)
-    profile_window(torch, "decode", decode_window, LM_DECODE_STEPS)
+    profile_window(torch, f"{arch} prefill", prefill_window, 1)
+    profile_window(torch, f"{arch} decode", decode_window, LM_DECODE_STEPS)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ requests are served in waves of ``batch_slots`` (``wave_batches``); a
 wave's prompts are left-padded with token 0 to the longest, with no pad
 mask, and prefilled in one call; then every slot decodes greedily (argmax)
 up to the wave's largest ``max_new_tokens``, and each request keeps its
-own first ``max_new_tokens`` tokens. Prefill attention runs the flash
-kernel on the card.
+own first ``max_new_tokens`` tokens. On the card a prefill runs the flash
+kernel in every attention layer and the chunked SSD scan in every Mamba2
+layer; a Mamba2 state runs over the pad tokens, as in the reference.
 """
 
 from __future__ import annotations

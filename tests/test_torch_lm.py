@@ -71,9 +71,10 @@ def test_reduced_config_and_params_match_reference(models):
     assert shapes(own) == shapes(params)
 
 
-def test_unported_architectures_raise():
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "xlstm-350m"])
+def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v2-lite-16b")
+        get_config(arch)
 
 
 def test_rmsnorm_within_a_few_ulp():
