@@ -9,11 +9,17 @@ Phases (each failure raises and ends the run with a non-zero exit):
    together: the SGNS lifetime kernel (``kernels/sgns/csrc``), the flash
    attention kernel (``kernels/flash_attention/csrc``) and the chunked SSD
    scan (``kernels/ssm_scan/csrc``). Print the compiler's
-   register/shared-memory report and the card's name and power limit.
+   register/shared-memory report and the card's name and power limit, and
+   check in the flash library's SASS that every bf16 kernel
+   (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``).
 2. Hold each kernel against its plain torch version on the card: SGNS at
    the paper width and two ragged shapes (5e-4); flash attention at the
-   reference's test shapes, at head dim 112 and at both LM paths' prefill
-   shapes (2e-3 in float32, 2e-2 in bfloat16); the SSD scan at the
+   reference's test shapes, at every head dim, with GQA, ragged lengths,
+   ``q_offset`` and without the causal mask, and at both LM paths'
+   prefill shapes (2e-3 in float32 against ``mha_reference``, through the
+   SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
+   against ``mha_chunked`` printed beside); the SSD scan at the
    reference's test shapes and chunks and at zamba2's prefill shape with
    the model's decay, where the masked decay overflows above the
    diagonal (3e-3, y and the final state).
@@ -41,8 +47,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    and flash attention at zamba2's prefill shapes.
 
 Each path runs with every launch count set to 0 just before it and read
-just after. Prints one JSON line with the kernels' numbers and, last, the
-device line.
+just after. Prints one JSON line with the kernels' numbers (flash
+attention's at qwen3-1.7b's prefill shape, and under ``by_shape`` at both
+models') and, last, the device line.
 """
 
 from __future__ import annotations
@@ -71,7 +78,13 @@ FLASH_CASES = [(1, 1, 1, 128, 128, 64, c, 0, "float32") for c in (True, False)] 
                (1, 2, 2, 256, 256, 64, True, 0, "bfloat16"),
                (1, 2, 2, 128, 256, 64, True, 128, "float32")] + \
               [(1, 2, 2, 256, 256, 112, True, 0, dt) for dt in ("float32", "bfloat16")] + \
-              [(2, 4, 4, 200, 200, 112, False, 0, "float32")]
+              [(2, 4, 4, 200, 200, 112, False, 0, "float32")] + \
+              [(1, 16, 8, 1000, 1000, 128, True, 0, "bfloat16"),
+               (2, 4, 2, 200, 200, 16, True, 0, "bfloat16"),
+               (2, 2, 2, 256, 256, 32, False, 0, "bfloat16"),
+               (1, 2, 2, 128, 256, 64, True, 128, "bfloat16"),
+               (1, 4, 2, 333, 333, 96, True, 0, "bfloat16"),
+               (2, 4, 4, 200, 200, 112, False, 0, "bfloat16")]
 SSD_TOL = 3e-3
 # The reference's SSD kernel test cases (tests/test_kernels.py):
 # (BH, S, P, N, chunk).
@@ -180,18 +193,50 @@ def flash_inputs(torch, b, hq, hkv, sq, skv, d, dtype, seed, device):
                  for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
 
-def flash_check(torch, fa_ops, fa_ref, case, seed, device) -> float:
-    """Kernel against ``mha_reference`` on the card; raises outside the tolerance."""
+def flash_check(torch, fa_ops, fa_ref, case, seed, device) -> tuple:
+    """Kernel against ``mha_reference`` on the card; raises outside the
+    tolerance. Returns the max abs error against it and, in bfloat16,
+    against ``mha_chunked`` (which rounds P to bf16 for P.V, as the wgmma
+    kernel does), else None."""
     b, hq, hkv, sq, skv, d, causal, q_offset, dtype = case
     q, k, v = flash_inputs(torch, b, hq, hkv, sq, skv, d, dtype, seed, device)
-    got = fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    want = fa_ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset).float()
+    want = fa_ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset).float()
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err = (got - want).abs().max().item()
     tol = FLASH_TOL[dtype]
-    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
         raise AssertionError(f"flash_attention {case}: differs by {err:.3e}")
-    return err
+    chunked = None
+    if dtype == "bfloat16":
+        chunked = fa_ref.mha_chunked(q, k, v, causal=causal, q_offset=q_offset).float()
+        chunked = (got - chunked).abs().max().item()
+    return err, chunked
+
+
+def sass_check(lib, head_dims) -> None:
+    """Every bf16 flash kernel in ``lib``'s SASS (``cuobjdump -sass``), one
+    per head dim, must issue wgmma (HGMMA) and TMA tile loads (UTMALDG);
+    raises otherwise."""
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    found = 0
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "flash_kernel_sm90" not in name:
+            continue
+        found += 1
+        hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
+        log(f"[check] {lib.name} SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+        if not (hgmma and utmaldg):
+            raise AssertionError(f"{name} issues no HGMMA or no UTMALDG")
+    if found != len(head_dims):
+        raise AssertionError(f"{found} bf16 flash kernels in the SASS, expected "
+                             f"{len(head_dims)}")
 
 
 def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
@@ -207,7 +252,7 @@ def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_times(torch, fa_ops, fa_ref, case, device) -> tuple:
+def flash_times(torch, fa_ops, fa_ref, case, device) -> dict:
     """Kernel, plain and SDPA ms and the bound at a causal prefill case."""
     b, hq, hkv, s, _, d, _, _, dtype = case
     q, k, v = flash_inputs(torch, b, hq, hkv, s, s, d, dtype, seed=7, device=device)
@@ -219,9 +264,11 @@ def flash_times(torch, fa_ops, fa_ref, case, device) -> tuple:
     log(f"[time] flash_attention at the prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
         f"{dtype}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
         f"bound {bound:.6f} ms ({by})")
+    shapes = {"q": list(q.shape), "kv": list(k.shape)}
     del q, k, v
     torch.cuda.empty_cache()
-    return kernel_ms, plain_ms, sdpa_ms, bound, by
+    return {**shapes, "dtype": dtype, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": sdpa_ms}
 
 
 # --- chunked SSD scan (K3) --------------------------------------------------
@@ -600,6 +647,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
+    sass_check(fa_ops.LIBRARY, fa_ops.HEAD_DIMS)
 
     # 2. kernels against their plain versions ----------------------------------
     sgns_err = 0.0
@@ -623,9 +671,10 @@ def main() -> int:
                        hy_cfg.resolved_head_dim, True, 0, "bfloat16")
     flash_err = 0.0
     for i, case in enumerate([*FLASH_CASES, prefill_case, hy_prefill_case]):
-        err = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, device=dev)
+        err, chunked = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, device=dev)
         flash_err = max(flash_err, err)
-        log(f"[check] flash_attention {case}: max abs err {err:.3e}")
+        log(f"[check] flash_attention {case}: max abs err {err:.3e} against mha_reference"
+            + (f", {chunked:.3e} against mha_chunked" if chunked is not None else ""))
         torch.cuda.empty_cache()
 
     hy_d_in = hy_cfg.ssm_expand * hy_cfg.d_model
@@ -704,13 +753,12 @@ def main() -> int:
     # 4. the dense LM path -------------------------------------------------------
     launches = {LM_ARCH: lm_path(torch, np, counters, lm_cfg, prompts)}
     torch.cuda.empty_cache()
-    flash_ms, flash_plain, sdpa_ms, flash_bound, flash_by = flash_times(
-        torch, fa_ops, fa_ref, prefill_case, dev)
+    flash_shapes = {LM_ARCH: flash_times(torch, fa_ops, fa_ref, prefill_case, dev)}
 
     # 5. the hybrid LM path --------------------------------------------------------
     launches[HYBRID_ARCH] = lm_path(torch, np, counters, hy_cfg, hy_prompts)
     torch.cuda.empty_cache()
-    flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
+    flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
     bh, s, p, n, chunk = ssd_prefill_case
     args = ssd_inputs(torch, bh, s, p, n, seed=8, device=dev, model_decay=True)
     ssd_ms = time_ms(torch, lambda: ssd_ops.ssd_chunked_scan(*args, chunk=chunk), 20)
@@ -725,6 +773,7 @@ def main() -> int:
     log(f"[main] launches by path: sgns_lifetime yt-sim {sgns_launches}; {launches}")
 
     by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
+    flash = flash_shapes[LM_ARCH]      # the top-level numbers: qwen3-1.7b's prefill shape
     print(json.dumps({"kernels": [{
         "name": "sgns_lifetime",
         "route": "cuda",
@@ -745,11 +794,12 @@ def main() -> int:
         "launches": total["flash_attention"],
         "launches_by_path": by_path("flash_attention"),
         "max_abs_err": flash_err,
-        "ms": flash_ms,
-        "plain_ms": flash_plain,
-        "bound_ms": flash_bound,
-        "bound_by": flash_by,
-        "library_ms": sdpa_ms,
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "by_shape": flash_shapes,
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``.cu`` source with a plain C interface. On first use
-``nvcc`` compiles it for ``sm_90a`` into a shared library under
+Each kernel is one ``.cu`` source with a plain C interface, beside the
+headers it includes in its ``csrc/`` directory. On first use ``nvcc``
+compiles it for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named by the kernel
-and a hash of its source, and ``ctypes`` loads it. The libraries take raw
+and a hash of everything the build reads (every file of that directory
+and nvcc's flags), and ``ctypes`` loads it. The libraries take raw
 device pointers, shapes and the CUDA stream, so they include none of
 PyTorch's headers and build in seconds. A build or load error raises.
 
@@ -22,6 +24,8 @@ from typing import Callable, Iterable
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-O3", *ARCH_FLAGS, "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -47,9 +51,12 @@ class CudaLibrary:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}_{digest}.so"
+        """The library's path, keyed by nvcc's flags, the source's name and
+        the name and bytes of every file in the source's directory."""
+        h = hashlib.sha256("\0".join([*NVCC_FLAGS, self.source.name]).encode())
+        for f in sorted(p for p in self.source.parent.iterdir() if p.is_file()):
+            h.update(b"\0" + f.name.encode() + b"\0" + f.read_bytes())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def _start(self):
         """Start nvcc unless this source is built; returns (proc, tmp) or None."""
@@ -58,8 +65,7 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-O3", *ARCH_FLAGS, "-std=c++17", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True), tmp
 

@@ -9,32 +9,98 @@
 // the keys j <= i + q_offset. The running max, the normalizer and the
 // accumulator are float32, the normalizer is floored at 1e-30 as in the
 // TPU kernel, and o takes q's type. The query head h reads KV head
-// h / (Hq / Hkv) directly: no repeat is materialised.
+// h / (Hq / Hkv) directly: no repeat is materialised. Key tiles strictly
+// above the diagonal are never loaded, and query tiles are scheduled
+// heaviest first under the causal mask.
 //
-// Design (a first, simple kernel): one CTA of 128 threads per
-// (b * Hq + h, tile of BQ queries), looping over tiles of 32 keys. A tile
-// of K and of V is staged in shared memory as float32 (32 KB at D = 128),
-// shared by the CTA's queries. TPR threads (8, or 4 at D = 16 and 112)
-// share one query row: each holds D/TPR of its dimensions (interleaved
-// in 16-byte pieces, so the loads of one row hit distinct banks) for two
-// query rows, scores
-// 8 keys at a time with f32 FMA, sums the partial dots with warp shuffles,
-// and applies one online-softmax update per 8 keys. P stays float32 for
-// P.V, as in the TPU kernel. Key tiles strictly above the diagonal are
-// never loaded; ragged Sq and Skv are read with bounds checks instead of
-// padding. Query tiles are scheduled heaviest first under the causal mask.
+// What bounds it: at the serving prefill shapes (B = 4, S = 1,819, causal;
+// qwen3-1.7b Hq = 16, Hkv = 8, D = 128; zamba2-7b Hq = Hkv = 32, D = 112)
+// the products of the visible (query, key) pairs are 54 / 95 GFLOP against
+// 45 / 60 MB of q, k, v and o, so the bf16 tensor cores bound it: 0.055 /
+// 0.096 ms at 989 TFLOP/s, against 0.013 / 0.018 ms of memory traffic.
 //
-// What bounds it: at the serving prefill shape (B = 4, Hq = 16, Hkv = 8,
-// S = 2,048, D = 128, causal) the work is ~69 GFLOP of products against
-// ~50 MB of q, k, v and o, so the tensor cores' rate bounds it (~0.07 ms
-// at 989 TFLOP/s). This kernel runs on the f32 FMA units instead, well
-// above that bound; wgmma tiles with TMA loads are later work.
+// The type picks the kernel; neither gives way to the other.
+//
+// bfloat16, the serving path: flash_kernel_sm90. One CTA per (b * Hq + h,
+// tile of 128 queries): two consumer warpgroups of 64 query rows each (the
+// rows of one wgmma) and one producer warp. The producer loads the Q tile
+// once, then keeps a ring of four stages of K and V tiles of 64 keys full
+// by TMA: each stage lands on its own "full" mbarrier, and is refilled once
+// all 256 consumer threads have arrived on its "empty" mbarrier. A
+// consumer runs S = Q K^T as a chain of wgmma m64n64k16 with both operands
+// in shared memory (K-major), the online softmax on S's accumulator
+// fragment (each row's max and sum over the four lanes of a quad), rounds
+// P to bfloat16 in registers, and accumulates O += P V in float32
+// registers with P as the register A operand of wgmma m64nDPk16 (V
+// MN-major in shared memory). Tile j's S is issued together with tile
+// j - 1's P V, and tile j's softmax runs while the tensor cores work on
+// that P V. CTAs take the heads in groups of 16, and inside a group the
+// query tiles heaviest first: the K and V in flight stay in L2 (zamba2's
+// 104 MB of K and V do not fit there) and the longest CTAs start first.
+//   Where it could go wrong, and what the design does:
+//   1. P in bfloat16. The TPU kernel keeps P in float32 for P.V; bf16
+//      wgmma takes a bf16 A operand. The reference's chunked path rounds P
+//      to the model type the same way (mha_chunked), and the normalizer
+//      stays the sum of the float32 probabilities.
+//   2. Head dims that do not fill 128-byte rows. Every shared-memory row
+//      is padded to DP = 64 or 128 columns, in blocks of 64 (one 128-byte
+//      swizzle span each), so one swizzle mode serves D = 16 ... 128. The
+//      tensor maps span only D columns, so TMA fills the padding with
+//      zeros without reading memory: Q.K^T stops at D (the zero columns
+//      add nothing) and P.V runs at N = DP, the columns past D never
+//      stored. D = 112 wastes 1/8 of P.V.
+//   3. The ragged edges. The maps are 3-D over (B * H, S, D), so a tile
+//      never reads the next head's rows: keys past Skv arrive as zeros and
+//      are masked to -inf (a zero key would score 0 and take softmax
+//      mass), query rows past Sq are computed and not stored. The causal
+//      mask is applied only on tiles that cross the diagonal.
+//   4. The swizzle and the descriptors agree by construction: TMA writes
+//      CU_TENSOR_MAP_SWIZZLE_128B tiles at 1024-byte-aligned addresses and
+//      the wgmma descriptors read layout type 128-byte swizzle (sm90.cuh).
+//   5. The tensor map is a driver-API object; cuTensorMapEncodeTiled is
+//      fetched through the runtime's driver entry point, so the library
+//      links only the runtime. The maps are built per call on the host and
+//      passed as __grid_constant__ parameters.
+//   6. Registers. ptxas caps a CTA of 288 threads at 168 registers a
+//      thread (one SM sub-partition holds three of its warps). With
+//      128-key tiles the consumer needs ~196 (S 64, P 32 and O 64 floats
+//      live at once), and ptxas serialized every wgmma for want of
+//      registers (C7512), also with a producer warpgroup that raised the
+//      consumers to 240 by setmaxnreg: CUDA 12.8's ptxas still allocated
+//      168. 64-key tiles halve S and P and fit in 168 with no spill. A
+//      CTA of two consumer warpgroups without a producer (256 threads,
+//      128-key tiles, a CTA barrier before each refill) ran at about the
+//      same speed.
+//   What bounds it now: the tensor cores' work (Q.K^T and P.V) is on the
+//   critical path and the softmax is hidden (PERF.md). Both products read
+//   B from shared memory; by count, the 64-wide Q.K^T reads 4 KB of shared
+//   memory per 32 tensor-core clocks, which is all of the SM's 128 bytes a
+//   clock.
+//   Registers per thread and spills: ptxas -v, printed by chip_smoke.py.
+//
+// float32: flash_kernel, the SIMT kernel. TF32 tensor cores keep about
+// three decimal digits, which would put the float32 tolerance (2e-3) and
+// the float32 decode-vs-prefill check (1e-3) in doubt, so float32 stays on
+// the FMA units: one CTA of 128 threads per (b * Hq + h, tile of BQ
+// queries), looping over tiles of 32 keys staged in shared memory. TPR
+// threads (8, or 4 at D = 16 and 112) share one query row: each holds D/TPR
+// of its dimensions (interleaved in 16-byte pieces, so the loads of one
+// row hit distinct banks) for two query rows, scores 8 keys at a time,
+// sums the partial dots with warp shuffles, and applies one online-softmax
+// update per 8 keys. P stays float32 for P.V, as in the TPU kernel.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+// --- float32: the SIMT kernel -------------------------------------------------
 
 constexpr int kThreads = 128;
 constexpr int kRows = 2;        // query rows per thread
@@ -46,15 +112,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int D>
 struct Layout {
@@ -246,13 +304,355 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
   }
 }
 
+// --- bfloat16: wgmma tiles fed by a TMA ring ------------------------------------
+
+constexpr int kBQ = 128;              // query rows per CTA: two consumer warpgroups of 64
+constexpr int kBK = 64;               // keys per K/V tile: S is one wgmma m64n64 chain
+constexpr int kSN = kBK / 2;          // S accumulators per thread (m64 x kBK)
+constexpr int kConsumers = 256;       // the two consumer warpgroups
+constexpr int kThreadsSm90 = kConsumers + 32;   // and one producer warp
+// A 128-byte-swizzled block: 64 bf16 columns of a tile's rows.
+constexpr uint32_t kQBlockBytes = kBQ * 128, kKVBlockBytes = kBK * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kHeadGroup = 16;        // heads whose CTAs are scheduled together
+
+template <int D>
+struct Sm90Tile {
+  static constexpr int DP = D <= 64 ? 64 : 128;           // padded head dim
+  static constexpr int kBlocks = DP / 64;                 // 128-byte swizzle blocks per row
+  static constexpr int kStages = 4;                       // K/V tiles in the ring
+  static constexpr uint32_t kQBytes = kBlocks * kQBlockBytes;
+  static constexpr uint32_t kKVBytes = kBlocks * kKVBlockBytes;   // K or V of one stage
+  // 1 KB of slack to align the tiles to 1,024 bytes, the tiles, the barriers
+  // (Q's, and a full and an empty one per stage).
+  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kKVBytes + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issue S = Q K^T for one warpgroup's 64 query rows and kBK keys (k16
+// steps up to D: the zero columns past D are skipped). Q and K are
+// K-major; a k16 step moves 32 bytes inside a 128-byte row, four steps a
+// 64-column block.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kSN], uint32_t q_rows, uint32_t k_s) {
+  sm90::fence_operands(sc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t dq = sm90::desc_sw128(q_rows + (kk / 4) * kQBlockBytes + (kk % 4) * 32, 16, 1024);
+    const uint64_t dk = sm90::desc_sw128(k_s + (kk / 4) * kKVBlockBytes + (kk % 4) * 32, 16, 1024);
+    sm90::wgmma_m64n64k16_ss(sc, dq, dk, kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::fence_operands(sc);
+}
+
+// Issue O += P V: P (64 x kBK keys) from registers, V (keys, DP) MN-major,
+// 16 keys (2,048 bytes) per k16 step.
+template <int NO>
+__device__ __forceinline__ void issue_pv(float (&acc)[NO], uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t v_s) {
+  sm90::fence_operands(acc);
+  sm90::fence_operands(pa);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dv = sm90::desc_sw128(v_s + kk * 16 * 128, kKVBlockBytes, 1024);
+    if constexpr (NO == 64) sm90::wgmma_m64n128k16_rs(acc, pa[kk], dv, 1);
+    else sm90::wgmma_m64n64k16_rs(acc, pa[kk], dv, 1);
+  }
+  sm90::wgmma_commit();
+  sm90::fence_operands(acc);
+  sm90::fence_operands(pa);
+}
+
+// Tile kt's online-softmax step on the S fragment: mask the keys past Skv
+// and, causally, past each row's diagonal (only on tiles that reach them);
+// fold the tile's row max into m (in units of log2), rescale l, and turn
+// sc into probabilities. corr[r] is the factor for row r's accumulator.
+// Each row lives in the 4 lanes of a quad: 2 columns each per 8.
+struct SoftmaxTile {
+  int Skv, causal, q_offset, q_lo, r0, c0;
+  float scale_log2;
+
+  __device__ __forceinline__ void operator()(float (&sc)[kSN], int kt, float (&m)[2],
+                                             float (&l)[2], float (&corr)[2]) const {
+    if (kt + kBK > Skv || (causal && kt + kBK - 1 > q_lo + q_offset)) {
+#pragma unroll
+      for (int i = 0; i < kBK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt + 8 * i + c0 + (e & 1);
+          if (key >= Skv || (causal && key > r0 + 8 * (e >> 1) + q_offset))
+            sc[4 * i + e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kSN; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      corr[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kSN; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -m[r]));
+      l[r] += sc[i];
+    }
+  }
+};
+
+// P in bf16: the accumulator layout of keys 16 kk .. 16 kk + 15 is the A
+// fragment of k16 step kk.
+__device__ __forceinline__ void to_bf16(const float (&sc)[kSN], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+}
+
+// CTA L's head row bh and query tile iq. The heads go in groups of
+// kHeadGroup and, inside a group, the query tiles heaviest first under the
+// causal mask: the CTAs in flight read the K and V of a few heads (they
+// stay in L2) and the longest run first.
+__device__ __forceinline__ void cta_tile(int L, int BH, int nq, int causal, int& bh, int& iq) {
+  const int first = L / (kHeadGroup * nq) * kHeadGroup;
+  const int g = min(kHeadGroup, BH - first);
+  const int r = L - first * nq;
+  bh = first + r % g;
+  iq = causal ? nq - 1 - r / g : r / g;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsSm90, 1)
+flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  int Hq, int Hkv, int Sq, int Skv, int nq, int causal, int q_offset,
+                  float scale_log2) {
+  using T = Sm90Tile<D>;
+  constexpr int STAGES = T::kStages;
+  constexpr int NO = T::DP / 2;         // O accumulators per thread
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_kv = s_q + T::kQBytes;       // stage s: K, then V
+  const uint32_t bar_q = s_kv + STAGES * 2 * T::kKVBytes;
+  const uint32_t bar_full = bar_q + 8;          // per stage: its K and V have landed
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // per stage: both consumers are done with it
+  auto k_tile = [&](int j) { return s_kv + (j % STAGES) * 2 * T::kKVBytes; };
+  auto full = [&](int j) { return bar_full + 8 * (j % STAGES); };
+  auto empty = [&](int j) { return bar_empty + 8 * (j % STAGES); };
+
+  const int tid = threadIdx.x;
+  int bh, iq;
+  cta_tile(blockIdx.x, (int)gridDim.x / nq, nq, causal, bh, iq);
+  const int b = bh / Hq, h = bh % Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q_lo = iq * kBQ;
+  // Keys past kv_end are above the diagonal for every query of the tile.
+  const int kv_end = causal ? min(Skv, q_lo + kBQ + q_offset) : Skv;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(bar_full + 8 * s, 1);
+      sm90::mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer warp: one thread loads Q, then keeps the ring of K/V
+    // tiles full, refilling a stage once both consumers have released it.
+    if (tid == kConsumers) {
+      sm90::tma_prefetch_map(&tq);
+      sm90::tma_prefetch_map(&tk);
+      sm90::tma_prefetch_map(&tv);
+      sm90::mbar_expect_tx(bar_q, T::kQBytes);
+#pragma unroll
+      for (int blk = 0; blk < T::kBlocks; ++blk)
+        sm90::tma_load_3d(s_q + blk * kQBlockBytes, &tq, bar_q, blk * 64, q_lo, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= STAGES) sm90::mbar_wait(empty(j), (j / STAGES - 1) & 1);
+        const uint32_t dk = k_tile(j), dv = dk + T::kKVBytes;
+        sm90::mbar_expect_tx(full(j), 2 * T::kKVBytes);
+#pragma unroll
+        for (int blk = 0; blk < T::kBlocks; ++blk) {
+          sm90::tma_load_3d(dk + blk * kKVBlockBytes, &tk, full(j), blk * 64, j * kBK, bkv);
+          sm90::tma_load_3d(dv + blk * kKVBlockBytes, &tv, full(j), blk * 64, j * kBK, bkv);
+        }
+      }
+    }
+  } else {
+    // The consumer warpgroups, 64 query rows each. This thread's rows of the
+    // accumulators: r0 and r0 + 8; its columns in each group of 8: c0, c0 + 1.
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = q_lo + 64 * wg + 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const uint32_t q_rows = s_q + wg * 64 * 128;  // this warpgroup's rows of each Q block
+    const SoftmaxTile softmax{Skv, causal, q_offset, q_lo, r0, c0, scale_log2};
+    float acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f};  // running max of s * scale * log2(e)
+    float l[2] = {0.f, 0.f};        // this thread's share of the normalizer
+    float corr[2];
+    float sc[kSN];                  // S of the current tile, then its probabilities
+    uint32_t pa[kBK / 16][4];       // P of the tile before, bf16: P.V's A operand
+
+    sm90::mbar_wait(bar_q, 0);
+    sm90::mbar_wait(full(0), 0);
+    issue_qk<D>(sc, q_rows, k_tile(0));
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sc);
+    softmax(sc, 0, m, l, corr);
+    to_bf16(sc, pa);
+    // Tile j: issue S_j = Q K_j^T, then O += P_{j-1} V_{j-1}, and run tile
+    // j's softmax while the tensor cores work on P_{j-1} V_{j-1}.
+    for (int j = 1; j < n_tiles; ++j) {
+      sm90::mbar_wait(full(j), (j / STAGES) & 1);
+      issue_qk<D>(sc, q_rows, k_tile(j));
+      issue_pv(acc, pa, k_tile(j - 1) + T::kKVBytes);
+      sm90::wgmma_wait<1>();
+      sm90::fence_operands(sc);
+      softmax(sc, j * kBK, m, l, corr);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+      sm90::mbar_arrive(empty(j - 1));
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] *= corr[(i >> 1) & 1];
+      to_bf16(sc, pa);
+    }
+    issue_pv(acc, pa, k_tile(n_tiles - 1) + T::kKVBytes);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+
+    // o = acc / max(l, 1e-30), the rows below Sq and the columns below D.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    __nv_bfloat16* obase = o + (size_t)bh * Sq * D;
+#pragma unroll
+    for (int i = 0; i < NO / 4; ++i) {
+      if (8 * i >= D) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)row * D + 8 * i + c0) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv[r], acc[4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+}
+
+// Codes past the runtime's own: the tensor map could not be made.
+constexpr int kErrNoEncode = 20000;         // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = 10000;           // + the CUresult of cuTensorMapEncodeTiled
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map over `heads` contiguous (rows, D) bf16 matrices, (D, rows, heads)
+// innermost first, read in 128-byte-swizzled boxes of 64 columns x box_rows.
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int D, int rows,
+             int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)D * 2 * rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
+}
+
+template <int D>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                int Sq, int Skv, int causal, int q_offset, float sm_scale, cudaStream_t stream) {
+  if (Skv == 0)     // no key: the normalizer's floor gives 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Hq * Sq * D * 2, stream);
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  if ((long long)B * Hq * nq > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncode;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(encode, &tq, q, D, Sq, B * Hq, kBQ);
+  if (!err) err = make_map(encode, &tk, k, D, Skv, B * Hkv, kBK);
+  if (!err) err = make_map(encode, &tv, v, D, Skv, B * Hkv, kBK);
+  if (err) return err;
+  constexpr int smem = Sm90Tile<D>::kSmem;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_kernel_sm90<D><<<B * Hq * nq, kThreadsSm90, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, nq, causal, q_offset,
+      sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+int launch_sm90_dim(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                    int Hkv, int Sq, int Skv, int causal, int q_offset, float sm_scale,
+                    cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_sm90<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 32: return launch_sm90<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 64: return launch_sm90<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 96: return launch_sm90<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 112: return launch_sm90<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 128: return launch_sm90<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; dtype 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 = success); an unsupported head dimension
-// or type gives cudaErrorInvalidValue.
+// Launch on `stream`; dtype 0 = float32 (the SIMT kernel), 1 = bfloat16
+// (the wgmma kernel). Returns 0 on success, else a cudaError_t, or
+// kErrEncode + a CUresult / kErrNoEncode when the tensor maps could not be
+// made; an unsupported head dimension or type gives cudaErrorInvalidValue.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                            int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                            int q_offset, float sm_scale, void* stream) {
@@ -260,12 +660,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0)
     return (int)launch_dim<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, s);
   if (dtype == 1)
-    return (int)launch_dim<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset,
-                                          sm_scale, s);
+    return launch_sm90_dim(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int code) {
+  static char msg[96];
+  if (code == kErrNoEncode) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (code >= kErrEncode) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)", code - kErrEncode);
+    return msg;
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -2,10 +2,12 @@
 
 ``flash_attention`` takes q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D).
 Tensors on the CPU go to the plain version (``ref.mha_reference``);
-tensors on the card go to the CUDA kernel (``csrc/flash_attention.cu``),
-or the call raises — there is no fallback from the card to the plain
-version. The kernel reads ragged lengths with bounds checks, so the
-wrapper pads nothing; it still refuses what the reference's wrapper
+tensors on the card go to the CUDA library (``csrc/flash_attention.cu``),
+which picks the kernel by type: bfloat16 to wgmma tiles fed by TMA,
+float32 to the SIMT kernel on the FMA units. A launch that fails raises —
+there is no fallback from one kernel to the other or to the plain
+version. The kernels read ragged lengths with bounds checks (SIMT) or
+TMA's zero fill (wgmma), so the wrapper pads nothing; it still refuses what the reference's wrapper
 refuses (non-causal attention over a key length that is not a multiple
 of the reference's key tile), so the two stay interchangeable.
 
@@ -63,7 +65,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous rows at a 16-byte-aligned base: the kernel loads 16 bytes at a time."""
+    """Contiguous rows at a 16-byte-aligned base: the SIMT kernel loads 16
+    bytes at a time, and a TMA tensor map needs that alignment."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

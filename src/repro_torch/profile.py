@@ -29,6 +29,8 @@ SUPERSTEPS = 40
 STEPS = 100
 LM_ARCHS = ("qwen3-1.7b", "zamba2-7b")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
+# Substrings of the port's kernel names: "flash_kernel" matches both of
+# K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16).
 OWN_KERNELS = ("sgns_lifetime_kernel", "flash_kernel", "ssd_scan_kernel")
 
 

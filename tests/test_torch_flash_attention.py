@@ -112,7 +112,8 @@ def test_cpu_tensors_take_the_plain_route():
     (1, 1, 1, 128, 128, 64, True, 0), (2, 2, 2, 256, 256, 32, False, 0),
     (2, 1, 1, 384, 384, 128, True, 0), (1, 2, 2, 128, 256, 64, True, 128),
     (2, 4, 2, 200, 200, 16, True, 0), (1, 16, 8, 1000, 1000, 128, True, 0),
-    (1, 4, 4, 300, 300, 112, True, 0), (2, 2, 2, 256, 256, 112, False, 0)])
+    (1, 4, 4, 300, 300, 112, True, 0), (2, 2, 2, 256, 256, 112, False, 0),
+    (1, 16, 8, 1819, 1819, 128, True, 0), (1, 32, 32, 1819, 1819, 112, True, 0)])
 def test_kernel_matches_plain_version_on_the_card(dtype, b, hq, hkv, sq, skv, d, causal,
                                                   q_offset):
     if not torch.cuda.is_available():
