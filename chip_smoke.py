@@ -13,8 +13,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    check in the flash library's SASS that every bf16 kernel
    (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
    (``UTMALDG``).
-2. Hold each kernel against its plain torch version on the card: SGNS at
-   the paper width and two ragged shapes (5e-4); flash attention at the
+2. Hold each kernel against its plain torch version on the card: SGNS
+   (the TPU kernel's buffer interface) at the paper width and three
+   ragged shapes, one of W + K = 16 columns (5e-4); flash attention at the
    reference's test shapes, at every head dim, with GQA, ragged lengths,
    ``q_offset`` and without the causal mask, and at both LM paths'
    prefill shapes (2e-3 in float32 against ``mha_reference``, through the
@@ -25,9 +26,15 @@ Phases (each failure raises and ends the run with a non-zero exit):
    diagonal (3e-3, y and the final state).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
    ``yt-sim`` R-MAT preset (1,138,499 nodes), one replica. The SGNS
-   kernel must have launched; phi must be finite and the link-prediction
-   AUC above 0.75. Then time SGNS on a lifetime batch gathered from this
-   run's corpus and embeddings.
+   kernel must have launched once per training step, every step inside a
+   CUDA graph replay (replays = chunks); phi must be finite and the
+   link-prediction AUC above 0.75. Then, on a lifetime batch of this run
+   (its walks, embeddings and negatives): the batch's extents; the SGNS
+   kernel's deltas against ``lifetime_deltas_ref``, the fused step against
+   ``sgns_step_ref`` and two 50-step chunks replayed as a graph against
+   the eager chunks (phi within 5e-4, tensors allocated between the
+   replays untouched); the kernel's and the step's times
+   against the bound of the live rows (and the old padded-buffer bound).
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -67,7 +74,9 @@ SGNS_TOL = 5e-4
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 PAPER_SHAPE = dict(G=64, W=2, T=100, D=128, K=5, window=10)
 RAGGED_SHAPES = [dict(G=5, W=2, T=37, D=96, K=5, window=10),
-                 dict(G=7, W=3, T=23, D=128, K=4, window=5)]
+                 dict(G=7, W=3, T=23, D=128, K=4, window=5),
+                 dict(G=6, W=2, T=30, D=128, K=14, window=4)]     # W + K = 16 columns
+CHUNK_STEPS = 50                 # one sync_period: the chunk held as a graph against eager
 # The reference's flash-attention test cases (tests/test_kernels.py):
 # (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, dtype).
 FLASH_CASES = [(1, 1, 1, 128, 128, 64, c, 0, "float32") for c in (True, False)] + \
@@ -138,13 +147,14 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def sgns_inputs(torch, G, W, T, D, K, window, seed, device, invalid=True):
     """Buffers as the main path gathers them: N(0, 0.1) rows, walks that end
-    early (-1 padding) when ``invalid``."""
+    early (-1 padding) and have holes at random positions when ``invalid``."""
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *s: (torch.randn(*s, generator=gen) * 0.1).to(device)
     ctx, out, neg = rnd(G, W, T, D), rnd(G, W, T, D), rnd(G, T, K, D)
     if invalid:
         lengths = torch.randint(0, T + 1, (G, W), generator=gen)
-        valid = torch.arange(T)[None, None, :] < lengths[:, :, None]
+        valid = (torch.arange(T)[None, None, :] < lengths[:, :, None]) \
+            & (torch.rand(G, W, T, generator=gen) > 0.1)
     else:
         valid = torch.ones(G, W, T, dtype=torch.bool)
     return ctx, out, neg, valid.to(device)
@@ -164,24 +174,136 @@ def sgns_compare(torch, got, want, what: str) -> float:
     return err
 
 
-def sgns_bound_ms(torch, ctx, out, neg, valid, window) -> tuple:
-    """Least time for the update on an H100: bytes (each input read once,
-    each output written once) over the memory rate, against the f32 FMAs
-    the valid (row, column) pairs need (logits, C update, T update) over
-    the f32 peak. Returns (ms, "bytes" | "operations")."""
-    G, W, T, D = ctx.shape
-    K = neg.shape[2]
-    nbytes = (2 * (ctx.numel() + out.numel() + neg.numel()) * 4
-              + valid.numel() * valid.element_size() + G * 4)
-    v = valid.to(torch.int64)
+def sgns_bound_ms(torch, walks, negs, dim, window) -> tuple:
+    """Least time for K1 on an H100 on these ids: the bytes it must move
+    (the walk and negative ids read once, each live slot's row read once
+    and its delta written once, the losses written), over the memory rate,
+    against the f32 FMAs the valid (row, column) pairs need (logits, C
+    update, T update) over the f32 peak. A live slot is a valid walk token
+    (its context and its target row) or a negative at a position where some
+    walk has a valid target. Returns (ms, "bytes" | "operations")."""
+    G, W, T = walks.shape[-3:]
+    K = negs.shape[-1]
+    v = (walks >= 0).reshape(-1, W, T).to(torch.int64)
+    live_pos = v.amax(dim=1)                         # (G, T)
+    rows_moved = 2 * int(v.sum()) + K * int(live_pos.sum())
+    nbytes = (walks.numel() + negs.numel()) * 4 + 2 * rows_moved * dim * 4 + G * 4
     pad = torch.nn.functional.pad(v, (window, window))
     # valid context positions p-w..p+w (minus p) of walk w, where walk w's target is valid
     win = sum(pad[:, :, window + o: window + o + T] for o in range(-window, window + 1) if o)
     rows = (win * v).sum(dim=1)                      # (G, T) valid rows per position
     cols = v.sum(dim=1) + K                          # (G, T) valid columns
-    flops = 2 * 3 * D * int((rows * cols).sum())
+    flops = 2 * 3 * dim * int((rows * cols).sum())
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sgns_padded_bound_ms(G, W, T, D, K) -> float:
+    """PR 11-14's bound, for comparison: every padded (G, W, T, d) and
+    (G, T, K, d) buffer read and written whole, and the int32 mask."""
+    nbytes = 2 * (2 * G * W * T * D + G * T * K * D) * 4 + G * W * T * 4 + G * 4
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def sgns_main_path(torch, np, phi_in, phi_out, corpus, device) -> dict:
+    """K1 and the step on a batch of the embedding run (64 lifetimes of its
+    walks, its embeddings, negatives from its counts): the kernel's deltas
+    against ``lifetime_deltas_ref``, the fused step against ``sgns_step_ref``
+    and two 50-step chunks replayed as a CUDA graph against the eager chunks
+    (phi within SGNS_TOL; tensors allocated between the replays untouched),
+    each on copies of phi; the extents; the times.
+    Raises outside the tolerance. Returns the kernel line's numbers."""
+    from repro_torch.core import dsgl
+    from repro_torch.kernels.sgns import ops, ref
+
+    G, W, T, D, K, w = (PAPER_SHAPE[k] for k in ("G", "W", "T", "D", "K", "window"))
+    rng = np.random.default_rng(1)
+    pick = lambda n: torch.as_tensor(
+        corpus.walks[rng.choice(corpus.num_walks, n * G * W, replace=False)],
+        device=device).reshape(n, 1, G, W, T)
+    walks = pick(1)[0]                                          # (1, G, W, T) int32
+    table = dsgl.build_alias_table(corpus.ocn, 0.75, device)
+    negs = dsgl.chunk_negatives(table, (0, 1), (1, 1, G, W, T), K)[0]
+    phi_in, phi_out = phi_in[None], phi_out[None]
+    lr = torch.full((1,), 0.025, device=device)
+
+    lo, hi = ref.lifetime_extent(walks)
+    extent = torch.where(hi >= 0, hi - lo + 1, 0)[0].sort().values.tolist()
+    live = ref.live_slots(walks)[1].sum(dim=-1)[0].sort().values.tolist()
+    ext = {"min": extent[0], "median": extent[G // 2], "max": extent[-1]}
+    log(f"[sgns] main-path batch: {G} lifetimes, valid tokens "
+        f"{(walks >= 0).float().mean().item():.4f}; extent (positions visited) min "
+        f"{ext['min']} median {ext['median']} max {ext['max']}; live positions min "
+        f"{live[0]} median {live[G // 2]} max {live[-1]}")
+
+    got = ops.lifetime_deltas(phi_in, phi_out, walks, negs, lr, w)
+    want = ref.lifetime_deltas_ref(phi_in, phi_out, walks, negs, lr, w)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("d_ctx", "d_out", "d_neg", "loss"),
+                          (got.d_ctx, got.d_out, got.d_neg, got.loss), want):
+        e = (a - b).abs().max().item()
+        if not torch.allclose(a, b, atol=SGNS_TOL, rtol=SGNS_TOL):
+            raise AssertionError(f"K1 on the main-path batch: {name} differs by {e:.3e}")
+        err = max(err, e) if name != "loss" else err
+    log(f"[check] K1 deltas on the main-path batch: max abs err {err:.3e}")
+
+    def phi_err(what, a, b):
+        e = max((x - y).abs().max().item() for x, y in zip(a, b))
+        if not all(torch.allclose(x, y, atol=SGNS_TOL, rtol=SGNS_TOL) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: phi differs by {e:.3e}")
+        log(f"[check] {what}: phi max abs err {e:.3e}")
+        return e
+
+    step = [phi_in.clone(), phi_out.clone()]
+    plain = [phi_in.clone(), phi_out.clone()]
+    ops.sgns_step(*step, walks, negs, lr, w)
+    ref.sgns_step_ref(*plain, walks, negs, lr, w)
+    torch.cuda.synchronize()
+    err = max(err, phi_err("fused step vs its plain version, main-path batch", step, plain))
+    del plain
+
+    first, second = pick(CHUNK_STEPS), pick(CHUNK_STEPS)
+    lrs = np.linspace(0.025, 0.02, CHUNK_STEPS, dtype=np.float32)
+    graph = [phi_in.clone(), phi_out.clone()]
+    eager = [phi_in.clone(), phi_out.clone()]
+    launches, replays = ops.LAUNCHES, dsgl.GRAPH_REPLAYS
+    graphs = dsgl.ChunkGraphs()
+    graphs.train_chunk(*graph, first, table, (0, 2), lrs, w, K)     # capture, replay
+    # Tensors of the step scratch's sizes, allocated after the capture, must
+    # come through the next replay untouched: a replay writes only into
+    # memory its graph holds.
+    held = [torch.full(shape, 7.0, device=device) for shape in
+            ((1, G, W, T, D), (1, G, W, T, D), (1, G, T, K, D), (G,))]
+    graphs.train_chunk(*graph, second, table, (0, 3), lrs, w, K)
+    dsgl.train_chunk(*eager, first, table, (0, 2), lrs, w, K)
+    dsgl.train_chunk(*eager, second, table, (0, 3), lrs, w, K)
+    torch.cuda.synchronize()
+    if (ops.LAUNCHES - launches, dsgl.GRAPH_REPLAYS - replays) != (4 * CHUNK_STEPS, 2):
+        raise AssertionError("the graph chunks did not count their launches and replays")
+    if not all(bool((h == 7.0).all()) for h in held):
+        raise AssertionError("a graph replay wrote into memory allocated after its capture")
+    err = max(err, phi_err(f"two {CHUNK_STEPS}-step chunks as CUDA graph replays vs eager "
+                           "(memory allocated between the replays untouched)", graph, eager))
+    del graph, eager, held
+
+    k1 = lambda: ops.lifetime_deltas(phi_in, phi_out, walks, negs, lr, w, scratch=got)
+    k1_ms = time_ms(torch, k1, 50)
+    step_ms = time_ms(torch, lambda: ops.sgns_step(*step, walks, negs, lr, w), 50)
+    plain_ms = time_ms(torch, lambda: ref.lifetime_deltas_ref(phi_in, phi_out, walks, negs,
+                                                               lr, w), 5)
+    k1_ms2 = time_ms(torch, k1, 50)
+    bound, by = sgns_bound_ms(torch, walks, negs, D, w)
+    padded = sgns_padded_bound_ms(G, W, T, D, K)
+    us_pos = k1_ms / max(ext["max"], 1) * 1e3
+    log(f"[time] K1 on the main-path batch: kernel {k1_ms:.4f} ms (again {k1_ms2:.4f}), "
+        f"{us_pos:.3f} us per position of the longest extent; step (K1 + write-back) "
+        f"{step_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound:.6f} ms ({by}; live rows), "
+        f"padded-buffer bound {padded:.6f} ms")
+    del step, got
+    return {"max_abs_err": err, "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "padded_bound_ms": padded, "step_ms": step_ms,
+            "us_per_position": us_pos, "extent": ext}
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -701,26 +823,29 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for name in counters:
         counters[name].LAUNCHES = 0
+    dsgl.GRAPH_REPLAYS = 0
     t0 = time.perf_counter()
     phi_in, phi_out, corpus, stats = embed_graph(
         graph, PAPER_EMBED, num_shards=1, return_corpus=True,
         return_stats=True, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sgns_launches = ops.LAUNCHES
+    sgns_launches, graph_replays = ops.LAUNCHES, dsgl.GRAPH_REPLAYS
     ws = stats["stats"]
     log(f"[main] embed_graph wall {wall:.2f} s (Cm {stats['cm_s']:.2f} s, "
         f"pipeline {stats['wall_s']:.2f} s: walks {ws['phase_s']['walk']:.2f} s, "
         f"training {ws['phase_s']['train']:.2f} s)")
     log(f"[main] walks/round {graph.num_nodes} rounds {stats['rounds']} "
-        f"training steps {stats['steps']} K1 launches {sgns_launches} "
-        f"K2 launches {fa_ops.LAUNCHES} K3 launches {ssd_ops.LAUNCHES}")
+        f"training steps {stats['steps']} in {stats['chunks']} chunks; K1 launches "
+        f"{sgns_launches}, CUDA graph replays {graph_replays}; K2 launches {fa_ops.LAUNCHES} K3 launches {ssd_ops.LAUNCHES}")
     log(f"[main] mean walk length {ws['mean_len']:.4f} supersteps {ws['supersteps']} "
         f"per batch {ws['batch_supersteps']} accepts {ws['accepts']} rejects {ws['rejects']}")
     log(f"[main] D history {ws['d_history']}")
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if sgns_launches <= 0:
-        raise AssertionError("the embedding path did not launch the sgns_lifetime kernel")
+    if sgns_launches != stats["steps"] or graph_replays != stats["chunks"]:
+        raise AssertionError(f"K1 launches {sgns_launches} for {stats['steps']} training steps, "
+                             f"{graph_replays} graph replays for {stats['chunks']} chunks: "
+                             "every step must run in a replayed chunk")
     if not (torch.isfinite(phi_in).all() and torch.isfinite(phi_out).all()):
         raise AssertionError("phi is not finite")
     t0 = time.perf_counter()
@@ -729,25 +854,9 @@ def main() -> int:
     if not auc > 0.75:
         raise AssertionError(f"AUC {auc} <= 0.75")
 
-    G, W, T, D, K, w = (PAPER_SHAPE[k] for k in ("G", "W", "T", "D", "K", "window"))
-    rng = np.random.default_rng(1)
-    walks = torch.as_tensor(
-        corpus.walks[rng.choice(corpus.num_walks, G * W, replace=False)],
-        device=dev).reshape(G, W, T)
-    safe = walks.clamp_min(0).to(torch.int64)
-    table = dsgl.build_alias_table(corpus.ocn, 0.75, dev)
-    negs = dsgl.sample_alias(table, (0, 1), (G, T, K))
-    ctx, out, neg = phi_in[safe], phi_out[safe], phi_out[negs]
-    valid = walks >= 0
-    got = ops.sgns_lifetime_batch(ctx, out, neg, valid, 0.025, w)
-    want = ref.sgns_lifetime_batch_ref(ctx, out, neg, valid, 0.025, w)
-    sgns_err = max(sgns_err, sgns_compare(torch, got, want, "sgns_lifetime main-path batch"))
-    sgns_ms = time_ms(torch, lambda: ops.sgns_lifetime_batch(ctx, out, neg, valid, 0.025, w), 50)
-    sgns_plain = time_ms(torch, lambda: ref.sgns_lifetime_batch_ref(ctx, out, neg, valid, 0.025, w), 5)
-    sgns_bound, sgns_by = sgns_bound_ms(torch, ctx, out, neg, valid, w)
-    log(f"[time] sgns_lifetime on main-path batch (valid {valid.float().mean().item():.4f}): "
-        f"kernel {sgns_ms:.4f} ms, plain {sgns_plain:.4f} ms, bound {sgns_bound:.6f} ms ({sgns_by})")
-    del phi_in, phi_out, corpus, graph, ctx, out, neg, got, want
+    sgns = sgns_main_path(torch, np, phi_in, phi_out, corpus, dev)
+    sgns_err = max(sgns_err, sgns["max_abs_err"])
+    del phi_in, phi_out, corpus, graph
     torch.cuda.empty_cache()
 
     # 4. the dense LM path -------------------------------------------------------
@@ -781,11 +890,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/sgns/kernel.py:121",
         "launches": total["sgns_lifetime"],
         "max_abs_err": sgns_err,
-        "ms": sgns_ms,
-        "plain_ms": sgns_plain,
-        "bound_ms": sgns_bound,
-        "bound_by": sgns_by,
+        "ms": sgns["ms"],
+        "plain_ms": sgns["plain_ms"],
+        "bound_ms": sgns["bound_ms"],
+        "bound_by": sgns["bound_by"],
         "library_ms": None,
+        "padded_bound_ms": sgns["padded_bound_ms"],
+        "step_ms": sgns["step_ms"],
+        "us_per_position": sgns["us_per_position"],
+        "extent": sgns["extent"],
+        "graph_replays": graph_replays,
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -12,8 +12,10 @@ per position, and each walk's target is an extra negative for the others.
 The embedding matrices are (S, N, d) stacks of S replicas and are updated
 in place. Negatives are drawn on the device from a Vose alias table, for a
 whole chunk of lifetimes at once. Duplicate buffer rows of one batch are
-AVERAGED on write-back (``_scatter_average``); the write-back is
-``index_add_``, whose float sums on CUDA land in a nondeterministic order.
+AVERAGED on write-back (``kernels.sgns.ref.write_back_ref``); on the card
+the write-back adds with atomics, so its float sums land in a
+nondeterministic order. On the card a chunk runs as one CUDA graph replay
+(``ChunkGraphs``).
 """
 
 from __future__ import annotations
@@ -101,8 +103,9 @@ def sample_alias(table: AliasTable, key: prng.KeyLike, shape) -> torch.Tensor:
     n = table.prob.shape[0]
     single = isinstance(key[0], int)
     pairs = [prng.split(k) for k in ([key] if single else key)]
-    slot = prng.randint([p[0] for p in pairs], shape, 0, n, dev).to(torch.int64)
-    u = prng.uniform([p[1] for p in pairs], shape, dev)
+    slot, u = prng.randint_and_uniform([p[0] for p in pairs], [p[1] for p in pairs], shape,
+                                       0, n, dev)
+    slot = slot.to(torch.int64)
     out = torch.where(u < table.prob[slot], slot, table.alias[slot])
     return out[0] if single else out
 
@@ -112,58 +115,16 @@ def sample_alias(table: AliasTable, key: prng.KeyLike, shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _scatter_average(base: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
-                     mask: torch.Tensor) -> None:
-    """base[ids] += deltas, duplicates AVERAGED, in place.
-
-    Hub nodes appear in many walks of one batch (power law!): each
-    occurrence contributes delta / count(row), so a hot row's step stays
-    bounded instead of multiplying by its duplicate count."""
-    ones = mask.to(torch.float32)
-    cnt = torch.zeros(base.shape[0], dtype=torch.float32,
-                      device=base.device).index_add_(0, ids, ones)
-    inv = torch.where(mask, 1.0 / cnt[ids].clamp_min(1.0), 0.0)
-    base.index_add_(0, ids, deltas * inv[:, None])
-
-
-def _write_back(phi_in, phi_out, safe_walks, negs, valid,
-                ctx_buf, ctx0, out_buf, out0, neg_buf, neg0) -> None:
-    """Scatter the buffer deltas of one replica back into its matrices."""
-    dim = phi_in.shape[1]
-    flat_ids = safe_walks.reshape(-1)
-    mask = valid.reshape(-1)
-    neg_ids = negs.reshape(-1)
-    _scatter_average(phi_in, flat_ids, (ctx_buf - ctx0).reshape(-1, dim), mask)
-    # phi_out receives deltas from both walk-token rows and negative rows;
-    # average across the union so a hot node's total step stays bounded.
-    _scatter_average(
-        phi_out, torch.cat([flat_ids, neg_ids]),
-        torch.cat([(out_buf - out0).reshape(-1, dim),
-                   (neg_buf - neg0).reshape(-1, dim)]),
-        torch.cat([mask, torch.ones_like(neg_ids, dtype=torch.bool)]))
-
-
-def _replica_step(phi_in, phi_out, walks, negs, lr: float, window: int) -> torch.Tensor:
+def _replica_step(phi_in, phi_out, walks, negs, lr, window: int) -> torch.Tensor:
     """One lifetime batch over stacked replicas, in place: phi (S, N, d),
-    walks (S, G, W, T), negs (S, G, T, K). The replica axis is merged into
-    the lifetime axis for the fused update (one launch for all replicas).
-    Returns the loss per replica (S,)."""
-    s_cnt, g_cnt, w_cnt, t_len = walks.shape
-    safe = walks.clamp_min(0).to(torch.int64)
-    valid = walks >= 0
-    rep = torch.arange(s_cnt, device=walks.device)
-    ctx0 = phi_in[rep[:, None, None, None], safe]          # (S, G, W, T, d)
-    out0 = phi_out[rep[:, None, None, None], safe]
-    neg0 = phi_out[rep[:, None, None, None], negs]         # (S, G, T, K, d)
-    merge = lambda a: a.reshape(s_cnt * g_cnt, *a.shape[2:])
-    ctx_buf, out_buf, neg_buf, loss = sgns_ops.sgns_lifetime_batch(
-        merge(ctx0), merge(out0), merge(neg0), merge(valid), lr, window)
-    unmerge = lambda a: a.reshape(s_cnt, g_cnt, *a.shape[1:])
-    ctx_buf, out_buf, neg_buf = unmerge(ctx_buf), unmerge(out_buf), unmerge(neg_buf)
-    for s in range(s_cnt):
-        _write_back(phi_in[s], phi_out[s], safe[s], negs[s], valid[s],
-                    ctx_buf[s], ctx0[s], out_buf[s], out0[s], neg_buf[s], neg0[s])
-    return loss.reshape(s_cnt, g_cnt).sum(dim=1)
+    walks (S, G, W, T), negs (S, G, T, K), lr a float or a one-element
+    tensor. The step (``sgns_ops.sgns_step``) runs every (replica, lifetime)
+    pair in one launch and writes the live rows back. Returns the loss per
+    replica (S,)."""
+    dev = phi_in.device
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev).reshape(1)
+    return sgns_ops.sgns_step(phi_in, phi_out, walks.to(torch.int32).contiguous(),
+                              negs.to(torch.int32).contiguous(), lr, window)
 
 
 def lifetime_step(phi_in, phi_out, walks, negs, lr: float, window: int) -> torch.Tensor:
@@ -178,6 +139,19 @@ def lifetime_step(phi_in, phi_out, walks, negs, lr: float, window: int) -> torch
 # ---------------------------------------------------------------------------
 
 
+def chunk_negatives(neg_table: AliasTable, key: prng.Key, walks_shape,
+                    negatives: int) -> torch.Tensor:
+    """The negatives of a (C, S, G, W, T) chunk, (C, S, G, T, K) int32: step
+    c draws from the c-th key of the chain ``key, sub = split(key)``, as the
+    reference's scan does; all C draws run as one batch."""
+    c_cnt, s_cnt, g_cnt, _, t_len = walks_shape
+    subs = []
+    for _ in range(c_cnt):
+        key, sub = prng.split(key)
+        subs.append(sub)
+    return sample_alias(neg_table, subs, (s_cnt, g_cnt, t_len, negatives)).to(torch.int32)
+
+
 def train_chunk(
     phi_in: torch.Tensor,     # (S, N, d), updated in place
     phi_out: torch.Tensor,    # (S, N, d), updated in place
@@ -188,19 +162,87 @@ def train_chunk(
     window: int,
     negatives: int,
 ) -> torch.Tensor:
-    """Train C lifetime batches in order. Step c draws its negatives from
-    the c-th key of the chain ``key, sub = split(key)``, as the reference's
-    scan does; all C draws run as one batch. Returns the losses (C, S)."""
-    s_cnt = phi_in.shape[0]
-    c_cnt, _, g_cnt, _, t_len = walks.shape
-    subs = []
-    for _ in range(c_cnt):
-        key, sub = prng.split(key)
-        subs.append(sub)
-    negs = sample_alias(neg_table, subs, (s_cnt, g_cnt, t_len, negatives))
+    """Train C lifetime batches in order, step by step. Returns the losses
+    (C, S)."""
+    negs = chunk_negatives(neg_table, key, walks.shape, negatives)
+    lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=phi_in.device)
     return torch.stack([
-        _replica_step(phi_in, phi_out, walks[c], negs[c], float(lrs[c]), window)
-        for c in range(c_cnt)])
+        _replica_step(phi_in, phi_out, walks[c], negs[c], lrs[c:c + 1], window)
+        for c in range(walks.shape[0])])
+
+
+GRAPH_REPLAYS = 0    # chunks run as one CUDA graph replay (``ChunkGraphs``)
+
+
+class ChunkGraphs:
+    """``train_chunk`` on the card as one CUDA graph replay per chunk, as the
+    reference runs a chunk as one XLA dispatch.
+
+    A chunk of C steps is captured once (C lifetime-kernel and write-back
+    launches reading static walks, negatives and learning-rate buffers)
+    per chunk length and per storage of phi_in / phi_out; each call draws
+    the chunk's negatives, fills the static buffers and replays. A graph
+    holds phi's pointers: whoever rebinds phi makes a new ``ChunkGraphs``.
+    A capture or replay failure raises; nothing runs eagerly instead.
+    Each replay adds C to ``sgns_ops.LAUNCHES`` and one to ``GRAPH_REPLAYS``."""
+
+    def __init__(self):
+        self._graphs = {}
+
+    def train_chunk(self, phi_in, phi_out, walks, neg_table, key, lrs,
+                    window: int, negatives: int) -> torch.Tensor:
+        """Same arguments and result as ``train_chunk``."""
+        sig = (tuple(walks.shape), negatives, window, tuple(phi_in.shape),
+               phi_in.data_ptr(), phi_out.data_ptr())
+        graph = self._graphs.get(sig)
+        if graph is None:
+            graph = self._graphs[sig] = _ChunkGraph(phi_in, phi_out, walks.shape,
+                                                    negatives, window)
+        return graph.replay(walks, chunk_negatives(neg_table, key, walks.shape, negatives),
+                            lrs)
+
+
+class _ChunkGraph:
+    """One captured chunk: its static inputs, scratch and graph, all held
+    for the graph's life (a replay writes into the addresses captured)."""
+
+    def __init__(self, phi_in, phi_out, walks_shape, negatives: int, window: int):
+        if phi_in.device.type != "cuda":
+            raise ValueError(f"ChunkGraphs: phi must be on a CUDA device, not {phi_in.device}")
+        c_cnt, s_cnt, g_cnt, w_cnt, t_len = walks_shape
+        dev = phi_in.device
+        self.steps, self.lifetimes = c_cnt, (s_cnt, g_cnt)
+        self.walks = torch.empty(tuple(walks_shape), dtype=torch.int32, device=dev)
+        self.negs = torch.empty((c_cnt, s_cnt, g_cnt, t_len, negatives), dtype=torch.int32,
+                                device=dev)
+        self.lrs = torch.empty(c_cnt, dtype=torch.float32, device=dev)
+        self.loss = torch.empty(c_cnt, s_cnt * g_cnt, dtype=torch.float32, device=dev)
+        # Every replay writes its deltas here and the write-back reads them:
+        # the scratch lives as long as the graph, as the static inputs do.
+        self.scratch = sgns_ops.StepScratch.empty((s_cnt, g_cnt, w_cnt, t_len), negatives,
+                                                  phi_in.shape[-1], dev)
+        # The counts and the library's init, outside the capture.
+        sgns_ops.count_buffers(dev, phi_in.shape[0] * phi_in.shape[1])
+        sgns_ops.LIBRARY.load()
+        self.graph = torch.cuda.CUDAGraph()
+        launches = sgns_ops.LAUNCHES
+        with torch.cuda.graph(self.graph):
+            for c in range(c_cnt):
+                sgns_ops.launch_step(phi_in, phi_out, self.walks[c], self.negs[c],
+                                     self.lrs[c:c + 1], window,
+                                     dataclasses.replace(self.scratch, loss=self.loss[c]))
+        sgns_ops.LAUNCHES = launches          # a capture launches nothing
+
+    def replay(self, walks, negs, lrs) -> torch.Tensor:
+        global GRAPH_REPLAYS
+        self.walks.copy_(walks)
+        self.negs.copy_(negs)
+        self.lrs.copy_(torch.from_numpy(np.asarray(lrs, np.float32)).pin_memory(),
+                       non_blocking=True)
+        self.graph.replay()
+        sgns_ops.LAUNCHES += self.steps
+        GRAPH_REPLAYS += 1
+        return self.loss.view(self.steps, *self.lifetimes).sum(dim=-1)
 
 
 def train_chunk_checked(phi_in, phi_out, walks, neg_table, key, lrs,

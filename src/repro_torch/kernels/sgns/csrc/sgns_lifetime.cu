@@ -1,35 +1,66 @@
-// Fused SGNS lifetime update (paper §4.2-I/II) for NVIDIA Hopper, sm_90a.
+// Fused SGNS lifetime update (paper §4.2-I/II) for NVIDIA Hopper, sm_90a,
+// and the duplicate-averaged write-back around it: the whole DSGL step.
 //
-// Replaces the TPU kernel src/repro/kernels/sgns/kernel.py
-// (_sgns_kernel, launched by sgns_lifetime_pallas). It computes what
-// src/repro_torch/kernels/sgns/ref.py computes: for each position p of a
-// lifetime of W walks, with R = W*2w context rows and NC = W+K target
-// columns,
-//     logits = clip(C . T^T, +-6)           C: context rows (phi_in)
-//     g      = (onehot - sigmoid) * masks   T: [W targets ; K negatives] (phi_out)
+// Replaces the TPU kernel src/repro/kernels/sgns/kernel.py (_sgns_kernel,
+// launched by sgns_lifetime_pallas). For each lifetime of W walks x T
+// positions it computes what src/repro_torch/kernels/sgns/ref.py computes:
+// at each position p, with R = W*2w context rows C (the window of p in each
+// walk, rows of phi_in) and NC = W+K columns T (the W targets at p and the
+// K negatives of p, rows of phi_out),
+//     logits = clip(C . T^T, +-6)           g = (onehot - sigmoid) * masks
 //     C += lr * g T ;  T += lr * g^T C_old  both from the old values
-// plus the summed BCE loss.
+// plus the summed BCE loss. Every (walk, position) slot and every
+// (position, k) negative slot is its own copy of its row, taken when the
+// step starts; the kernel writes each live slot's delta (final minus
+// initial) into scratch. The write-back into phi (sgns_writeback_kernel,
+// then sgns_clear_kernel) is a separate launch: every lifetime must read
+// its rows before any row of phi changes.
 //
-// Design: one CTA per lifetime. The lifetime's W*T*d context rows live in
-// dynamic shared memory for the whole loop over positions (100 KB at
-// W=2, T=100, d=128) and go back to global memory once at the end. The
-// target and negative rows are touched at one position only, so they are
-// read from global memory at that position and written back there. Per
-// position: one warp per context row computes its NC dot products (f32
-// FMA, no TF32) and the gradient coefficients into shared memory; a
-// barrier; T's update is formed from the old C; a barrier; C and T are
-// updated. The loss is accumulated per thread and reduced once per CTA.
-// Masked pairs contribute exactly zero, so masked rows are skipped, and a
-// position where no walk has a valid target is the identity: the target
-// and negative rows are copied through in one bulk pass at the start (16
-// bytes per access), and the loop skips such positions. Walks end early
-// (-1 padding), so the work follows the valid tokens.
+// What bounds it. A yt-sim step (64 lifetimes, T = 100, d = 128, walks of
+// 12 tokens on average) needs ~8 MB of live rows read and their deltas
+// written and ~0.1 GFLOP of f32 FMA: a few microseconds at the card's
+// limits. A lifetime is a serial chain over its positions, so a launch
+// lasts as long as its longest lifetime, and the cost per position is
+// latency: the rows' chains of shuffles and FMAs, the sum of the warps'
+// g^T C partials, the barrier and the copies' issue. The shared-memory
+// pipe carries the T rows into every warp that has a row (3.5 KB each),
+// the partials out and back (2 x 57 KB) and the shuffles.
 //
-// What bounds it: at the paper width a launch reads and writes ~59 MB and
-// does ~1.4 GFLOP of f32 FMA; the positions are a serial chain with four
-// barriers each, so a simple CTA like this one is latency-bound well
-// above either limit. Later work: a ring of 2w+1 rows per walk instead of
-// the whole lifetime, prefetch of the next position's rows.
+// Design: one CTA per lifetime.
+// - Rows are gathered by id (walk_ids, neg_ids; validity is id >= 0) from
+//   three row tables: phi_in / phi_out / phi_out in the fused step, the
+//   gathered buffers with identity ids for sgns_lifetime_batch.
+// - Only the lifetime's extent [lo, hi] (the positions where some walk has
+//   a valid target) is visited; dead positions inside it only move the ring.
+// - Context slots live in a ring of 2w + 1 + kPrefetch slots per walk. Slot q
+//   is copied in when position q - w is reached and written out (its delta)
+//   once position q + w is done. The ring keeps the initial value (phi does
+//   not change during the launch); the current value lives in registers of
+//   the warp that owns the ring slot: one float4 per lane (d <= 128).
+// - Rows arrive by cp.async (16 bytes a lane, a row a warp; the rows of a
+//   position spread over the warps) into shared memory, completing on one
+//   mbarrier per position (cp.async.mbarrier.arrive). Position p +
+//   kPrefetch is issued when p starts, so its rows land while p and p + 1
+//   compute. Target and negative rows are used at one position only:
+//   loaded ahead, used once, their delta written out. (One cp.async.bulk
+//   per row, all issued by one warp, was slower: the issue serialises on
+//   that warp.)
+// - Per position and row, the warp that owns the row computes its NC
+//   logits: 4 FMAs a lane, then a transposing reduction (NC values summed
+//   over 32 lanes in 9 shuffles for NC <= 8, lane l ends with column
+//   l >> 2), the sigmoid once per column, the gradient broadcast back
+//   (NC shuffles), and the C update in registers. g^T C_old is a partial
+//   per warp in shared memory, summed across warps after the position's
+//   one block barrier; double-buffered, so one barrier per position.
+// - No tensor cores: the products are 40x128 by 128x7 and 7x40 by 40x128,
+//   below one wgmma tile, and their latency, not FLOPs, bounds them; TF32
+//   would put the 5e-4 tolerance at risk. f32 FMA throughout.
+// - The write-back counts duplicates as the reference does (phi_in: valid
+//   walk tokens; phi_out: valid walk tokens plus every negative slot, also
+//   at dead positions), counted by the lifetime kernel; then
+//   phi[id] += delta / count only for live slots (a valid token, or a
+//   negative at a position with a valid target) with float4 atomics; then
+//   the counts are cleared by the ids that touched them.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -37,192 +68,487 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxCols = 16;     // W + K
+constexpr int kPrefetch = 2;               // positions in flight ahead of the one computed
+constexpr int kStages = kPrefetch + 1;     // row buffers and mbarriers
+constexpr int kMaxCols = 16;               // W + K
+constexpr int kMaxRing = 64;               // W * (2w + 1 + kPrefetch) context slots
+constexpr int kMaxDim = 128;               // one float4 per lane
+constexpr int kSmemMax = 232448;
 constexpr float kMaxExp = 6.0f;
 constexpr float kEps = 1e-7f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__host__ __device__ inline size_t smem_bytes(int W, int T, int D, int K, int win) {
-  const size_t nc = W + K, r = (size_t)W * 2 * win;
-  const size_t floats = (size_t)W * T * D   // C: context rows, resident
-                        + 2 * nc * D         // T rows and their update
-                        + r * nc             // gradient coefficients
-                        + r + nc + 32;       // row mask, column mask, loss
-  const size_t ints = r + (size_t)W * T;     // row slot, valid flags
-  return floats * sizeof(float) + ints * sizeof(int);
+// Warps per CTA and ring slots per warp for up to NCP columns; both cover
+// kMaxRing slots. 8 columns keep the T rows and g^T C partials of a lane
+// in 64 registers, so 16 warps fit; 16 columns need twice that.
+template <int NCP> struct Shape;
+template <> struct Shape<8> { static constexpr int kWarps = 16, kSlots = 4, kShift = 2; };
+template <> struct Shape<16> { static constexpr int kWarps = 8, kSlots = 8, kShift = 1; };
+
+struct Args {
+  const float* ctx_src;   // context rows (phi_in, or the context buffer)
+  const float* out_src;   // target rows (phi_out, or the target buffer)
+  const float* neg_src;   // negative rows (phi_out, or the negative buffer)
+  const int* walk_ids;    // (L, W, T) row of each walk slot in ctx_src and out_src, -1 = none
+  const int* neg_ids;     // (L, T, K) row of each negative slot in neg_src
+  long long rep_rows;     // rows per replica: lifetime l reads rows of replica l / per_rep
+  int per_rep;
+  float* d_ctx;           // (L, W, T, D) deltas, written for live slots only
+  float* d_out;           // (L, W, T, D)
+  float* d_neg;           // (L, T, K, D)
+  float* loss;            // (L,)
+  float* cnt_in;          // duplicate counts for the write-back, or null
+  float* cnt_out;
+  const float* lr;        // device scalar
+  int W, T, D, K, win;
+};
+
+struct Layout {
+  size_t ring, tbuf, part, wid, nid, live, red, total;
+};
+
+__host__ __device__ inline Layout layout(int W, int T, int D, int K, int win, int warps) {
+  Layout s;
+  const size_t nc = W + K, slots = (size_t)W * (2 * win + 1 + kPrefetch), row = (size_t)D * 4;
+  size_t o = 64;                               // kStages mbarriers, then lo and hi
+  s.ring = o;  o += slots * row;               // initial context rows
+  s.tbuf = o;  o += kStages * nc * row;        // target and negative rows per stage
+  s.part = o;  o += 2 * warps * nc * row;      // g^T C partials, double-buffered
+  s.wid = o;   o += (size_t)W * T * 4;
+  s.nid = o;   o += (size_t)T * K * 4;
+  s.live = o;  o += (size_t)T * 4;             // bit w: walk w has a valid target at p
+  s.red = o;   o += (size_t)warps * 4;
+  s.total = o;
+  return s;
 }
 
-// n floats from src to dst by the whole block; 16 bytes per access where
-// both ends are aligned, so each thread keeps several loads in flight.
-__device__ inline void block_copy(float* __restrict__ dst, const float* __restrict__ src,
-                                  int n) {
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    const int n4 = n >> 2;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < n4; e += blockDim.x) d4[e] = s4[e];
-    done = n4 << 2;
+// --- Hopper primitives (inline PTX) -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+
+// Wait for the phase of parity `parity`; a phase that never completes (a
+// lost copy) traps after ~10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) break;
+    if (clock64() - start > 20000000000LL) __trap();
   }
-  for (int e = done + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
-__global__ void __launch_bounds__(kThreads)
-sgns_lifetime_kernel(const float* __restrict__ ctx, const float* __restrict__ out,
-                     const float* __restrict__ neg, const int* __restrict__ valid,
-                     float* __restrict__ ctx_o, float* __restrict__ out_o,
-                     float* __restrict__ neg_o, float* __restrict__ loss,
-                     int W, int T, int D, int K, int win, float lr) {
-  extern __shared__ __align__(16) float smem[];
-  const int NC = W + K;
-  const int span = 2 * win;
-  const int R = W * span;
-  float* C = smem;                          // (W*T, D)
-  float* Tr = C + (size_t)W * T * D;        // (NC, D)
-  float* dT = Tr + NC * D;                  // (NC, D)
-  float* Gm = dT + NC * D;                  // (R, NC)
-  float* rowm = Gm + R * NC;                // (R,)
-  float* colm = rowm + R;                   // (NC,)
-  float* red = colm + NC;                   // (32,)
-  int* rowpos = reinterpret_cast<int*>(red + 32);  // (R,) slot in C, -1 if outside
-  int* vld = rowpos + R;                    // (W*T,)
+// 16 bytes from global to shared memory, through L2 only.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued has landed
+// (the barrier counts these arrivals: it is initialised with their number).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// --- float4 helpers ------------------------------------------------------------
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+}
+__device__ __forceinline__ float4 fma4(float s, float4 a, float4 b) {   // s * a + b
+  return make_float4(fmaf(s, a.x, b.x), fmaf(s, a.y, b.y), fmaf(s, a.z, b.z), fmaf(s, a.w, b.w));
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// Sum each of NCP values over the warp's 32 lanes. Halving steps (each lane
+// keeps half of its values and trades the other half with the lane `off`
+// apart) leave one value per lane, then a butterfly finishes: lane l holds
+// the full sum of value l >> (5 - log2 NCP).
+template <int NCP>
+__device__ __forceinline__ float reduce_columns(float (&v)[NCP], int lane) {
+  int off = 16;
+#pragma unroll
+  for (int n = NCP; n > 1; n >>= 1, off >>= 1) {
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? v[i] : v[i + n / 2];
+      const float keep = upper ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  return s;
+}
+
+template <int NCP>
+__global__ void __launch_bounds__(Shape<NCP>::kWarps * 32, 1)
+sgns_lifetime_kernel(const Args a) {
+  constexpr int NW = Shape<NCP>::kWarps, J = Shape<NCP>::kSlots, SH = Shape<NCP>::kShift;
+  extern __shared__ __align__(128) unsigned char smem[];   // all of it dynamic
+  const int W = a.W, T = a.T, D = a.D, K = a.K, win = a.win;
+  const int NC = W + K, ring = 2 * win + 1 + kPrefetch, nslots = W * ring;
+  const Layout s = layout(W, T, D, K, win, NW);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  int& s_lo = reinterpret_cast<int*>(smem)[2 * kStages];
+  int& s_hi = reinterpret_cast<int*>(smem)[2 * kStages + 1];
+  float* ringb = reinterpret_cast<float*>(smem + s.ring);
+  float* tbuf = reinterpret_cast<float*>(smem + s.tbuf);
+  float* part = reinterpret_cast<float*>(smem + s.part);
+  int* wid = reinterpret_cast<int*>(smem + s.wid);
+  int* nid = reinterpret_cast<int*>(smem + s.nid);
+  int* live = reinterpret_cast<int*>(smem + s.live);
+  float* red = reinterpret_cast<float*>(smem + s.red);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthr = blockDim.x, nwarps = nthr >> 5;
-  const size_t g = blockIdx.x;
-  const size_t wt_base = g * W * T * D;     // ctx / out offset of this lifetime
-  const size_t neg_base = g * T * K * D;
+  const long long l = blockIdx.x;
+  const long long row0 = (l / a.per_rep) * a.rep_rows;   // first row of this replica
+  const bool has4 = lane * 4 < D;                        // lane holds elements 4 lane .. 4 lane + 3
 
-  block_copy(C, ctx + wt_base, W * T * D);
-  block_copy(out_o + wt_base, out + wt_base, W * T * D);   // rows the loop skips
-  block_copy(neg_o + neg_base, neg + neg_base, T * K * D);
-  for (int e = tid; e < W * T; e += nthr) vld[e] = valid[g * W * T + e];
-  float my_loss = 0.f;
+  for (int e = tid; e < W * T; e += NW * 32) wid[e] = a.walk_ids[l * W * T + e];
+  for (int e = tid; e < T * K; e += NW * 32) nid[e] = a.neg_ids[l * T * K + e];
+  if (tid == 0) { s_lo = T; s_hi = -1; }
+  if (tid < kStages) mbar_init(smem_u32(bars + tid), NW * 32);
+  fence_barrier_init();
   __syncthreads();
-
-  for (int p = 0; p < T; ++p) {
-    // No walk has a valid target here: every pair is masked, the update is
-    // the identity, and the rows were copied through already.
-    bool any_target = false;
-    for (int w = 0; w < W; ++w) any_target |= vld[w * T + p] != 0;
-    if (!any_target) continue;                  // block-uniform
-
-    // 1. Window bookkeeping and this position's target / negative rows.
-    for (int r = tid; r < R; r += nthr) {
-      const int w = r / span, j = r - w * span;
-      const int idx = p + (j < win ? j - win : j - win + 1);
-      const bool inb = idx >= 0 && idx < T;
-      rowpos[r] = inb ? w * T + idx : -1;
-      rowm[r] = (inb && vld[w * T + idx] && vld[w * T + p]) ? 1.f : 0.f;
-    }
-    for (int c = tid; c < NC; c += nthr) colm[c] = c < W ? (vld[c * T + p] ? 1.f : 0.f) : 1.f;
-    for (int e = tid; e < NC * D; e += nthr) {
-      const int c = e / D, k = e - c * D;
-      Tr[e] = c < W ? out[wt_base + ((size_t)c * T + p) * D + k]
-                    : neg[neg_base + ((size_t)p * K + (c - W)) * D + k];
-    }
-    __syncthreads();
-
-    // 2. One warp per context row: its NC logits, gradient coefficients, loss.
-    for (int r = warp; r < R; r += nwarps) {
-      if (rowm[r] == 0.f) {                      // warp-uniform
-        if (lane < NC) Gm[r * NC + lane] = 0.f;
-        continue;
+  for (int p = tid; p < T; p += NW * 32) {
+    int m = 0;
+    for (int w = 0; w < W; ++w) m |= (wid[w * T + p] >= 0 ? 1 : 0) << w;
+    live[p] = m;
+    if (m) { atomicMin(&s_lo, p); atomicMax(&s_hi, p); }
+  }
+  if (a.cnt_in != nullptr) {       // fused step: the write-back's duplicate counts
+    for (int e = tid; e < W * T; e += NW * 32) {
+      const int id = wid[e];
+      if (id >= 0) {
+        atomicAdd(a.cnt_in + row0 + id, 1.f);
+        atomicAdd(a.cnt_out + row0 + id, 1.f);
       }
-      const float* crow = C + (size_t)rowpos[r] * D;
-      float acc[kMaxCols];
+    }
+    for (int e = tid; e < T * K; e += NW * 32) atomicAdd(a.cnt_out + row0 + nid[e], 1.f);
+  }
+  __syncthreads();
+  const int lo = s_lo, hi = s_hi;
+  const float lr = *a.lr;
+  float my_loss = 0.f;
+
+  // Item i of bundle b (position lo + b): a row's source and its place in
+  // shared memory, or no copy (src null). Bundle 0 first carries the 2w
+  // context slots before lo + w; then every bundle carries the context slot
+  // p + w of each walk, then the position's W targets and K negatives.
+  auto item = [&](int b, int i, const float*& src, float*& dst) {
+    const int p = lo + b;
+    src = nullptr;
+    dst = nullptr;
+    const int pro = b == 0 ? W * 2 * win : 0;
+    int wi, q;
+    if (i < pro) {
+      wi = i / (2 * win);
+      q = lo - win + i % (2 * win);
+    } else if (i < pro + W) {
+      wi = i - pro;
+      q = p + win;
+    } else {
+      const int c = i - pro - W, m = live[p];
+      if (m == 0 || (c < W && !((m >> c) & 1))) return;
+      src = c < W ? a.out_src + (row0 + wid[c * T + p]) * D
+                  : a.neg_src + (row0 + nid[p * K + c - W]) * D;
+      dst = tbuf + ((size_t)(b % kStages) * NC + c) * D;
+      return;
+    }
+    if (q < 0 || q >= T || wid[wi * T + q] < 0) return;
+    src = a.ctx_src + (row0 + wid[wi * T + q]) * D;
+    dst = ringb + ((size_t)wi * ring + q % ring) * D;
+  };
+  // Bundle b's copies, by every thread: item i by warp i % NW, 16 bytes a
+  // lane; then each thread's arrival, when its copies have landed.
+  auto issue = [&](int b) {
+    const int n = (b == 0 ? W * 2 * win : 0) + W + NC;
+    for (int i = warp; i < n; i += NW) {
+      const float* src;
+      float* dst;
+      item(b, i, src, dst);
+      if (src != nullptr && has4) cp_async16(smem_u32(dst + lane * 4), src + lane * 4);
+    }
+    cp_async_arrive(smem_u32(bars + b % kStages));
+  };
+
+  if (lo <= hi) {
+    for (int b = 0; b < kPrefetch && lo + b <= hi; ++b) issue(b);
+    // Ring slot r = warp + j NW holds walk wi[j]'s context slot q[j], the one
+    // slot of [p - w, p - w + ring) with q = r mod ring; creg[j] is its
+    // current value once it has entered the window.
+    float4 creg[J];
+    int wi[J], q[J];
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) acc[c] = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float cv = crow[k];
+    for (int j = 0; j < J; ++j) {
+      const int r = warp + j * NW, first = lo - win;
+      wi[j] = r / ring;
+      q[j] = first + ((r % ring - first) % ring + ring) % ring;
+      creg[j] = zero4();
+    }
+
+    for (int p = lo; p <= hi; ++p) {
+      const int b = p - lo, st = b % kStages, pb = b & 1, first = p - win;
+      if (p + kPrefetch <= hi) issue(b + kPrefetch);
+      mbar_wait(smem_u32(bars + st), (b / kStages) & 1);
+      const int m = live[p];
+      float4 t4[NCP], pt[NCP];
+      bool loaded = false;
 #pragma unroll
-        for (int c = 0; c < kMaxCols; ++c)
-          if (c < NC) acc[c] = fmaf(cv, Tr[c * D + k], acc[c]);
+      for (int c = 0; c < NCP; ++c) pt[c] = zero4();
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int r = warp + j * NW;
+        if (r >= nslots) break;
+        if (q[j] < first) q[j] += ring;        // the slot that left after p - 1 is replaced
+        const int qj = q[j], w = wi[j];
+        if (qj < 0 || qj > p + win || qj >= T || wid[w * T + qj] < 0) continue;
+        const float* init = ringb + (size_t)r * D;
+        if (qj == p + win || p == lo) creg[j] = has4 ? ld4(init + lane * 4) : zero4();
+        if (m != 0 && qj != p && ((m >> w) & 1)) {        // a context row of position p
+          if (!loaded) {
+#pragma unroll
+            for (int c = 0; c < NCP; ++c)
+              t4[c] = (c < NC && (c >= W || ((m >> c) & 1)) && has4)
+                          ? ld4(tbuf + ((size_t)st * NC + c) * D + lane * 4) : zero4();
+            loaded = true;
+          }
+          const float4 c4 = creg[j];
+          float v[NCP];
+#pragma unroll
+          for (int c = 0; c < NCP; ++c) v[c] = dot4(c4, t4[c]);
+          const float dotc = reduce_columns<NCP>(v, lane);
+          const int col = lane >> SH;
+          float gmine = 0.f;
+          if (col < NC) {
+            const float msk = (col >= W || ((m >> col) & 1)) ? 1.f : 0.f;
+            const float logit = fminf(fmaxf(dotc, -kMaxExp), kMaxExp);
+            const float sig = __fdividef(1.f, 1.f + __expf(-logit));
+            const float y = col == w ? 1.f : 0.f;
+            gmine = (y - sig) * msk;
+            if ((lane & ((1 << SH) - 1)) == 0)   // y is 0 or 1: one of the two terms
+              my_loss -= __logf((col == w ? sig : 1.f - sig) + kEps) * msk;
+          }
+          float4 dc = zero4();
+#pragma unroll
+          for (int c = 0; c < NCP; ++c) {
+            if (c < NC) {
+              const float g = __shfl_sync(kFull, gmine, c << SH);
+              dc = fma4(g, t4[c], dc);
+              pt[c] = fma4(g, c4, pt[c]);
+            }
+          }
+          creg[j] = add4(c4, scale4(dc, lr));
+        }
+        if (qj == first && has4)               // leaves the window after p: its delta
+          st4(a.d_ctx + ((l * W + w) * T + qj) * D + lane * 4,
+              sub4(creg[j], ld4(init + lane * 4)));
       }
-      float mine = 0.f;
+      if (m != 0 && has4) {
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        if (c < NC) {
-          float v = acc[c];
+        for (int c = 0; c < NCP; ++c)
+          if (c < NC) st4(part + (((size_t)pb * NW + warp) * NC + c) * D + lane * 4, pt[c]);
+      }
+      __syncthreads();
+      if (m != 0) {            // T += lr g^T C_old: the column deltas, summed over warps
+        const int d4 = D / 4;
+        for (int e = tid; e < NC * d4; e += NW * 32) {
+          const int c = e / d4, k4 = e - c * d4;
+          if (c < W && !((m >> c) & 1)) continue;
+          const float* src = part + ((size_t)pb * NW * NC + c) * D + k4 * 4;
+          float4 acc = ld4(src);
 #pragma unroll
-          for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-          if (lane == c) mine = v;
+          for (int w2 = 1; w2 < NW; ++w2) acc = add4(acc, ld4(src + (size_t)w2 * NC * D));
+          float* dst = c < W ? a.d_out + ((l * W + c) * T + p) * D
+                             : a.d_neg + ((l * T + p) * K + (c - W)) * D;
+          st4(dst + k4 * 4, scale4(acc, lr));
         }
       }
-      if (lane < NC) {
-        const float m = colm[lane];              // rowm[r] == 1 here
-        const float logit = fminf(fmaxf(mine, -kMaxExp), kMaxExp);
-        const float sig = 1.f / (1.f + expf(-logit));
-        const float y = (lane == r / span) ? 1.f : 0.f;
-        Gm[r * NC + lane] = (y - sig) * m;
-        my_loss += -(y * logf(sig + kEps) + (1.f - y) * logf(1.f - sig + kEps)) * m;
-      }
     }
-    __syncthreads();
-
-    // 3. dT = lr * g^T C_old, before C changes.
-    for (int e = tid; e < NC * D; e += nthr) {
-      const int c = e / D, k = e - c * D;
-      float a = 0.f;
-      for (int r = 0; r < R; ++r)       // masked rows have g == 0
-        if (rowm[r] != 0.f) a = fmaf(Gm[r * NC + c], C[(size_t)rowpos[r] * D + k], a);
-      dT[e] = a * lr;
+    // The slots still in the window after hi.
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int r = warp + j * NW;
+      if (r < nslots && q[j] >= 0 && q[j] >= hi - win + 1 && q[j] <= hi && has4 &&
+          wid[wi[j] * T + q[j]] >= 0)
+        st4(a.d_ctx + ((l * W + wi[j]) * T + q[j]) * D + lane * 4,
+            sub4(creg[j], ld4(ringb + (size_t)r * D + lane * 4)));
     }
-    __syncthreads();
-
-    // 4. C += lr * g T_old (rows of one position are distinct), T += dT.
-    for (int e = tid; e < R * D; e += nthr) {
-      const int r = e / D, k = e - r * D;
-      if (rowm[r] == 0.f) continue;       // g == 0: the row keeps its value
-      float a = 0.f;
-      for (int c = 0; c < NC; ++c) a = fmaf(Gm[r * NC + c], Tr[c * D + k], a);
-      C[(size_t)rowpos[r] * D + k] += a * lr;
-    }
-    for (int e = tid; e < NC * D; e += nthr) {
-      const int c = e / D, k = e - c * D;
-      const float v = Tr[e] + dT[e];
-      if (c < W) out_o[wt_base + ((size_t)c * T + p) * D + k] = v;
-      else neg_o[neg_base + ((size_t)p * K + (c - W)) * D + k] = v;
-    }
-    __syncthreads();
   }
 
-  block_copy(ctx_o + wt_base, C, W * T * D);
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) my_loss += __shfl_xor_sync(0xffffffffu, my_loss, s);
+  for (int off = 16; off > 0; off >>= 1) my_loss += __shfl_xor_sync(kFull, my_loss, off);
   if (lane == 0) red[warp] = my_loss;
   __syncthreads();
   if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < nwarps; ++i) s += red[i];
-    loss[g] = s;
+    float t = 0.f;
+    for (int w = 0; w < NW; ++w) t += red[w];
+    a.loss[l] = t;
   }
+}
+
+// phi[row] += delta / count[row] for every live slot: one warp per slot,
+// one float4 atomic per lane. Rows 0..n_walk-1 are the context slots
+// (phi_in), then the target slots (phi_out), then the negative slots
+// (phi_out), live where some walk has a valid target at their position.
+__global__ void __launch_bounds__(256)
+sgns_writeback_kernel(float* phi_in, float* phi_out, const int* walk_ids, const int* neg_ids,
+                      const float* d_ctx, const float* d_out, const float* d_neg,
+                      const float* cnt_in, const float* cnt_out, long long n_walk,
+                      long long n_neg, int W, int T, int K, int D, int per_rep,
+                      long long rep_rows) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (lane * 4 >= D) return;
+  long long e, row;
+  const float* delta;
+  const float* cnt;
+  float* base;
+  if (r < 2 * n_walk) {
+    const bool target = r >= n_walk;
+    e = target ? r - n_walk : r;
+    const int id = walk_ids[e];
+    if (id < 0) return;
+    row = (e / ((long long)W * T) / per_rep) * rep_rows + id;
+    delta = (target ? d_out : d_ctx) + e * D;
+    cnt = target ? cnt_out : cnt_in;
+    base = target ? phi_out : phi_in;
+  } else if (r < 2 * n_walk + n_neg) {
+    e = r - 2 * n_walk;
+    const long long lp = e / K, l = lp / T;
+    const int p = (int)(lp - l * T);
+    bool alive = false;
+    for (int w = 0; w < W; ++w) alive |= walk_ids[(l * W + w) * T + p] >= 0;
+    if (!alive) return;
+    row = (l / per_rep) * rep_rows + neg_ids[e];
+    delta = d_neg + e * D;
+    cnt = cnt_out;
+    base = phi_out;
+  } else {
+    return;
+  }
+  const float inv = 1.f / fmaxf(cnt[row], 1.f);
+  const float4 d4 = ld4(delta + lane * 4);
+  atomicAdd(reinterpret_cast<float4*>(base + row * D + lane * 4),
+            make_float4(d4.x * inv, d4.y * inv, d4.z * inv, d4.w * inv));
+}
+
+// Zero the counts the step set, by the ids that set them.
+__global__ void __launch_bounds__(256)
+sgns_clear_kernel(float* cnt_in, float* cnt_out, const int* walk_ids, const int* neg_ids,
+                  long long n_walk, long long n_neg, int W, int T, int K, int per_rep,
+                  long long rep_rows) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n_walk) {
+    const int id = walk_ids[e];
+    if (id >= 0) {
+      const long long row = (e / ((long long)W * T) / per_rep) * rep_rows + id;
+      cnt_in[row] = 0.f;
+      cnt_out[row] = 0.f;
+    }
+  } else if (e < n_walk + n_neg) {
+    const long long f = e - n_walk;
+    cnt_out[(f / ((long long)T * K) / per_rep) * rep_rows + neg_ids[f]] = 0.f;
+  }
+}
+
+inline int warps_for(int W, int K) {
+  return W + K <= 8 ? Shape<8>::kWarps : Shape<16>::kWarps;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one launch needs; the caller refuses shapes above
-// the card's per-block limit.
+// Once per process: the lifetime kernels may use all of a block's shared
+// memory, and every kernel of the library is loaded before a CUDA graph
+// captures it.
+int sgns_init() {
+  cudaError_t err = cudaFuncSetAttribute(
+      sgns_lifetime_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sgns_lifetime_kernel<16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_writeback_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_clear_kernel);
+  return (int)err;
+}
+
+// Dynamic shared memory of one lifetime launch; the caller refuses shapes
+// above the card's per-block limit.
 size_t sgns_lifetime_smem_bytes(int W, int T, int D, int K, int window) {
-  return smem_bytes(W, T, D, K, window);
+  return layout(W, T, D, K, window, warps_for(W, K)).total;
 }
 
 int sgns_lifetime_max_cols() { return kMaxCols; }
+int sgns_lifetime_max_ring() { return kMaxRing; }
+int sgns_lifetime_max_dim() { return kMaxDim; }
+int sgns_lifetime_prefetch() { return kPrefetch; }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int sgns_lifetime_launch(const float* ctx, const float* out, const float* neg,
-                         const int* valid, float* ctx_o, float* out_o, float* neg_o,
-                         float* loss, int G, int W, int T, int D, int K, int window,
-                         float lr, void* stream) {
-  const size_t smem = smem_bytes(W, T, D, K, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      sgns_lifetime_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The lifetime kernel for L lifetimes on `stream`; counts duplicates into
+// cnt_in / cnt_out unless they are null. Returns the launch's cudaError_t.
+int sgns_lifetime_launch(const float* ctx_src, const float* out_src, const float* neg_src,
+                         const int* walk_ids, const int* neg_ids, long long rep_rows,
+                         int per_rep, float* d_ctx, float* d_out, float* d_neg, float* loss,
+                         float* cnt_in, float* cnt_out, const float* lr, int L, int W, int T,
+                         int D, int K, int window, void* stream) {
+  const Args a{ctx_src, out_src, neg_src, walk_ids, neg_ids, rep_rows, per_rep, d_ctx,
+               d_out,   d_neg,   loss,    cnt_in,   cnt_out, lr,       W,       T,
+               D,       K,       window};
+  const size_t smem = sgns_lifetime_smem_bytes(W, T, D, K, window);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W + K <= 8)
+    sgns_lifetime_kernel<8><<<L, Shape<8>::kWarps * 32, smem, s>>>(a);
+  else
+    sgns_lifetime_kernel<16><<<L, Shape<16>::kWarps * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The write-back of one step after sgns_lifetime_launch counted it: the
+// live deltas into phi_in / phi_out, then the counts cleared.
+int sgns_writeback_launch(float* phi_in, float* phi_out, const int* walk_ids,
+                          const int* neg_ids, const float* d_ctx, const float* d_out,
+                          const float* d_neg, float* cnt_in, float* cnt_out, int L, int W,
+                          int T, int D, int K, int per_rep, long long rep_rows, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n_walk = (long long)L * W * T, n_neg = (long long)L * T * K;
+  const long long rows = 2 * n_walk + n_neg;
+  sgns_writeback_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      phi_in, phi_out, walk_ids, neg_ids, d_ctx, d_out, d_neg, cnt_in, cnt_out, n_walk, n_neg,
+      W, T, K, D, per_rep, rep_rows);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sgns_lifetime_kernel<<<G, kThreads, smem, (cudaStream_t)stream>>>(
-      ctx, out, neg, valid, ctx_o, out_o, neg_o, loss, W, T, D, K, window, lr);
+  sgns_clear_kernel<<<(unsigned)((n_walk + n_neg + 255) / 256), 256, 0, s>>>(
+      cnt_in, cnt_out, walk_ids, neg_ids, n_walk, n_neg, W, T, K, per_rep, rep_rows);
   return (int)cudaGetLastError();
 }
 

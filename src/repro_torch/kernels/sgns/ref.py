@@ -12,6 +12,14 @@ lifetime of W walks,
 This is what the CUDA kernel (``csrc/sgns_lifetime.cu``) is held against,
 and what runs for tensors on the CPU. The positions run in order; the
 lifetimes (G) are a batch axis.
+
+``sgns_step_ref`` is the whole DSGL step around it, as
+``repro.core.dsgl._replica_step`` runs it: gather the rows by id, update,
+then write the deltas back duplicate-averaged. The write-back touches the
+live slots only (a valid walk token, or a negative at a position where some
+walk has a valid target): every other slot's delta is exactly zero. The
+counts stay the reference's: phi_in counts the valid walk tokens, phi_out
+the valid walk tokens plus every negative slot, at dead positions too.
 """
 
 from __future__ import annotations
@@ -75,3 +83,77 @@ def sgns_lifetime_ref(ctx_buf, out_buf, neg_buf, valid, lr: float, window: int):
     res = sgns_lifetime_batch_ref(ctx_buf[None], out_buf[None], neg_buf[None],
                                   valid[None], lr, window)
     return tuple(r[0] for r in res)
+
+
+# ---------------------------------------------------------------------------
+# The DSGL step: gather -> lifetime update -> live-row write-back
+# ---------------------------------------------------------------------------
+
+
+def live_slots(walks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S, G, W, T) walk ids -> the live walk slots (S, G, W, T) (a valid
+    token) and the live positions (S, G, T) (some walk has a valid target
+    there; the negatives of these positions are live)."""
+    valid = walks >= 0
+    return valid, valid.any(dim=-2)
+
+
+def lifetime_extent(walks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., W, T) walk ids -> the first and last live position of each
+    lifetime (...,), both -1 where no position is live: the positions the
+    kernel visits."""
+    live = (walks >= 0).any(dim=-2)
+    t_len = live.shape[-1]
+    pos = torch.arange(t_len, device=walks.device)
+    lo = torch.where(live, pos, t_len).amin(dim=-1)
+    hi = torch.where(live, pos, -1).amax(dim=-1)
+    return torch.where(hi >= 0, lo, -1), hi
+
+
+def lifetime_deltas_ref(phi_in, phi_out, walks, negs, lr, window: int):
+    """The lifetime kernel's function: rows gathered by id from phi (S, N, d),
+    updated per lifetime. Returns the deltas (final - initial) of every walk
+    slot's context row (S, G, W, T, d), target row (S, G, W, T, d), and
+    negative slot (S, G, T, K, d), and the loss per lifetime (S * G,)."""
+    s_cnt, g_cnt, w_cnt, t_len = walks.shape
+    safe = walks.clamp_min(0).to(torch.int64)
+    rep = torch.arange(s_cnt, device=walks.device)[:, None, None, None]
+    ctx0 = phi_in[rep, safe]
+    out0 = phi_out[rep, safe]
+    neg0 = phi_out[rep, negs.to(torch.int64)]
+    merge = lambda a: a.reshape(s_cnt * g_cnt, *a.shape[2:])
+    ctx, out, neg, loss = sgns_lifetime_batch_ref(merge(ctx0), merge(out0), merge(neg0),
+                                                  merge(walks >= 0), lr, window)
+    return (ctx.view_as(ctx0) - ctx0, out.view_as(out0) - out0,
+            neg.view_as(neg0) - neg0, loss)
+
+
+def write_back_ref(phi_in, phi_out, walks, negs, d_ctx, d_out, d_neg) -> None:
+    """phi[id] += delta / count(id), in place, over the live slots only."""
+    s_cnt, n_rows, dim = phi_in.shape
+    valid, pos_live = live_slots(walks)
+    off = (torch.arange(s_cnt, device=walks.device) * n_rows)[:, None, None, None]
+    wid = walks.to(torch.int64) + off
+    nid = negs.to(torch.int64) + off
+    flat_in, flat_out = phi_in.view(-1, dim), phi_out.view(-1, dim)
+    live_w = wid[valid]
+    ones = lambda n: torch.ones(n, dtype=torch.float32, device=walks.device)
+    cnt_in = torch.zeros(s_cnt * n_rows, device=walks.device).index_add_(
+        0, live_w, ones(live_w.numel()))
+    all_out = torch.cat([live_w, nid.reshape(-1)])
+    cnt_out = torch.zeros(s_cnt * n_rows, device=walks.device).index_add_(
+        0, all_out, ones(all_out.numel()))
+    inv = lambda cnt, ids: (1.0 / cnt[ids].clamp_min(1.0))[:, None]
+    flat_in.index_add_(0, live_w, d_ctx[valid] * inv(cnt_in, live_w))
+    neg_live = pos_live[..., None].expand(nid.shape)
+    out_ids = torch.cat([live_w, nid[neg_live]])
+    flat_out.index_add_(0, out_ids, torch.cat([d_out[valid], d_neg[neg_live]])
+                        * inv(cnt_out, out_ids))
+
+
+def sgns_step_ref(phi_in, phi_out, walks, negs, lr, window: int) -> torch.Tensor:
+    """One DSGL step over S replicas, phi (S, N, d) updated in place: gather,
+    lifetime update, live-row write-back. Returns the loss per replica (S,)."""
+    d_ctx, d_out, d_neg, loss = lifetime_deltas_ref(phi_in, phi_out, walks, negs, lr, window)
+    write_back_ref(phi_in, phi_out, walks, negs, d_ctx, d_out, d_neg)
+    return loss.view(walks.shape[0], walks.shape[1]).sum(dim=1)

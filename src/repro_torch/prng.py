@@ -90,7 +90,12 @@ def _is_single(key: KeyLike) -> bool:
 
 
 def _key_columns(keys: Sequence[Key], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    k = torch.tensor(keys, dtype=torch.int64).reshape(-1, 2).to(device)
+    k = torch.tensor(keys, dtype=torch.int64).reshape(-1, 2)
+    if torch.device(device).type == "cuda":
+        # Through pinned memory, without blocking: a pageable copy would wait
+        # for all the work queued on the card (the training loop draws keys
+        # for every chunk while the previous chunk runs).
+        k = k.pin_memory().to(device, non_blocking=True)
     return k[:, :1], k[:, 1:]
 
 
@@ -123,19 +128,13 @@ def uniform(key: KeyLike, shape, device) -> torch.Tensor:
     return _bits_to_unit_float(random_bits(key, shape, device))
 
 
-def randint(key: KeyLike, shape, minval: int, maxval: int, device) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``.
-
-    Two words per element, reduced modulo the span with the same
-    wrap-around uint32 arithmetic as ``jax._src.random._randint``."""
-    minval, maxval = int(minval), int(maxval)
+def _check_int32(minval: int, maxval: int) -> None:
     if not -(2**31) <= minval < 2**31 or not -(2**31) <= maxval < 2**31:
         raise ValueError("randint bounds must lie in the int32 range")
-    pairs = [split(key)] if _is_single(key) else [split(k) for k in key]
-    hi = random_bits([p[0] for p in pairs], shape, device)
-    lo = random_bits([p[1] for p in pairs], shape, device)
-    if _is_single(key):
-        hi, lo = hi[0], lo[0]
+
+
+def _randint_from_words(hi: torch.Tensor, lo: torch.Tensor, minval: int,
+                        maxval: int) -> torch.Tensor:
     span = (maxval - minval) & M32 if maxval > minval else 1
     # The square wraps in uint32 as in JAX (it is 0 for spans above 2**16).
     mult = (((2**16 % span) ** 2) & M32) % span
@@ -144,14 +143,50 @@ def randint(key: KeyLike, shape, minval: int, maxval: int, device) -> torch.Tens
     return (minval + off % span).to(torch.int32)
 
 
+def randint(key: KeyLike, shape, minval: int, maxval: int, device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``.
+
+    Two words per element, reduced modulo the span with the same
+    wrap-around uint32 arithmetic as ``jax._src.random._randint``."""
+    minval, maxval = int(minval), int(maxval)
+    _check_int32(minval, maxval)
+    pairs = [split(key)] if _is_single(key) else [split(k) for k in key]
+    hi = random_bits([p[0] for p in pairs], shape, device)
+    lo = random_bits([p[1] for p in pairs], shape, device)
+    if _is_single(key):
+        hi, lo = hi[0], lo[0]
+    return _randint_from_words(hi, lo, minval, maxval)
+
+
+def randint_and_uniform(int_keys: Sequence[Key], float_keys: Sequence[Key], shape,
+                        minval: int, maxval: int,
+                        device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``randint(int_keys, ...)`` and ``uniform(float_keys, ...)`` in one
+    pass of the generator over all their keys: the same numbers as the two
+    calls, with a third of the device ops."""
+    minval, maxval = int(minval), int(maxval)
+    _check_int32(minval, maxval)
+    pairs = [split(k) for k in int_keys]
+    m = len(pairs)
+    words = random_bits([p[0] for p in pairs] + [p[1] for p in pairs] + list(float_keys),
+                        shape, device)
+    return (_randint_from_words(words[:m], words[m:2 * m], minval, maxval),
+            _bits_to_unit_float(words[2 * m:]))
+
+
 def permutation(key: Key, n: int, device) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` as int64: repeated stable sorts
-    under fresh 32-bit keys, round for round as ``jax.random._shuffle``."""
+    under fresh 32-bit keys, round for round as ``jax.random._shuffle``
+    (every round's keys drawn in one pass)."""
     n = int(n)
     rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(M32)))
     x = torch.arange(n, dtype=torch.int64, device=device)
+    subs = []
     for _ in range(rounds):
         key, sub = split(key)
-        order = torch.sort(random_bits(sub, (n,), device), stable=True).indices
-        x = x[order]
+        subs.append(sub)
+    if subs:
+        bits = random_bits(subs, (n,), device)
+        for r in range(rounds):
+            x = x[torch.sort(bits[r], stable=True).indices]
     return x

@@ -7,10 +7,14 @@ and the LM serving paths' two each — one prefill of 4 prompts of 2,048
 tokens and 10 decode steps after it, qwen3-1.7b and then zamba2-7b at
 full width over a 4,096-position cache, as ``chip_smoke.py``'s server
 runs them — each first timed plainly and then under ``torch.profiler``.
-For each phase it prints the wall time per step, the device-busy time per
-step (the sum of the kernels' times in the trace), their ratio, the
-kernel launches per step, the kernels that take the most device time and
-the share of the port's own kernels (K1 ``sgns``, K2 ``flash``, K3
+The training window runs the pipeline's path on the card: two chunks of
+50 steps, each one CUDA graph replay, after a warm-up call that captures
+the graph. For each phase it prints the wall time per step, the device
+time per step between CUDA events around the plain run, the device-busy
+time per step (the sum of the kernels' times in the trace, which records
+the kernels a graph replays), their ratio, the kernel launches per step,
+the kernels that take the most device time and the share of the port's
+own kernels (K1 ``sgns_lifetime`` and its write-back, K2 ``flash``, K3
 ``ssd_scan``) in the device time.
 
     PYTHONPATH=src python3 -m repro_torch.profile
@@ -31,7 +35,8 @@ LM_ARCHS = ("qwen3-1.7b", "zamba2-7b")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
 # Substrings of the port's kernel names: "flash_kernel" matches both of
 # K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16).
-OWN_KERNELS = ("sgns_lifetime_kernel", "flash_kernel", "ssd_scan_kernel")
+OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_writeback_kernel", "sgns_clear_kernel",
+               "flash_kernel", "ssd_scan_kernel")
 
 
 def _device_us(evt) -> float:
@@ -41,16 +46,24 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_window(torch, label: str, fn, count: int) -> None:
+def profile_window(torch, label: str, fn, count: int, warmup: bool = False) -> None:
     """Time ``fn`` (``count`` steps) plainly, then once more under the
-    profiler; print the per-step numbers and the top kernels."""
+    profiler; print the per-step numbers and the top kernels. ``warmup``
+    runs ``fn`` once first, untimed."""
     from torch.profiler import ProfilerActivity, profile
 
+    if warmup:
+        fn()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     fn()
+    end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    print(f"[{label}] device time between CUDA events {start.elapsed_time(end) / count:.4f} "
+          f"ms/step", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -120,7 +133,7 @@ def main() -> int:
     n = graph.num_nodes
     profile_window(torch, "train",
                    lambda: pipe._train_slots(0, n, ocn, STEPS, table=table),
-                   STEPS)
+                   STEPS, warmup=True)
     del pipe, graph, table
     torch.cuda.empty_cache()
     for arch in LM_ARCHS:

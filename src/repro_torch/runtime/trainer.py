@@ -11,6 +11,10 @@ walks round r+1 and appends it. After sampling stops, training keeps
 consuming re-shuffled ring slots until the learning-rate schedule, fixed a
 priori at ``epochs * max_rounds * steps_per_round`` steps, completes.
 
+On the card each chunk of ``sync_period`` steps is one CUDA graph replay
+(``dsgl.ChunkGraphs``): the ring gather and the negative draws fill its
+static buffers, then the C steps run without the host.
+
 Every source of randomness is keyed off the run's state: round keys are
 fold_in(key_walk, r), chunk keys fold_in(key_train, global_step), so a run
 is a pure function of the graph and the configuration.
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.corpus import Corpus, CorpusRing, ring_append, ring_to_numpy
-from repro_torch.core.dsgl import build_alias_table, init_embeddings, train_chunk
+from repro_torch.core.dsgl import ChunkGraphs, build_alias_table, init_embeddings, train_chunk
 from repro_torch.core.info import relative_entropy_dpq
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.walker import MAX_LANES, LaneKeys, WalkerBatchState, run_walk_batch
@@ -78,6 +82,8 @@ class StreamingEmbedPipeline:
         self.total_steps = (dsgl_cfg.epochs * self.controller.max_rounds
                             * self.steps_per_round)
         self.global_step = 0
+        self.chunks = 0                          # training chunks run
+        self._graphs = ChunkGraphs() if self.device.type == "cuda" else None
 
         key = prng.PRNGKey(dsgl_cfg.seed)
         self.key_walk, self.key_train, *rep_keys = prng.split(key, 2 + num_shards)
@@ -97,6 +103,8 @@ class StreamingEmbedPipeline:
         self.phi_out = state["phi_out"].to(self.device)
         self.ring = state["ring"]
         self.key_walk, self.key_train = state["key_walk"], state["key_train"]
+        if self._graphs is not None:              # the graphs hold the old phi
+            self._graphs = ChunkGraphs()
 
     # --- walk side --------------------------------------------------------
     def _run_round(self, r: int) -> List[Tuple[torch.Tensor, WalkerBatchState]]:
@@ -134,6 +142,7 @@ class StreamingEmbedPipeline:
         if table is None:
             table = build_alias_table(ocn_host, cfg.neg_power, self.device)
         chunk = max(min(cfg.sync_period, steps), 1)
+        train = self._graphs.train_chunk if self._graphs is not None else train_chunk
         done = 0
         while done < steps:
             count = min(chunk, steps - done)
@@ -144,9 +153,10 @@ class StreamingEmbedPipeline:
             walks = self.ring.walks[idx]                   # (C,S,G,W,T) gather
             key = prng.fold_in(self.key_train,
                                2 * self.total_steps + self.global_step)
-            train_chunk(self.phi_in, self.phi_out, walks, table, key,
-                        self._lrs(count), cfg.window, cfg.negatives)
+            train(self.phi_in, self.phi_out, walks, table, key,
+                  self._lrs(count), cfg.window, cfg.negatives)
             self.global_step += count
+            self.chunks += 1
             done += count
 
     # --- run loop ---------------------------------------------------------
@@ -198,6 +208,7 @@ class StreamingEmbedPipeline:
             "phi_in": phi_in, "phi_out": phi_out,
             "rounds": self.controller.rounds,
             "steps": self.global_step,
+            "chunks": self.chunks,
             "ring": self.ring,
             "stats": self.stats(),
             "cm_s": self.cm_seconds,

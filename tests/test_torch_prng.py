@@ -70,6 +70,18 @@ def test_batched_keys_match_one_by_one():
             u[i].numpy())
 
 
+@pytest.mark.parametrize("span", [77, 2**17 + 3])
+def test_randint_and_uniform_in_one_pass_match_separate_draws(span):
+    ikeys = prng.split(prng.PRNGKey(5), 3)
+    fkeys = prng.split(prng.PRNGKey(6), 3)
+    r, u = prng.randint_and_uniform(ikeys, fkeys, (4, 7), 2, span, "cpu")
+    assert torch.equal(r, prng.randint(ikeys, (4, 7), 2, span, "cpu"))
+    assert torch.equal(u, prng.uniform(fkeys, (4, 7), "cpu"))
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.randint(jnp.asarray(ikeys[1], jnp.uint32), (4, 7), 2, span)),
+        r[1].numpy())
+
+
 def test_large_draw_crosses_chunks(monkeypatch):
     monkeypatch.setattr(prng, "_CHUNK", 100)
     k = prng.PRNGKey(9)

@@ -90,7 +90,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,w,t,d,k,window", [(64, 2, 100, 128, 5, 10),
                                               (5, 2, 37, 96, 5, 10),
-                                              (7, 3, 23, 128, 4, 5)])
+                                              (7, 3, 23, 128, 4, 5),
+                                              (6, 2, 30, 128, 14, 4)])
 def test_cuda_kernel_matches_plain_version(cuda_device, g, w, t, d, k, window):
     ctx, out, neg, valid = (torch.from_numpy(a).to(cuda_device)
                             for a in _inputs(g, w, t, d, k, seed=g))
