@@ -12,7 +12,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
    (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``).
+   (``UTMALDG``), and in the SSD library's that both kernels run their
+   products on the tensor cores in TF32 (``HGMMA`` ... ``TF32``; the
+   C B^T blocks by ``HMMA`` ... ``TF32``).
 2. Hold each kernel against its plain torch version on the card: SGNS
    (the TPU kernel's buffer interface) at the paper width and three
    ragged shapes, one of W + K = 16 columns (5e-4); flash attention at the
@@ -20,10 +22,12 @@ Phases (each failure raises and ends the run with a non-zero exit):
    ``q_offset`` and without the causal mask, and at both LM paths'
    prefill shapes (2e-3 in float32 against ``mha_reference``, through the
    SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
-   against ``mha_chunked`` printed beside); the SSD scan at the
-   reference's test shapes and chunks and at zamba2's prefill shape with
-   the model's decay, where the masked decay overflows above the
-   diagonal (3e-3, y and the final state).
+   against ``mha_chunked`` printed beside); the SSD scan in the
+   reference's 3-D form at its test shapes and chunks and at zamba2's
+   prefill shape with the model's decay, where the masked decay overflows
+   above the diagonal, and in the mixer's form (strided views, B and C per
+   group) at that shape and with two groups of distinct B and C (3e-3
+   against ``ssd_chunked_ref``, y and the final state).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
    ``yt-sim`` R-MAT preset (1,138,499 nodes), one replica. The SGNS
    kernel must have launched once per training step, every step inside a
@@ -51,7 +55,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    every Mamba2 layer's conv window and ssm state after step n; the
    three k/v faults and two state faults (the conv window shifted by one,
    a decode step without the decay) must fail it. Then time the SSD scan
-   and flash attention at zamba2's prefill shapes.
+   (in the mixer's form, and in the 3-D form on B and C broadcast, beside
+   its bounds with B and C per batch and broadcast) and flash attention at
+   zamba2's prefill shapes.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers (flash
@@ -99,6 +105,8 @@ SSD_TOL = 3e-3
 # (BH, S, P, N, chunk).
 SSD_CASES = [(2, 64, 16, 8, 32), (4, 128, 32, 16, 32), (1, 200, 64, 32, 32),
              (3, 96, 8, 64, 32)] + [(2, 128, 16, 8, q) for q in (16, 64, 128)]
+# The mixer's form (B, H, G, S, P, N, chunk): two groups of distinct B and C.
+SSD_GROUP_CASES = [(2, 8, 2, 300, 64, 64, 128)]
 LM_ARCH = "qwen3-1.7b"
 HYBRID_ARCH = "zamba2-7b"
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
@@ -120,7 +128,6 @@ BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
           "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3}}
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, SXM, 700 W
-H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -336,19 +343,22 @@ def flash_check(torch, fa_ops, fa_ref, case, seed, device) -> tuple:
     return err, chunked
 
 
-def sass_check(lib, head_dims) -> None:
-    """Every bf16 flash kernel in ``lib``'s SASS (``cuobjdump -sass``), one
-    per head dim, must issue wgmma (HGMMA) and TMA tile loads (UTMALDG);
-    raises otherwise."""
+def sass_functions(lib) -> list:
+    """(name, SASS text) of every kernel in ``lib`` (``cuobjdump -sass``)."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib.library_path())], capture_output=True,
                           text=True, check=True).stdout
+    return [(fn.split("\n", 1)[0].strip(), fn) for fn in sass.split("Function : ")[1:]]
+
+
+def sass_check(lib, head_dims) -> None:
+    """Every bf16 flash kernel in ``lib``'s SASS, one per head dim, must
+    issue wgmma (HGMMA) and TMA tile loads (UTMALDG); raises otherwise."""
     found = 0
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.split("\n", 1)[0].strip()
+    for name, fn in sass_functions(lib):
         if "flash_kernel_sm90" not in name:
             continue
         found += 1
@@ -359,6 +369,26 @@ def sass_check(lib, head_dims) -> None:
     if found != len(head_dims):
         raise AssertionError(f"{found} bf16 flash kernels in the SASS, expected "
                              f"{len(head_dims)}")
+
+
+def ssd_sass_check(lib) -> None:
+    """Both SSD kernels' products must run on the tensor cores in TF32:
+    wgmma (HGMMA ... TF32) in each, and the C B^T blocks of the state
+    kernel by mma.sync (HMMA ... TF32); raises otherwise."""
+    found = set()
+    for name, fn in sass_functions(lib):
+        for kernel in ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel"):
+            if kernel not in name:
+                continue
+            lines = fn.splitlines()
+            hgmma = sum("HGMMA" in ln and "TF32" in ln for ln in lines)
+            hmma = sum("HMMA" in ln and "TF32" in ln for ln in lines)
+            log(f"[check] {lib.name} SASS {kernel}: {hgmma} HGMMA TF32, {hmma} HMMA TF32")
+            if not hgmma or (kernel == "ssd_chunk_state_kernel" and not hmma):
+                raise AssertionError(f"{kernel} issues no tensor-core TF32 product")
+            found.add(kernel)
+    if len(found) != 2:
+        raise AssertionError(f"SSD kernels in the SASS: {sorted(found)}")
 
 
 def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
@@ -412,16 +442,39 @@ def ssd_inputs(torch, bh, s, p, n, seed, device, model_decay=False):
 
 def ssd_check(torch, ssd_ops, ssd_ref, case, seed, device, model_decay=False) -> float:
     """Kernel against ``ssd_chunked_ref`` on the card, y and the final state
-    within SSD_TOL; raises otherwise, or on a non-finite output."""
-    bh, s, p, n, chunk = case
-    args = ssd_inputs(torch, bh, s, p, n, seed, device, model_decay)
-    y, st = ssd_ops.ssd_chunked_scan(*args, chunk=chunk)
-    want_y, want_s = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
+    within SSD_TOL; raises otherwise, or on a non-finite output. A case of
+    5 numbers (BH, S, P, N, chunk) runs the 3-D form; one of 7 (B, H, G, S,
+    P, N, chunk) the mixer's form, on (B, H, S, ·) views of (B, S, H, ·)
+    tensors with B and C per group, held against ``ssd_chunked_ref`` on
+    them broadcast to every head (always with the model's decay); where P
+    is 64 it runs a second time with the chunk-state scratch NaN-filled, so
+    that a chunk that reads its predecessor's state before it is written
+    gives NaN, not what an earlier call left in reused memory."""
+    if len(case) == 5:
+        bh, s, p, n, chunk = case
+        args = ssd_inputs(torch, bh, s, p, n, seed, device, model_decay)
+        y, st = ssd_ops.ssd_chunked_scan(*args, chunk=chunk)
+        want_y, want_s = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
+    else:
+        from repro_torch.kernels.ssm_scan import bench as ssd_bench
+
+        bsz, h, g, s, p, n, chunk = case
+        args = ssd_bench.heads_inputs(torch, bsz, h, g, s, p, n, seed, device)
+        y, st = ssd_ops.ssd_scan_heads(*args, chunk=chunk)
+        if not y.transpose(1, 2).is_contiguous():
+            raise AssertionError(f"ssd_scan {case}: y is not in the mixer's (B, S, H, P) layout")
+        want_y, want_s = ssd_ops._plain(*args, chunk=chunk)
+    outs = [("y", y, want_y), ("state", st, want_s)]
+    if len(case) == 7 and p == ssd_ops.HEAD_DIM and n % 8 == 0:
+        y2 = torch.empty(bsz, s, h, p, device=device).transpose(1, 2)
+        states = torch.full((bsz, h, -(-s // min(chunk, s)), n, p), float("nan"), device=device)
+        _, st2 = ssd_ops._run(*args, chunk, y2, states=states)
+        outs += [("y (NaN-filled states)", y2, want_y), ("state (NaN-filled states)", st2, want_s)]
     torch.cuda.synchronize()
-    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+    if not all(torch.isfinite(got).all() for _, got, _ in outs):
         raise AssertionError(f"ssd_scan {case}: non-finite output")
     err = 0.0
-    for name, got, want in (("y", y, want_y), ("state", st, want_s)):
+    for name, got, want in outs:
         if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
             raise AssertionError(f"ssd_scan {case}: {name} differs by "
                                  f"{(got - want).abs().max().item():.3e}")
@@ -429,24 +482,30 @@ def ssd_check(torch, ssd_ops, ssd_ref, case, seed, device, model_decay=False) ->
     return err
 
 
-def ssd_bound_ms(bh, s, p, n, chunk) -> tuple:
-    """Least time for the scan on an H100: xdt, loga, b, c read once and y
-    and the final state written once (float32) over the memory rate,
-    against the products the function needs per chunk of L valid steps
-    (scores and the intra-chunk product over the L(L+1)/2 lower-triangle
-    pairs, the inter-chunk product and the state update over L·N·P) over
-    the TF32 tensor-core peak. Returns (ms, "bytes" | "operations")."""
-    nbytes = 4 * (2 * bh * s * p + bh * s + 2 * bh * s * n + bh * n * p)
-    q = min(chunk, s)
-    flops = 0
-    for t0 in range(0, s, q):
-        steps = min(q, s - t0)
-        tri = steps * (steps + 1) // 2
-        flops += 2 * tri * (n + p) + 4 * steps * n * p
-    flops *= bh
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_TF32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def ssd_times(torch, ssd_ops, case, device) -> dict:
+    """The SSD scan at zamba2's prefill shape with the model's decay: in the
+    mixer's form (the main path's call), its plain route, and the 3-D form
+    on B and C broadcast to every head; beside the bound with B and C per
+    batch (the function the main path computes) and the bound of the same
+    function fed B and C broadcast."""
+    from repro_torch.kernels.ssm_scan import bench as ssd_bench
+
+    bsz, h, g, s, p, n, chunk = case
+    args = ssd_bench.heads_inputs(torch, bsz, h, g, s, p, n, seed=8, device=device)
+    ms = time_ms(torch, lambda: ssd_ops.ssd_scan_heads(*args, chunk=chunk), 20)
+    plain_ms = time_ms(torch, lambda: ssd_ops._plain(*args, chunk=chunk), 5)
+    args3 = ssd_bench.broadcast_3d(*args)
+    ms_3d = time_ms(torch, lambda: ssd_ops.ssd_chunked_scan(*args3, chunk=chunk), 20)
+    bound, by = ssd_bench.bound_ms(bsz, h, g, s, p, n, chunk)
+    bcast, by_b = ssd_bench.bound_ms(bsz, h, h, s, p, n, chunk)
+    log(f"[time] ssd_scan at zamba2's prefill shape (B, H, G, S, P, N, chunk) {case} float32: "
+        f"kernel {ms:.4f} ms in the mixer's form, {ms_3d:.4f} ms in the 3-D form on B and C "
+        f"broadcast; plain {plain_ms:.4f} ms; bound {bound:.6f} ms ({by}) with B and C per "
+        f"batch, {bcast:.6f} ms ({by_b}) broadcast; no single PyTorch call computes it")
+    del args, args3
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "ms_3d": ms_3d, "bound_ms": bound, "bound_by": by,
+            "broadcast_bound_ms": bcast, "shape": list(case)}
 
 
 # --- the LM paths -----------------------------------------------------------
@@ -770,6 +829,7 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
     sass_check(fa_ops.LIBRARY, fa_ops.HEAD_DIMS)
+    ssd_sass_check(ssd_ops.LIBRARY)
 
     # 2. kernels against their plain versions ----------------------------------
     sgns_err = 0.0
@@ -803,9 +863,11 @@ def main() -> int:
     hy_heads = hy_d_in // hy_cfg.ssm_head_dim
     ssd_prefill_case = (LM_SLOTS * hy_heads, s_prefill, hy_cfg.ssm_head_dim, hy_cfg.ssm_state,
                         hy_cfg.ssm_chunk)
+    ssd_main_case = (LM_SLOTS, hy_heads, 1, s_prefill, hy_cfg.ssm_head_dim, hy_cfg.ssm_state,
+                     hy_cfg.ssm_chunk)      # the mixer's form of zamba2's prefill wave
     ssd_err = 0.0
-    for i, case in enumerate([*SSD_CASES, ssd_prefill_case]):
-        model_decay = case == ssd_prefill_case
+    for i, case in enumerate([*SSD_CASES, ssd_prefill_case, *SSD_GROUP_CASES, ssd_main_case]):
+        model_decay = case == ssd_prefill_case or len(case) == 7
         err = ssd_check(torch, ssd_ops, ssd_ref, case, seed=200 + i, device=dev,
                         model_decay=model_decay)
         ssd_err = max(ssd_err, err)
@@ -868,15 +930,7 @@ def main() -> int:
     launches[HYBRID_ARCH] = lm_path(torch, np, counters, hy_cfg, hy_prompts)
     torch.cuda.empty_cache()
     flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
-    bh, s, p, n, chunk = ssd_prefill_case
-    args = ssd_inputs(torch, bh, s, p, n, seed=8, device=dev, model_decay=True)
-    ssd_ms = time_ms(torch, lambda: ssd_ops.ssd_chunked_scan(*args, chunk=chunk), 20)
-    ssd_plain = time_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk), 5)
-    ssd_bound, ssd_by = ssd_bound_ms(bh, s, p, n, chunk)
-    log(f"[time] ssd_scan at zamba2's prefill shape (BH, S, P, N, chunk) {ssd_prefill_case} "
-        f"float32: kernel {ssd_ms:.4f} ms, plain {ssd_plain:.4f} ms, bound {ssd_bound:.6f} ms "
-        f"({ssd_by}); no single PyTorch call computes it")
-    del args
+    ssd = ssd_times(torch, ssd_ops, ssd_main_case, dev)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += sgns_launches
     log(f"[main] launches by path: sgns_lifetime yt-sim {sgns_launches}; {launches}")
@@ -922,11 +976,15 @@ def main() -> int:
         "launches": total["ssd_scan"],
         "launches_by_path": by_path("ssd_scan"),
         "max_abs_err": ssd_err,
-        "ms": ssd_ms,
-        "plain_ms": ssd_plain,
-        "bound_ms": ssd_bound,
-        "bound_by": ssd_by,
+        "ms": ssd["ms"],
+        "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
         "library_ms": None,
+        "grouped_bound_ms": ssd["bound_ms"],
+        "broadcast_bound_ms": ssd["broadcast_bound_ms"],
+        "ms_3d": ssd["ms_3d"],
+        "shape": ssd["shape"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

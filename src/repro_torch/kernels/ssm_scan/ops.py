@@ -1,18 +1,31 @@
 """Dispatch for the chunked SSD scan (Mamba2's prefill).
 
-``ssd_chunked_scan`` takes xdt (BH, S, P), loga (BH, S) and b, c
-(BH, S, N) and returns (y (BH, S, P), final state (BH, N, P) float32),
-with the reference wrapper's semantics (``kernels/ssm_scan/ops.py`` of
-the JAX package): q = min(chunk, S) steps per chunk, S padded to a
-multiple of q with loga = 0 and xdt = b = c = 0, y cut back to S.
-Tensors on the CPU go to the plain version (``ref.ssd_chunked_ref``);
-tensors on the card go to the CUDA kernel (``csrc/ssd_scan.cu``), or the
-call raises — there is no fallback from the card to the plain version.
-The kernel reads the ragged last chunk with bounds checks, zero-filled
-as the padding is, so the wrapper pads nothing.
+One function, the reference wrapper's (``kernels/ssm_scan/ops.py`` of the
+JAX package): q = min(chunk, S) steps per chunk, S padded to a multiple
+of q with loga = 0 and xdt = b = c = 0, y cut back to S. Two forms:
 
-``LAUNCHES`` counts kernel launches, so that a run can show it went
-through the kernel.
+- ``ssd_chunked_scan(xdt, loga, b, c, chunk)``, the reference's: xdt
+  (BH, S, P), loga (BH, S), b and c (BH, S, N) -> (y (BH, S, P), final
+  state (BH, N, P) float32).
+- ``ssd_scan_heads(xdt, loga, b, c, chunk)``, the Mamba2 mixer's: xdt
+  (B, H, S, P) and loga (B, H, S) at any strides (the mixer passes
+  transposed views of its (B, S, H, ·) tensors), b and c (B, G, S, N),
+  each group's rows shared by its H / G heads (head h reads group
+  h // (H / G)) -> (y (B, H, S, P), a view of a (B, S, H, P) tensor,
+  final state (B, H, N, P) float32).
+
+Tensors on the CPU expand b and c to every head and go to the plain
+version (``ref.ssd_chunked_ref``). Tensors on the card go to the CUDA
+kernels (``csrc/ssd_scan.cu``; the 3-D form is the case B = 1, G = BH),
+or the call raises: there is no fallback from the card to the plain
+version. The kernels read the ragged last chunk zero-filled, as the
+padding is, so the wrapper pads nothing along S. They take a head dim P of
+64 and a state N that is a multiple of 8, up to 64 (zamba2's, and
+Mamba2's usual head dim): a smaller P, or N, is padded with zeros, which
+add nothing; a larger one is refused.
+
+``LAUNCHES`` counts scans run on the card (each is two kernel launches),
+so that a run can show it went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,19 +35,27 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.ssm_scan import ref
 
 LAUNCHES = 0
-MAX_CHUNK = 128          # the kernel's longest chunk (its score tiles per thread)
+MAX_CHUNK = 128          # the kernels' longest chunk (eight 16-row blocks)
+HEADS_PER_CTA = 8        # heads of one group per CTA (kHeads in the source)
+HEAD_DIM = 64            # the kernels' head dim P (kP): a smaller one is padded with zeros
+MAX_STATE = 64           # the kernels' largest state N (kMaxN)
 SMEM_LIMIT = 232_448     # bytes of shared memory one Hopper block may use
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.ssd_scan_launch.restype = i32
+    ptr, i32, i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+    lib.ssd_chunked_launch.argtypes = [ptr] * 9 + [i64p, i64p, ptr]
+    lib.ssd_chunked_launch.restype = i32
+    lib.ssd_smem_bytes.argtypes = [i32] * 2
+    lib.ssd_smem_bytes.restype = i32
+    lib.ssd_sync_ints.argtypes = [i32] * 4
+    lib.ssd_sync_ints.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
 
@@ -43,12 +64,31 @@ LIBRARY = CudaLibrary("ssd_scan", Path(__file__).resolve().parent / "csrc" / "ss
                       _declare)
 
 
-def smem_bytes(q: int, n: int, p: int) -> int:
-    """Shared memory the kernel needs for chunk q, state N and head dim P:
-    the chunk's xdt, B and C transposed (rows padded by one), the (q x q)
-    masked scores (rows padded by one), the carried state and three (q,)
-    vectors, all float32. The same sum as ``smem_bytes`` in the source."""
-    return 4 * (q * p + 2 * n * (q + 1) + q * (q + 1) + n * p + 3 * q)
+def smem_bytes(q: int, n: int) -> int:
+    """Shared memory of the kernels' largest CTA for chunk q and state N (a
+    multiple of 8; the head dim is 64), float32: launch 1's C and B rows,
+    or xdt's K-major hi / lo tiles, B's rows, the next head's xdt rows and
+    each head's decay; launch 2's K-major tiles of xdt and S_{k-1}, C's
+    rows, C B^T's blocks, the next head's rows and each head's cum; rows
+    padded against bank conflicts, 1 KB to align the tiles. The same sums
+    as ``smem_state_floats`` / ``smem_out_floats`` in the source."""
+    qp, heads = -(-q // 16) * 16, HEADS_PER_CTA
+    qb, r32 = qp // 16, lambda x: -(-x // 32) * 32
+    state = max(2 * qp * (n + 4),
+                256 + 2 * HEAD_DIM * r32(qp) + 2 * qp * (MAX_STATE + 4) + heads * qp + heads)
+    out = 256 + 2 * HEAD_DIM * r32(qp) + 2 * HEAD_DIM * r32(n) + qp * (n + 4) \
+        + qb * (qb + 1) * 128 + qp * (HEAD_DIM + 4) + n * (HEAD_DIM + 8) + heads * qp
+    return 4 * max(state, out)
+
+
+def _plain(xdt, loga, b, c, chunk):
+    """The plain route of the heads form: b and c expanded to every head."""
+    bsz, h, s, p = xdt.shape
+    g, n = b.shape[1], b.shape[-1]
+    rep = lambda t: t.repeat_interleave(h // g, dim=1).reshape(bsz * h, s, n)
+    y, st = ref.ssd_chunked_ref(xdt.reshape(bsz * h, s, p), loga.reshape(bsz * h, s),
+                                rep(b), rep(c), chunk=chunk)
+    return y.reshape(bsz, h, s, p), st.reshape(bsz, h, n, p)
 
 
 def ssd_chunked_scan(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
@@ -61,8 +101,28 @@ def ssd_chunked_scan(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     return _launch(xdt, loga, b, c, int(chunk))
 
 
+def ssd_scan_heads(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                   chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, H, S, P), final state (B, H, N, P) float32)."""
+    if xdt.dim() != 4 or loga.dim() != 3 or b.dim() != 4 or c.dim() != 4:
+        raise ValueError("ssd_scan_heads: xdt, b, c must be 4-D and loga 3-D")
+    bsz, h, s, p = xdt.shape
+    g, n = b.shape[1], b.shape[-1]
+    if tuple(loga.shape) != (bsz, h, s) or tuple(b.shape) != (bsz, g, s, n) \
+            or tuple(c.shape) != (bsz, g, s, n) or g == 0 or h % g:
+        raise ValueError(f"ssd_scan_heads: loga must be {(bsz, h, s)} and b, c (B, G, S, N) "
+                         f"with H % G == 0, got {tuple(loga.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    if xdt.device.type == "cpu":
+        return _plain(xdt, loga, b, c, chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan_heads: unsupported device {xdt.device}")
+    y = torch.empty(bsz, s, h, p, dtype=torch.float32, device=xdt.device).transpose(1, 2)
+    return _run(xdt, loga, b, c, int(chunk), y)
+
+
 def _launch(xdt, loga, b, c, chunk: int):
-    global LAUNCHES
+    """The 3-D form on the card: one batch of BH heads, one group per head."""
     if xdt.dim() != 3 or loga.dim() != 2 or b.dim() != 3 or c.dim() != 3:
         raise ValueError("ssd_chunked_scan: xdt, b, c must be 3-D and loga 2-D")
     bh, s, p = xdt.shape
@@ -71,6 +131,27 @@ def _launch(xdt, loga, b, c, chunk: int):
             or tuple(c.shape) != (bh, s, n):
         raise ValueError(f"ssd_chunked_scan: loga must be {(bh, s)} and b, c {(bh, s, n)}, "
                          f"got {tuple(loga.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+    y = torch.empty(bh, s, p, dtype=torch.float32, device=xdt.device)
+    _, st = _run(xdt[None], loga[None], b[None], c[None], chunk, y[None])
+    return y, st[0]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its last dim is contiguous and every row starts on 16
+    bytes (the kernels' cp.async copies), else a contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+        and all(st % 4 == 0 for st in t.stride()[:-1])
+    return t if ok else t.contiguous()
+
+
+def _run(xdt, loga, b, c, chunk: int, y, states=None):
+    """Checks, then the two launches; y (B, H, S, P) float32 is written in
+    place. ``states``, if given, is the launches' scratch for the state after
+    each chunk, (B, H, nc, N, P) float32 with nc = ceil(S / min(chunk, S)),
+    so that a test can read it back; else it is allocated here."""
+    global LAUNCHES
+    bsz, h, s, p = xdt.shape
+    g, n = b.shape[1], b.shape[-1]
     if any(t.dtype != torch.float32 for t in (xdt, loga, b, c)):
         raise ValueError("ssd_chunked_scan: the kernel takes float32 xdt, loga, b and c, got "
                          f"{xdt.dtype}, {loga.dtype}, {b.dtype}, {c.dtype}")
@@ -83,22 +164,48 @@ def _launch(xdt, loga, b, c, chunk: int):
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_chunked_scan: chunk {q} is longer than the kernel's "
                          f"{MAX_CHUNK}; use a smaller chunk")
-    need = smem_bytes(q, n, p)
+    if p > HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd_chunked_scan: the kernel takes P <= {HEAD_DIM} and N <= "
+                         f"{MAX_STATE}, got P={p}, N={n}")
+    pad_p, pad_n = HEAD_DIM - p, -n % 8
+    need = smem_bytes(q, n + pad_n)
     if need > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunked_scan: chunk {q} with N={n}, P={p} needs {need} bytes "
+        raise ValueError(f"ssd_chunked_scan: chunk {q} with N={n} needs {need} bytes "
                          f"of shared memory, above the {SMEM_LIMIT} a block may use; "
                          "use a smaller chunk")
-    xdt, loga, b, c = (t.contiguous() for t in (xdt, loga, b, c))
-    y = torch.empty_like(xdt)
-    s_fin = torch.empty(bh, n, p, dtype=torch.float32, device=xdt.device)
-    if bh == 0:
+    if pad_p or pad_n:
+        # Zero columns of xdt, b and c add nothing to y or the state.
+        y_pad = torch.empty(bsz, h, s, HEAD_DIM, dtype=torch.float32, device=xdt.device)
+        if states is not None:
+            raise ValueError("ssd_chunked_scan: a states scratch needs P = "
+                             f"{HEAD_DIM} and N a multiple of 8, got P={p}, N={n}")
+        _, st = _run(F.pad(xdt, (0, pad_p)), loga, F.pad(b, (0, pad_n)), F.pad(c, (0, pad_n)),
+                     chunk, y_pad)
+        y.copy_(y_pad[..., :p])
+        return y, st[..., :n, :p].contiguous()
+    xdt, b, c = _aligned(xdt), _aligned(b), _aligned(c)
+    nc, qb = -(-s // q), -(-q // 16)
+    s_fin = torch.empty(bsz, h, n, p, dtype=torch.float32, device=xdt.device)
+    if bsz * h == 0:
         return y, s_fin
     lib = LIBRARY.load()
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    cbt = torch.empty(bsz * g * nc * qb * (qb + 1) * 128, **f32)
+    if states is None:
+        states = torch.empty(bsz * h * nc * n * p, **f32)
+    elif tuple(states.shape) != (bsz, h, nc, n, p) or states.dtype != torch.float32 \
+            or not states.is_contiguous() or states.device != xdt.device:
+        raise ValueError(f"ssd_chunked_scan: states must be a contiguous float32 "
+                         f"{(bsz, h, nc, n, p)} tensor on {xdt.device}")
+    sync = torch.empty(lib.ssd_sync_ints(bsz, h, g, nc), dtype=torch.int32, device=xdt.device)
+    dims = (ctypes.c_longlong * 7)(bsz, h, g, s, p, n, q)
+    strides = (ctypes.c_longlong * 15)(*xdt.stride()[:3], *loga.stride(), *b.stride()[:3],
+                                       *c.stride()[:3], *y.stride()[:3])
     with torch.cuda.device(xdt.device):
-        err = lib.ssd_scan_launch(
+        err = lib.ssd_chunked_launch(
             xdt.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-            s_fin.data_ptr(), bh, s, p, n, q,
-            torch.cuda.current_stream(xdt.device).cuda_stream)
+            s_fin.data_ptr(), cbt.data_ptr(), states.data_ptr(), sync.data_ptr(), dims,
+            strides, torch.cuda.current_stream(xdt.device).cuda_stream)
     if err != 0:
         raise RuntimeError("ssd_scan kernel launch failed: "
                            + lib.ssd_scan_error_string(err).decode())

@@ -9,7 +9,10 @@ decay a_t = exp(loga_t) (Mamba2's scalar-identity A):
 
 ``xdt`` is x with the Delta step already folded in (x * dt); ``loga`` is
 dt * A (negative). ``ssd_scan_reference`` is the sequential oracle,
-``ssd_chunked_ref`` the chunked matrix form the CUDA kernel computes, and
+``ssd_chunked_ref`` the chunked matrix form the CUDA kernels compute,
+``ssd_chunk_state_ref`` and ``ssd_chunk_out_ref`` its two phases as the
+kernels' two launches split it (C B^T and the chained state after each
+chunk; then the output; composed in ``ssd_chunked_phases_ref``), and
 ``ssd_decode_step`` one recurrent token step.
 """
 
@@ -77,6 +80,62 @@ def ssd_chunked_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s] if ys else xdt.new_zeros(bh, 0, p, dtype=torch.float32)
     return y.to(xdt.dtype), state
+
+
+def _chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(BH, S, ...) -> (BH, nc, q, ...) float32 with q = min(chunk, S): S
+    padded with zeros to a multiple of q, as ``ssd_chunked_ref`` pads it."""
+    bh, s = t.shape[:2]
+    q = min(chunk, s)
+    pad = [0, 0] * (t.dim() - 2) + [0, (-s) % q]
+    return torch.nn.functional.pad(t.float(), pad).reshape(bh, -1, q, *t.shape[2:])
+
+
+def ssd_chunk_state_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, chunk: int = 128):
+    """Launch 1: cum (BH, nc, q), C B^T (BH, nc, q, q) (the kernel keeps its
+    blocks on and below the diagonal, once per group) and the state after
+    each chunk (BH, nc, N, P), S_k = exp(cum_q,k) S_{k-1} + (B .
+    exp(cum_q - cum))^T xdt, the chain along the chunks that the kernel's
+    CTAs pass on to each other (its ``states`` scratch)."""
+    x, bb, cc = _chunks(xdt, chunk), _chunks(b, chunk), _chunks(c, chunk)
+    cum = torch.cumsum(_chunks(loga, chunk), dim=-1)
+    cb = torch.einsum("zkin,zkjn->zkij", cc, bb)
+    wdec = torch.exp(cum[..., -1:] - cum)
+    local = torch.einsum("zkqn,zkqp->zknp", bb * wdec[..., None], x)
+    state = torch.zeros_like(local[:, 0])
+    states = []
+    for k in range(local.shape[1]):
+        state = torch.exp(cum[:, k, -1])[:, None, None] * state + local[:, k]
+        states.append(state)
+    return cum, cb, torch.stack(states, dim=1)
+
+
+def ssd_chunk_out_ref(xdt: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                      cb: torch.Tensor, states: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Launch 2, for every (row, chunk) at once: y = ((C B^T) . L) xdt +
+    (C . exp(cum)) S_{k-1} (S_{-1} = 0), cut back to S. The masked decay
+    takes 0 above the diagonal by selection."""
+    bh, s, _ = xdt.shape
+    x, cc = _chunks(xdt, chunk), _chunks(c, chunk)
+    q = x.shape[2]
+    lower = torch.ones(q, q, dtype=torch.bool, device=xdt.device).tril()
+    decay = torch.where(lower, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        torch.zeros((), device=xdt.device))
+    entering = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1)
+    y = torch.einsum("zkij,zkjp->zkip", cb * decay, x)
+    y = y + torch.einsum("zkin,zknp->zkip", cc * torch.exp(cum)[..., None], entering)
+    return y.reshape(bh, -1, x.shape[-1])[:, :s]
+
+
+def ssd_chunked_phases_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, chunk: int = 128
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two launches composed: the function ``ssd_chunked_ref`` computes,
+    in the CUDA kernels' order of work."""
+    cum, cb, states = ssd_chunk_state_ref(xdt, loga, b, c, chunk)
+    y = ssd_chunk_out_ref(xdt, c, cum, cb, states, chunk)
+    return y.to(xdt.dtype), states[:, -1]
 
 
 def ssd_decode_step(state: torch.Tensor, xdt: torch.Tensor, loga: torch.Tensor,

@@ -7,14 +7,16 @@ n_groups=1):
   y = SSD_scan(x*dt, loga, B, C) + D*x ;  y = RMSNorm(y * silu(z)) ;
   out_proj.
 
-Prefill scans through ``kernels.ssm_scan.ssd_chunked_scan``: on the card
-that is the CUDA kernel, on the CPU its plain version (the reference calls
-the jnp ``ssd_chunked_ref``, the same function). Decode keeps (conv state,
-ssm state) and steps them with the plain ``ssd_decode_step``, O(1) per
-token, as the reference does outside any kernel. Types follow the
-reference: dt, loga and xdt in float32, the conv window and its state in
-the model dtype, y + D*x in float32 and cast to the model dtype before the
-gated RMSNorm.
+Prefill scans through ``kernels.ssm_scan.ssd_scan_heads``: on the card
+that is the CUDA kernels, which read xdt and loga in the mixer's (B, S,
+nh, ·) layout and B and C once per batch, and write y in that layout; on
+the CPU its plain version, B and C expanded to every head (the reference
+broadcasts them and calls the jnp ``ssd_chunked_ref``, the same
+function). Decode keeps (conv state, ssm state) and steps them with the
+plain ``ssd_decode_step``, O(1) per token, as the reference does outside
+any kernel. Types follow the reference: dt, loga and xdt in float32, the
+conv window and its state in the model dtype, y + D*x in float32 and cast
+to the model dtype before the gated RMSNorm.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.ops import ssd_chunked_scan
+from repro_torch.kernels.ssm_scan.ops import ssd_scan_heads
 from repro_torch.kernels.ssm_scan.ref import ssd_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm
@@ -107,19 +109,18 @@ def mamba_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
 
     bh = bsz * nh
     if state is None:
-        # prefill: chunked SSD over (batch, head) rows; B and C broadcast to heads
-        xdt_f = xdt.transpose(1, 2).reshape(bh, s, p_dim)
-        loga_f = loga.transpose(1, 2).reshape(bh, s)
-        b_f = bs.float()[:, None].expand(bsz, nh, s, n).reshape(bh, s, n)
-        c_f = cs.float()[:, None].expand(bsz, nh, s, n).reshape(bh, s, n)
-        y_f, s_fin = ssd_chunked_scan(xdt_f, loga_f, b_f, c_f, chunk=cfg.ssm_chunk)
-        y = y_f.reshape(bsz, nh, s, p_dim).transpose(1, 2)    # (B, S, nh, P)
+        # prefill: chunked SSD over (batch, head) rows, read in place as
+        # (B, nh, S, ·) views; B and C once per batch (one group)
+        y_h, s_fin = ssd_scan_heads(xdt.transpose(1, 2), loga.transpose(1, 2),
+                                    bs.float()[:, None], cs.float()[:, None],
+                                    chunk=cfg.ssm_chunk)
+        y = y_h.transpose(1, 2)                                # (B, S, nh, P)
         if return_state:
             tail = conv_in[:, -(k - 1):]
             pad = k - 1 - tail.shape[1]
             if pad > 0:
                 tail = F.pad(tail, (0, 0, pad, 0))
-            new_state = {"conv": tail, "ssm": s_fin.reshape(bsz, nh, n, p_dim)}
+            new_state = {"conv": tail, "ssm": s_fin}
     else:
         # decode: one recurrent step (S == 1)
         y_f, new_ssm = ssd_decode_step(

@@ -3,7 +3,13 @@ against the JAX reference's ``ssd_scan_reference``, ``ssd_chunked_ref``,
 ``ssd_decode_step``, its Pallas kernel (interpret mode) and its wrapper,
 on the shapes and tolerances of the reference's own kernel tests: 2e-3
 for the chunked form against the sequential scan, 3e-3 for the kernel.
-The CUDA kernel runs only on the card (``-m cuda``)."""
+The mixer's form (``ssd_scan_heads``: strided (B, H, S, ·) views, B and C
+per group) is held against the Pallas kernel fed broadcast B and C, and
+the plain versions of the kernels' two launches, composed, against
+``ssd_chunked_ref`` (1e-5: the same float32 products summed in another
+order). The CUDA kernels run only on the card (``-m cuda``); there the
+chunk states they pass from CTA to CTA are held against launch 1's plain
+version, and the chain is run many times on fresh inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +25,7 @@ from repro_torch.kernels.ssm_scan import ops, ref
 # intra-op thread each keeps torch's thread pool from spinning against them.
 torch.set_num_threads(1)
 
-CHUNKED_TOL, KERNEL_TOL = 2e-3, 3e-3
+CHUNKED_TOL, KERNEL_TOL, PHASES_TOL = 2e-3, 3e-3, 1e-5
 SHAPES = [(2, 64, 16, 8), (4, 128, 32, 16), (1, 200, 64, 32), (3, 96, 8, 64)]
 
 
@@ -129,8 +135,8 @@ def test_cpu_tensors_take_the_plain_route():
 def test_kernel_route_refuses_chunks_it_cannot_hold():
     """The kernel holds chunk 128 at N = P = 64 (Mamba2's width); its
     wrapper refuses xLSTM's 512, with the reason, before any launch."""
-    assert ops.smem_bytes(128, 64, 64) <= ops.SMEM_LIMIT
-    assert ops.smem_bytes(512, 64, 64) > ops.SMEM_LIMIT
+    assert ops.smem_bytes(128, 64) <= ops.SMEM_LIMIT
+    assert ops.smem_bytes(512, 64) > ops.SMEM_LIMIT
     _, args = _inputs(1, 1024, 64, 64, seed=6)
     with pytest.raises(ValueError, match="chunk 512"):
         ops._launch(*args, chunk=512)
@@ -138,11 +144,82 @@ def test_kernel_route_refuses_chunks_it_cannot_hold():
         ops._launch(*(a.double() for a in args), chunk=128)
 
 
+def _heads_inputs(bsz, h, g, s, p, n, seed, model_decay=False):
+    """The mixer's layout, from numpy: xdt (B, S, H, P) and loga (B, S, H)
+    seen as (B, H, S, ·) views, b and c (B, G, S, N) distinct per group;
+    loga ~ -U(0, 0.2), or -softplus(N(0, 1)) as the mixer draws it at init."""
+    rng = np.random.default_rng(seed)
+    xdt = rng.standard_normal((bsz, s, h, p)).astype(np.float32)
+    if model_decay:
+        loga = -np.logaddexp(0, rng.standard_normal((bsz, s, h))).astype(np.float32)
+    else:
+        loga = (-rng.uniform(size=(bsz, s, h)) * 0.2).astype(np.float32)
+    b = rng.standard_normal((bsz, g, s, n)).astype(np.float32)
+    c = rng.standard_normal((bsz, g, s, n)).astype(np.float32)
+    return xdt, loga, b, c
+
+
+def _broadcast_3d(xdt, loga, b, c):
+    """The reference's (BH, S, ·) form of the mixer's inputs: head h reads
+    group h // (H / G)."""
+    bsz, s, h, p = xdt.shape
+    rep = lambda t: np.repeat(t, h // t.shape[1], axis=1).reshape(bsz * h, s, -1)
+    return (xdt.transpose(0, 2, 1, 3).reshape(bsz * h, s, p),
+            loga.transpose(0, 2, 1).reshape(bsz * h, s), rep(b), rep(c))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("s,chunk", [(200, 32), (150, 128)])
+def test_heads_form_matches_pallas_kernel(g, s, chunk):
+    """The mixer's form (strided views, B and C per group, ragged S) against
+    the reference's Pallas kernel (interpret mode, through its padding
+    wrapper) fed B and C broadcast to every head."""
+    bsz, h, p, n = 2, 4, 16, 8
+    xdt, loga, b, c = _heads_inputs(bsz, h, g, s, p, n, seed=g + s)
+    want_y, want_s = jax_ops.ssd_chunked_scan(
+        *(jnp.asarray(a) for a in _broadcast_3d(xdt, loga, b, c)), chunk=chunk,
+        interpret=True)
+    before = ops.LAUNCHES
+    y, st = ops.ssd_scan_heads(torch.from_numpy(xdt).transpose(1, 2),
+                               torch.from_numpy(loga).transpose(1, 2), torch.from_numpy(b),
+                               torch.from_numpy(c), chunk=chunk)
+    assert ops.LAUNCHES == before
+    assert y.shape == (bsz, h, s, p) and st.shape == (bsz, h, n, p)
+    _close(y.reshape(bsz * h, s, p), want_y, KERNEL_TOL)
+    _close(st.reshape(bsz * h, n, p), want_s, KERNEL_TOL)
+
+
+def test_heads_form_refuses_heads_not_split_into_groups():
+    xdt, loga, b, c = (torch.from_numpy(a) for a in _heads_inputs(1, 3, 2, 16, 8, 8, seed=1))
+    with pytest.raises(ValueError, match="H % G"):
+        ops.ssd_scan_heads(xdt.transpose(1, 2), loga.transpose(1, 2), b, c, chunk=8)
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk", [(*shape, 32) for shape in SHAPES]
+                         + [(3, 200, 16, 8, 128), (2, 50, 8, 16, 16)])
+def test_phases_compose_to_chunked_ref(bh, s, p, n, chunk):
+    """Launch 1's plain version (cum, C B^T, the state after each chunk)
+    and launch 2's (y), composed, give ``ssd_chunked_ref``; the states are
+    the chunked scan's states at the chunk boundaries."""
+    _, args = _inputs(bh, s, p, n, seed=s + chunk)
+    y, st = ref.ssd_chunked_phases_ref(*args, chunk=chunk)
+    want_y, want_s = ref.ssd_chunked_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y, want_y, atol=PHASES_TOL, rtol=PHASES_TOL)
+    torch.testing.assert_close(st, want_s, atol=PHASES_TOL, rtol=PHASES_TOL)
+    q = min(chunk, s)
+    _, _, states = ref.ssd_chunk_state_ref(*args, chunk=chunk)
+    assert states.shape == (bh, -(-s // q), n, p)
+    xdt, loga, b, c = args
+    _, s_one = ref.ssd_chunked_ref(xdt[:, :q], loga[:, :q], b[:, :q], c[:, :q], chunk=chunk)
+    torch.testing.assert_close(states[:, 0], s_one, atol=PHASES_TOL, rtol=PHASES_TOL)
+    torch.testing.assert_close(states[:, -1], want_s, atol=PHASES_TOL, rtol=PHASES_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,p,n,chunk", [
     *[(*shape, 32) for shape in SHAPES],
     (2, 128, 16, 8, 16), (2, 128, 16, 8, 64), (2, 128, 16, 8, 128),
-    (3, 200, 64, 64, 128), (2, 50, 32, 16, 128)])
+    (3, 200, 64, 64, 128), (2, 50, 32, 16, 128), (2, 40, 12, 4, 16)])
 def test_kernel_matches_plain_version_on_the_card(bh, s, p, n, chunk):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -158,3 +235,100 @@ def test_kernel_matches_plain_version_on_the_card(bh, s, p, n, chunk):
     want_y, want_s = ref.ssd_chunked_ref(xdt, loga, b, c, chunk=chunk)
     torch.testing.assert_close(y, want_y, atol=KERNEL_TOL, rtol=KERNEL_TOL)
     torch.testing.assert_close(st, want_s, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+def _cuda(*arrays):
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,h,g,s,p,n,chunk", [
+    (4, 112, 1, 1819, 64, 64, 128),      # zamba2-7b's prefill wave
+    (2, 8, 2, 300, 64, 64, 128), (2, 6, 3, 200, 32, 16, 32), (1, 4, 2, 77, 24, 8, 50)])
+def test_heads_form_matches_plain_version_on_the_card(bsz, h, g, s, p, n, chunk):
+    """The mixer's form on the card, with the mixer's decay (-softplus(N(0,
+    1)), ~-0.8 a step, so that the masked decay overflows above a 128-step
+    chunk's diagonal), against the plain route on the same tensors. Groups
+    G > 1 have distinct B and C, so a kernel reading another head's group
+    fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    xdt, loga, b, c = _cuda(*_heads_inputs(bsz, h, g, s, p, n, seed=s + g, model_decay=True))
+    args = (xdt.transpose(1, 2), loga.transpose(1, 2), b, c)
+    before = ops.LAUNCHES
+    y, st = ops.ssd_scan_heads(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert y.transpose(1, 2).is_contiguous()         # written in the mixer's (B, S, H, P)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    want_y, want_s = ops._plain(*args, chunk=chunk)
+    torch.testing.assert_close(y, want_y, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    torch.testing.assert_close(st, want_s, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+def _heads_run(xdt, loga, b, c, chunk):
+    """The mixer's form through the route's launches, with the chunk-state
+    scratch filled with NaN first and returned: a chunk that reads a state
+    its predecessor has not written yet reads NaN, not a stale value that an
+    earlier call on the same inputs left in reused memory."""
+    bsz, h, s, p = xdt.shape
+    nc = -(-s // min(chunk, s))
+    y = torch.empty(bsz, s, h, p, device=xdt.device).transpose(1, 2)
+    states = torch.full((bsz, h, nc, b.shape[-1], p), float("nan"), device=xdt.device)
+    y, st = ops._run(xdt, loga, b, c, chunk, y, states=states)
+    return y, st, states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,h,g,s,chunk", [
+    (4, 112, 1, 1819, 128), (2, 16, 2, 1000, 64), (1, 8, 1, 300, 32)])
+def test_chunk_states_match_launch_one_plain_version_on_the_card(bsz, h, g, s, chunk):
+    """The state after each chunk that launch 1's CTAs pass along the
+    sequence (the kernels' ``states`` scratch), against
+    ``ref.ssd_chunk_state_ref`` on B and C broadcast to every head."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    xdt, loga, b, c = _cuda(*_heads_inputs(bsz, h, g, s, 64, 64, seed=s + h, model_decay=True))
+    args = (xdt.transpose(1, 2), loga.transpose(1, 2), b, c)
+    _, _, states = _heads_run(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    rep = lambda t: t.repeat_interleave(h // g, dim=1).reshape(bsz * h, s, 64)
+    _, _, want = ref.ssd_chunk_state_ref(args[0].reshape(bsz * h, s, 64),
+                                         args[1].reshape(bsz * h, s), rep(b), rep(c), chunk)
+    torch.testing.assert_close(states.reshape(want.shape), want, atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,h,g,s,chunk,reps", [
+    (4, 112, 1, 1819, 128, 10),        # zamba2-7b's prefill wave: 840 state CTAs in waves
+    (1, 8, 1, 8192, 128, 40),          # 64 chunks of one head group, every CTA resident at once
+    (1, 16, 2, 4096, 64, 40)])         # two groups, two head groups each, 64 chunks
+def test_chunk_chain_holds_on_fresh_inputs_on_the_card(bsz, h, g, s, chunk, reps):
+    """Launch 1's CTAs wait, head by head, for the previous chunk's CTA to
+    publish that head's state. Run the mixer's form many times on fresh
+    inputs, the chunk-state scratch NaN-filled each time, against the plain
+    route: a chunk that went on before its predecessor's state was out
+    gives NaN or a wrong y and final state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(s + h)
+    for _ in range(reps):
+        xdt = torch.randn(bsz, s, h, 64, device="cuda", generator=gen).transpose(1, 2)
+        loga = -torch.nn.functional.softplus(
+            torch.randn(bsz, s, h, device="cuda", generator=gen)).transpose(1, 2)
+        b, c = (torch.randn(bsz, g, s, 64, device="cuda", generator=gen) for _ in range(2))
+        y, st, _ = _heads_run(xdt, loga, b, c, chunk)
+        want_y, want_s = ops._plain(xdt, loga, b, c, chunk=chunk)
+        torch.testing.assert_close(y, want_y, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        torch.testing.assert_close(st, want_s, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_smem_sizes_match_the_library():
+    """The wrapper's shared-memory sum is the kernels' own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lib = ops.LIBRARY.load()
+    for q, n in [(128, 64), (50, 16), (16, 8), (128, 8), (96, 24), (512, 64)]:
+        assert lib.ssd_smem_bytes(q, n) == ops.smem_bytes(q, n), (q, n)

@@ -293,3 +293,31 @@ def test_full_width_float32_decode_matches_fresh_prefill_on_the_card():
     print(f"float32 zamba2-7b, decode vs fresh prefill, of the largest entry: {worst}")
     assert set(worst) == {"logits", "kv", "conv", "ssm"}
     assert all(v <= 1e-3 for v in worst.values()), worst
+
+
+@pytest.mark.cuda
+def test_mamba_mixer_on_the_card_matches_its_plain_route(monkeypatch):
+    """One Mamba2 mixer at zamba2-7b's width (112 heads of 64, state 64,
+    chunk 128) in float32 on the card, prefilling 2 x 300 tokens: the scan
+    runs once through the CUDA kernels in the mixer's layout (B and C per
+    batch, y written as (B, S, H, P)); the same mixer with the scan's plain
+    route (B and C expanded to every head) gives the output and the ssm
+    state within 3e-3 of each tensor's largest entry, the kernels'
+    tolerance; the conv window is the same tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = mamba2.init_mamba(gen, cfg, torch.float32, "cuda")
+    x = torch.randn(2, 300, cfg.d_model, generator=gen, device="cuda")
+    before = ssd_ops.LAUNCHES
+    y, state = mamba2.mamba_mixer(x, p, cfg, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    monkeypatch.setattr(mamba2, "ssd_scan_heads", ssd_ops._plain)
+    want_y, want_state = mamba2.mamba_mixer(x, p, cfg, return_state=True)
+    assert ssd_ops.LAUNCHES == before + 1
+    rel = lambda got, want: ((got - want).abs().max() / want.abs().max()).item()
+    assert torch.isfinite(y).all() and torch.isfinite(state["ssm"]).all()
+    assert rel(y, want_y) <= 3e-3 and rel(state["ssm"], want_state["ssm"]) <= 3e-3
+    torch.testing.assert_close(state["conv"], want_state["conv"], rtol=0, atol=0)
