@@ -29,16 +29,24 @@ Phases (each failure raises and ends the run with a non-zero exit):
    group) at that shape and with two groups of distinct B and C (3e-3
    against ``ssd_chunked_ref``, y and the final state).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
-   ``yt-sim`` R-MAT preset (1,138,499 nodes), one replica. The SGNS
-   kernel must have launched once per training step, every step inside a
-   CUDA graph replay (replays = chunks); phi must be finite and the
-   link-prediction AUC above 0.75. Then, on a lifetime batch of this run
-   (its walks, embeddings and negatives): the batch's extents; the SGNS
-   kernel's deltas against ``lifetime_deltas_ref``, the fused step against
-   ``sgns_step_ref`` and two 50-step chunks replayed as a graph against
-   the eager chunks (phi within 5e-4, tensors allocated between the
-   replays untouched); the kernel's and the step's times
-   against the bound of the live rows (and the old padded-buffer bound).
+   ``yt-sim`` R-MAT preset (1,138,499 nodes), first at ``num_shards=2`` (the
+   paper's regime: the MPGP partition, two replicas, the hotness-block
+   sync), then at ``num_shards=1``. In each run K1 and its write-back must
+   have launched once per training step, every step inside a CUDA graph
+   replay (replays = chunks), with one hotness sync per 50-step boundary
+   crossed at k = 2; phi must be finite and the link-prediction AUC (of the
+   replica mean) above 0.75. Then, on a batch of the k = 2 run at S = 2
+   replicas (the two runs' embeddings, the k = 2 run's walks and
+   negatives): the batch's extents; the SGNS kernel's deltas against
+   ``lifetime_deltas_ref``, the write-back of those deltas against
+   ``write_back_ref``, the fused step against ``sgns_step_ref`` and two
+   50-step chunks (the second hub-heavy, thousands of slots of the hottest
+   node a step, and synced) replayed as graphs against the eager chunks
+   (phi within 5e-4, tensors allocated between the replays untouched); the
+   same two chunks from a clone of the same state through a new graph must
+   give bit-equal phi (the write-back adds in a fixed order); K1's times at
+   S = 2 and S = 1, and the write-back's and the step's against their
+   bounds.
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -189,20 +197,39 @@ def sgns_bound_ms(torch, walks, negs, dim, window) -> tuple:
     update, T update) over the f32 peak. A live slot is a valid walk token
     (its context and its target row) or a negative at a position where some
     walk has a valid target. Returns (ms, "bytes" | "operations")."""
-    G, W, T = walks.shape[-3:]
+    W, T = walks.shape[-2:]
     K = negs.shape[-1]
     v = (walks >= 0).reshape(-1, W, T).to(torch.int64)
-    live_pos = v.amax(dim=1)                         # (G, T)
+    lifetimes = v.shape[0]
+    live_pos = v.amax(dim=1)                         # (L, T)
     rows_moved = 2 * int(v.sum()) + K * int(live_pos.sum())
-    nbytes = (walks.numel() + negs.numel()) * 4 + 2 * rows_moved * dim * 4 + G * 4
+    nbytes = (walks.numel() + negs.numel()) * 4 + 2 * rows_moved * dim * 4 + lifetimes * 4
     pad = torch.nn.functional.pad(v, (window, window))
     # valid context positions p-w..p+w (minus p) of walk w, where walk w's target is valid
     win = sum(pad[:, :, window + o: window + o + T] for o in range(-window, window + 1) if o)
-    rows = (win * v).sum(dim=1)                      # (G, T) valid rows per position
-    cols = v.sum(dim=1) + K                          # (G, T) valid columns
+    rows = (win * v).sum(dim=1)                      # (L, T) valid rows per position
+    cols = v.sum(dim=1) + K                          # (L, T) valid columns
     flops = 2 * 3 * dim * int((rows * cols).sum())
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def writeback_bound_ms(torch, walks, negs, n_rows, dim) -> tuple:
+    """Least time for the write-back on an H100 on these ids: the ids read
+    once, each live slot's delta read once, each row it touches read and
+    written once, over the memory rate (its adds are far below the f32
+    peak). Returns (ms, "bytes")."""
+    s_cnt, W, T = walks.shape[0], walks.shape[-2], walks.shape[-1]
+    K = negs.shape[-1]
+    rep = torch.arange(s_cnt, device=walks.device).view(-1, *[1] * (walks.dim() - 1))
+    valid = walks >= 0
+    live_pos = valid.any(dim=-2)                     # (S, G, T)
+    ctx_rows = (walks.long() + rep * n_rows)[valid]
+    neg_rows = (negs.long() + rep * n_rows).flatten()
+    live = int(valid.sum()) * 2 + int(live_pos.sum()) * K
+    touched = ctx_rows.unique().numel() + torch.cat([ctx_rows, neg_rows]).unique().numel()
+    nbytes = (walks.numel() + negs.numel()) * 4 + live * dim * 4 + 2 * touched * dim * 4
+    return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
 
 def sgns_padded_bound_ms(G, W, T, D, K) -> float:
@@ -213,35 +240,43 @@ def sgns_padded_bound_ms(G, W, T, D, K) -> float:
 
 
 def sgns_main_path(torch, np, phi_in, phi_out, corpus, device) -> dict:
-    """K1 and the step on a batch of the embedding run (64 lifetimes of its
-    walks, its embeddings, negatives from its counts): the kernel's deltas
-    against ``lifetime_deltas_ref``, the fused step against ``sgns_step_ref``
-    and two 50-step chunks replayed as a CUDA graph against the eager chunks
-    (phi within SGNS_TOL; tensors allocated between the replays untouched),
-    each on copies of phi; the extents; the times.
-    Raises outside the tolerance. Returns the kernel line's numbers."""
+    """K1, its write-back and the step on a batch of the embedding run at
+    S = 2 replicas (phi_in and phi_out (2, N, d) from the run; 64 lifetimes a
+    replica of its walks; negatives from its counts): the kernel's deltas
+    against ``lifetime_deltas_ref``, the write-back of those deltas against
+    ``write_back_ref``, the fused step against ``sgns_step_ref`` and two
+    50-step chunks (the second hub-heavy, ending with a hotness sync)
+    replayed as CUDA graphs against the eager chunks (phi within SGNS_TOL;
+    tensors allocated between the replays untouched), each on copies of
+    phi; then the repeatability check: the same two chunks from a clone of
+    the same state, through a new graph, give bit-equal phi. Then the
+    times: K1 at S = 2 and at S = 1, the step and the write-back. Raises
+    outside the tolerance. Returns the kernel line's numbers."""
     from repro_torch.core import dsgl
+    from repro_torch.core.corpus import FrequencyOrder
+    from repro_torch.core.sync import sample_hotness_rows
     from repro_torch.kernels.sgns import ops, ref
 
     G, W, T, D, K, w = (PAPER_SHAPE[k] for k in ("G", "W", "T", "D", "K", "window"))
+    S = phi_in.shape[0]
     rng = np.random.default_rng(1)
     pick = lambda n: torch.as_tensor(
-        corpus.walks[rng.choice(corpus.num_walks, n * G * W, replace=False)],
-        device=device).reshape(n, 1, G, W, T)
-    walks = pick(1)[0]                                          # (1, G, W, T) int32
+        corpus.walks[rng.choice(corpus.num_walks, n * S * G * W, replace=False)],
+        device=device).reshape(n, S, G, W, T)
+    walks = pick(1)[0]                                          # (S, G, W, T) int32
     table = dsgl.build_alias_table(corpus.ocn, 0.75, device)
-    negs = dsgl.chunk_negatives(table, (0, 1), (1, 1, G, W, T), K)[0]
-    phi_in, phi_out = phi_in[None], phi_out[None]
+    negs = dsgl.chunk_negatives(table, (0, 1), (1, S, G, W, T), K)[0]
     lr = torch.full((1,), 0.025, device=device)
 
     lo, hi = ref.lifetime_extent(walks)
-    extent = torch.where(hi >= 0, hi - lo + 1, 0)[0].sort().values.tolist()
-    live = ref.live_slots(walks)[1].sum(dim=-1)[0].sort().values.tolist()
-    ext = {"min": extent[0], "median": extent[G // 2], "max": extent[-1]}
-    log(f"[sgns] main-path batch: {G} lifetimes, valid tokens "
+    extent = torch.where(hi >= 0, hi - lo + 1, 0).flatten().sort().values.tolist()
+    live = ref.live_slots(walks)[1].sum(dim=-1).flatten().sort().values.tolist()
+    L = S * G
+    ext = {"min": extent[0], "median": extent[L // 2], "max": extent[-1]}
+    log(f"[sgns] main-path batch: {S} x {G} lifetimes, valid tokens "
         f"{(walks >= 0).float().mean().item():.4f}; extent (positions visited) min "
         f"{ext['min']} median {ext['median']} max {ext['max']}; live positions min "
-        f"{live[0]} median {live[G // 2]} max {live[-1]}")
+        f"{live[0]} median {live[L // 2]} max {live[-1]}")
 
     got = ops.lifetime_deltas(phi_in, phi_out, walks, negs, lr, w)
     want = ref.lifetime_deltas_ref(phi_in, phi_out, walks, negs, lr, w)
@@ -253,7 +288,7 @@ def sgns_main_path(torch, np, phi_in, phi_out, corpus, device) -> dict:
         if not torch.allclose(a, b, atol=SGNS_TOL, rtol=SGNS_TOL):
             raise AssertionError(f"K1 on the main-path batch: {name} differs by {e:.3e}")
         err = max(err, e) if name != "loss" else err
-    log(f"[check] K1 deltas on the main-path batch: max abs err {err:.3e}")
+    log(f"[check] K1 deltas on the main-path batch (S = {S}): max abs err {err:.3e}")
 
     def phi_err(what, a, b):
         e = max((x - y).abs().max().item() for x, y in zip(a, b))
@@ -261,6 +296,16 @@ def sgns_main_path(torch, np, phi_in, phi_out, corpus, device) -> dict:
             raise AssertionError(f"{what}: phi differs by {e:.3e}")
         log(f"[check] {what}: phi max abs err {e:.3e}")
         return e
+
+    wb, wb_plain = [phi_in.clone(), phi_out.clone()], [phi_in.clone(), phi_out.clone()]
+    launched = ops.WRITEBACKS
+    ops.write_back(*wb, walks, negs, got)
+    ref.write_back_ref(*wb_plain, walks, negs, got.d_ctx, got.d_out, got.d_neg)
+    torch.cuda.synchronize()
+    if ops.WRITEBACKS != launched + 1:
+        raise AssertionError("the write-back did not count its launch")
+    wb_err = phi_err("write-back of the kernel's deltas vs its plain version", wb, wb_plain)
+    del wb_plain
 
     step = [phi_in.clone(), phi_out.clone()]
     plain = [phi_in.clone(), phi_out.clone()]
@@ -270,47 +315,157 @@ def sgns_main_path(torch, np, phi_in, phi_out, corpus, device) -> dict:
     err = max(err, phi_err("fused step vs its plain version, main-path batch", step, plain))
     del plain
 
+    # Two chunks of the run's walks; the second hub-heavy (the run's hottest
+    # node in a tenth of all walk slots, thousands a step) and synced.
     first, second = pick(CHUNK_STEPS), pick(CHUNK_STEPS)
+    hub = int(np.argmax(corpus.ocn))
+    second[torch.rand(second.shape, generator=torch.Generator().manual_seed(3)).to(device)
+           < 0.1] = hub
+    hub_slots = int((second[0] == hub).sum())
+    order = FrequencyOrder.from_ocn(corpus.ocn)
+    rows = torch.as_tensor(order.to_node[sample_hotness_rows(
+        *order.hotness_blocks(), np.random.default_rng(2))].astype(np.int64), device=device)
     lrs = np.linspace(0.025, 0.02, CHUNK_STEPS, dtype=np.float32)
-    graph = [phi_in.clone(), phi_out.clone()]
-    eager = [phi_in.clone(), phi_out.clone()]
-    launches, replays = ops.LAUNCHES, dsgl.GRAPH_REPLAYS
-    graphs = dsgl.ChunkGraphs()
-    graphs.train_chunk(*graph, first, table, (0, 2), lrs, w, K)     # capture, replay
+    state = [phi_in.clone(), phi_out.clone()]
+    runs = {}
+
+    def chunks(name, graphs, after_capture=None):
+        phi = [state[0].clone(), state[1].clone()]
+        train = graphs.train_chunk if graphs is not None else dsgl.train_chunk
+        train(*phi, first, table, (0, 2), lrs, w, K)
+        if after_capture is not None:
+            after_capture()
+        train(*phi, second, table, (0, 3), lrs, w, K, sync_rows=rows, sync=True)
+        runs[name] = phi
+
     # Tensors of the step scratch's sizes, allocated after the capture, must
     # come through the next replay untouched: a replay writes only into
     # memory its graph holds.
-    held = [torch.full(shape, 7.0, device=device) for shape in
-            ((1, G, W, T, D), (1, G, W, T, D), (1, G, T, K, D), (G,))]
-    graphs.train_chunk(*graph, second, table, (0, 3), lrs, w, K)
-    dsgl.train_chunk(*eager, first, table, (0, 2), lrs, w, K)
-    dsgl.train_chunk(*eager, second, table, (0, 3), lrs, w, K)
+    n_keys = 2 * S * G * W * T + S * G * T * K
+    held = []
+    allocate = lambda: held.extend(torch.full(shape, 7.0, device=device) for shape in (
+        (S, G, W, T, D), (S, G, W, T, D), (S, G, T, K, D), (S * G,), (n_keys,), (2 * n_keys,)))
+    counts = ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS
+    chunks("graph", dsgl.ChunkGraphs(), allocate)
+    chunks("again", dsgl.ChunkGraphs())
+    chunks("eager", None)
     torch.cuda.synchronize()
-    if (ops.LAUNCHES - launches, dsgl.GRAPH_REPLAYS - replays) != (4 * CHUNK_STEPS, 2):
+    if (ops.LAUNCHES - counts[0], ops.WRITEBACKS - counts[1],
+            dsgl.GRAPH_REPLAYS - counts[2]) != (6 * CHUNK_STEPS, 6 * CHUNK_STEPS, 4):
         raise AssertionError("the graph chunks did not count their launches and replays")
     if not all(bool((h == 7.0).all()) for h in held):
         raise AssertionError("a graph replay wrote into memory allocated after its capture")
-    err = max(err, phi_err(f"two {CHUNK_STEPS}-step chunks as CUDA graph replays vs eager "
-                           "(memory allocated between the replays untouched)", graph, eager))
-    del graph, eager, held
+    err = max(err, phi_err(f"two {CHUNK_STEPS}-step chunks (S = {S}; the second hub-heavy, "
+                           f"{hub_slots} slots of node {hub} a step, and synced over "
+                           f"{len(rows)} hotness rows) as CUDA graph replays vs eager "
+                           "(memory allocated between the replays untouched)",
+                           runs["graph"], runs["eager"]))
+    if not (torch.equal(runs["graph"][0], runs["again"][0])
+            and torch.equal(runs["graph"][1], runs["again"][1])):
+        diff = (runs["graph"][0] - runs["again"][0]).abs().max().item()
+        raise AssertionError(f"the same two chunks from the same state differ by {diff:.3e}")
+    log(f"[check] repeatability: the same two {CHUNK_STEPS}-step chunks (one hub-heavy, one "
+        "synced) from a clone of the same state through a new graph: phi bit-equal")
+    synced = runs["graph"][0][:, rows]
+    if not torch.equal(synced[0], synced[1]):
+        raise AssertionError("the synced rows differ across the replicas")
+    del runs, held
 
     k1 = lambda: ops.lifetime_deltas(phi_in, phi_out, walks, negs, lr, w, scratch=got)
     k1_ms = time_ms(torch, k1, 50)
+    s1 = ops.StepScratch.empty((1, G, W, T), K, D, device)
+    k1_s1_ms = time_ms(torch, lambda: ops.lifetime_deltas(
+        phi_in[:1], phi_out[:1], walks[:1], negs[:1], lr, w, scratch=s1), 50)
     step_ms = time_ms(torch, lambda: ops.sgns_step(*step, walks, negs, lr, w), 50)
+    wb_ms = time_ms(torch, lambda: ops.write_back(*step, walks, negs, got), 50)
+    wb_plain_ms = time_ms(torch, lambda: ref.write_back_ref(
+        *step, walks, negs, got.d_ctx, got.d_out, got.d_neg), 10)
     plain_ms = time_ms(torch, lambda: ref.lifetime_deltas_ref(phi_in, phi_out, walks, negs,
                                                                lr, w), 5)
     k1_ms2 = time_ms(torch, k1, 50)
+    del s1
     bound, by = sgns_bound_ms(torch, walks, negs, D, w)
-    padded = sgns_padded_bound_ms(G, W, T, D, K)
+    wb_bound, wb_by = writeback_bound_ms(torch, walks, negs, phi_in.shape[1], D)
+    padded = sgns_padded_bound_ms(S * G, W, T, D, K)
     us_pos = k1_ms / max(ext["max"], 1) * 1e3
-    log(f"[time] K1 on the main-path batch: kernel {k1_ms:.4f} ms (again {k1_ms2:.4f}), "
-        f"{us_pos:.3f} us per position of the longest extent; step (K1 + write-back) "
-        f"{step_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound:.6f} ms ({by}; live rows), "
-        f"padded-buffer bound {padded:.6f} ms")
+    log(f"[time] K1 on the main-path batch (S = {S}): kernel {k1_ms:.4f} ms (again "
+        f"{k1_ms2:.4f}), {us_pos:.3f} us per position of the longest extent; at S = 1 "
+        f"(replica 0) {k1_s1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound:.6f} ms ({by}; "
+        f"live rows), padded-buffer bound {padded:.6f} ms")
+    log(f"[time] write-back (keys, stable sort, row segments) {wb_ms:.4f} ms, plain "
+        f"{wb_plain_ms:.4f} ms, bound {wb_bound:.6f} ms ({wb_by}); step (K1 + write-back) "
+        f"{step_ms:.4f} ms")
+
     del step, got
-    return {"max_abs_err": err, "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "padded_bound_ms": padded, "step_ms": step_ms,
-            "us_per_position": us_pos, "extent": ext}
+    return {"max_abs_err": max(err, wb_err), "ms": k1_ms, "ms_s1": k1_s1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "padded_bound_ms": padded,
+            "step_ms": step_ms, "us_per_position": us_pos, "extent": ext,
+            "writeback_ms": wb_ms, "writeback_plain_ms": wb_plain_ms,
+            "writeback_bound_ms": wb_bound, "writeback_max_abs_err": wb_err}
+
+
+def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
+    """``embed_graph(PAPER_EMBED, num_shards=shards)`` on the graph, every
+    launch count set to 0 just before it and read just after: K1 and its
+    write-back must have launched once per training step, every step inside
+    a CUDA graph replay (replays = chunks), one hotness sync per 50-step
+    boundary crossed (the reference's rule) with k > 1; phi finite and the
+    link-prediction AUC of the replica mean above 0.75. Returns the run's
+    phi, corpus and counts."""
+    from repro_torch.configs.distger import PAPER_EMBED
+    from repro_torch.core import dsgl
+    from repro_torch.core.api import embed_graph
+    from repro_torch.eval import link_prediction_auc
+    from repro_torch.kernels.sgns import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in counters:
+        counters[name].LAUNCHES = 0
+    ops.WRITEBACKS = 0
+    dsgl.GRAPH_REPLAYS = 0
+    t0 = time.perf_counter()
+    phi_in, phi_out, corpus, stats = embed_graph(
+        graph, PAPER_EMBED, num_shards=shards, return_corpus=True, return_stats=True,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, writebacks, replays = ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS
+    others = {name: c.LAUNCHES for name, c in counters.items() if name != "sgns_lifetime"}
+    tag = f"[main k={shards}]"
+    ws = stats["stats"]
+    part = (f"partition {stats['part_s']:.2f} s (MPGP, DFS+degree: locality "
+            f"{stats['locality']:.6f}, balance {stats['balance']:.6f}, nodes per part "
+            f"{stats['part_counts']}), " if shards > 1 else "")
+    log(f"{tag} embed_graph wall {wall:.2f} s: Cm {stats['cm_s']:.2f} s, {part}pipeline "
+        f"{stats['wall_s']:.2f} s (walks {ws['phase_s']['walk']:.2f} s, training "
+        f"{ws['phase_s']['train']:.2f} s)")
+    log(f"{tag} walks/round {graph.num_nodes} rounds {stats['rounds']} training steps "
+        f"{stats['steps']} in {stats['chunks']} chunks, {stats['syncs']} hotness syncs "
+        f"({stats['sync_bytes']:.0f} bytes); K1 launches {launches}, write-backs {writebacks}, "
+        f"CUDA graph replays {replays}; other kernels {others}")
+    log(f"{tag} mean walk length {ws['mean_len']:.4f} supersteps {ws['supersteps']} "
+        f"per batch {ws['batch_supersteps']} accepts {ws['accepts']} rejects {ws['rejects']}")
+    log(f"{tag} D history {ws['d_history']}")
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if launches != stats["steps"] or writebacks != stats["steps"] \
+            or replays != stats["chunks"]:
+        raise AssertionError(f"K1 launches {launches} and write-backs {writebacks} for "
+                             f"{stats['steps']} training steps, {replays} graph replays for "
+                             f"{stats['chunks']} chunks: every step must run in a replayed chunk")
+    want_syncs = stats["steps"] // dsgl.DSGLConfig().sync_period if shards > 1 else 0
+    if stats["syncs"] != want_syncs:
+        raise AssertionError(f"{stats['syncs']} hotness syncs, the reference's rule gives "
+                             f"{want_syncs}")
+    if not (torch.isfinite(phi_in).all() and torch.isfinite(phi_out).all()):
+        raise AssertionError("phi is not finite")
+    t0 = time.perf_counter()
+    auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0))
+    log(f"{tag} link-prediction AUC {auc:.6f} ({time.perf_counter() - t0:.2f} s)")
+    if not auc > 0.75:
+        raise AssertionError(f"AUC {auc} <= 0.75")
+    return {"phi_in": phi_in, "phi_out": phi_out, "corpus": corpus, "launches": launches,
+            "writebacks": writebacks, "replays": replays}
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -799,10 +954,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.distger import GRAPH_PRESETS, PAPER_EMBED
-    from repro_torch.core import dsgl
-    from repro_torch.core.api import embed_graph
-    from repro_torch.eval import link_prediction_auc
+    from repro_torch.configs.distger import GRAPH_PRESETS
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -875,50 +1027,19 @@ def main() -> int:
             f"max abs err {err:.3e}")
     torch.cuda.empty_cache()
 
-    # 3. the embedding path ------------------------------------------------------
+    # 3. the embedding path: k = 2 (the paper's regime), then k = 1 ---------------
     preset = GRAPH_PRESETS["yt-sim"]
     t0 = time.perf_counter()
     graph = rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev)
     torch.cuda.synchronize()
     log(f"[main] {preset.name}: |V|={graph.num_nodes} arcs={graph.num_edges} "
         f"graph built in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    for name in counters:
-        counters[name].LAUNCHES = 0
-    dsgl.GRAPH_REPLAYS = 0
-    t0 = time.perf_counter()
-    phi_in, phi_out, corpus, stats = embed_graph(
-        graph, PAPER_EMBED, num_shards=1, return_corpus=True,
-        return_stats=True, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sgns_launches, graph_replays = ops.LAUNCHES, dsgl.GRAPH_REPLAYS
-    ws = stats["stats"]
-    log(f"[main] embed_graph wall {wall:.2f} s (Cm {stats['cm_s']:.2f} s, "
-        f"pipeline {stats['wall_s']:.2f} s: walks {ws['phase_s']['walk']:.2f} s, "
-        f"training {ws['phase_s']['train']:.2f} s)")
-    log(f"[main] walks/round {graph.num_nodes} rounds {stats['rounds']} "
-        f"training steps {stats['steps']} in {stats['chunks']} chunks; K1 launches "
-        f"{sgns_launches}, CUDA graph replays {graph_replays}; K2 launches {fa_ops.LAUNCHES} K3 launches {ssd_ops.LAUNCHES}")
-    log(f"[main] mean walk length {ws['mean_len']:.4f} supersteps {ws['supersteps']} "
-        f"per batch {ws['batch_supersteps']} accepts {ws['accepts']} rejects {ws['rejects']}")
-    log(f"[main] D history {ws['d_history']}")
-    log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if sgns_launches != stats["steps"] or graph_replays != stats["chunks"]:
-        raise AssertionError(f"K1 launches {sgns_launches} for {stats['steps']} training steps, "
-                             f"{graph_replays} graph replays for {stats['chunks']} chunks: "
-                             "every step must run in a replayed chunk")
-    if not (torch.isfinite(phi_in).all() and torch.isfinite(phi_out).all()):
-        raise AssertionError("phi is not finite")
-    t0 = time.perf_counter()
-    auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0))
-    log(f"[main] link-prediction AUC {auc:.6f} ({time.perf_counter() - t0:.2f} s)")
-    if not auc > 0.75:
-        raise AssertionError(f"AUC {auc} <= 0.75")
-
-    sgns = sgns_main_path(torch, np, phi_in, phi_out, corpus, dev)
+    emb = {k: embedding_path(torch, np, counters, graph, k, dev) for k in (2, 1)}
+    phi_in = torch.stack([emb[2].pop("phi_in"), emb[1].pop("phi_in")])      # (2, N, d)
+    phi_out = torch.stack([emb[2].pop("phi_out"), emb[1].pop("phi_out")])
+    sgns = sgns_main_path(torch, np, phi_in, phi_out, emb[2].pop("corpus"), dev)
     sgns_err = max(sgns_err, sgns["max_abs_err"])
-    del phi_in, phi_out, corpus, graph
+    del phi_in, phi_out, emb[1]["corpus"], graph
     torch.cuda.empty_cache()
 
     # 4. the dense LM path -------------------------------------------------------
@@ -932,8 +1053,9 @@ def main() -> int:
     flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
     ssd = ssd_times(torch, ssd_ops, ssd_main_case, dev)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
-    total["sgns_lifetime"] += sgns_launches
-    log(f"[main] launches by path: sgns_lifetime yt-sim {sgns_launches}; {launches}")
+    total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"]
+    log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "
+        f"{emb[1]['launches']}; {launches}")
 
     by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
     flash = flash_shapes[LM_ARCH]      # the top-level numbers: qwen3-1.7b's prefill shape
@@ -949,11 +1071,18 @@ def main() -> int:
         "bound_ms": sgns["bound_ms"],
         "bound_by": sgns["bound_by"],
         "library_ms": None,
+        "launches_by_path": {"yt-sim k=2": emb[2]["launches"], "yt-sim k=1": emb[1]["launches"]},
+        "ms_s1": sgns["ms_s1"],
         "padded_bound_ms": sgns["padded_bound_ms"],
         "step_ms": sgns["step_ms"],
         "us_per_position": sgns["us_per_position"],
         "extent": sgns["extent"],
-        "graph_replays": graph_replays,
+        "graph_replays": emb[2]["replays"] + emb[1]["replays"],
+        "writeback_launches": emb[2]["writebacks"] + emb[1]["writebacks"],
+        "writeback_ms": sgns["writeback_ms"],
+        "writeback_plain_ms": sgns["writeback_plain_ms"],
+        "writeback_bound_ms": sgns["writeback_bound_ms"],
+        "writeback_max_abs_err": sgns["writeback_max_abs_err"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -30,7 +30,8 @@ def _key(raw) -> tuple:
 def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Reference state (numpy) -> {"phi_in", "phi_out": (S, N, d) float32,
     "ring": CorpusRing, "key_walk", "key_train": prng keys, "stats": walk
-    counters as ints, "graph": CSRGraph (when the tree holds one)}."""
+    counters as ints, "assignment": the MPGP assignment as int32 numpy, or
+    None, "graph": CSRGraph (when the tree holds one)}."""
     dev = resolve_device(device)
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
     state = {
@@ -40,6 +41,8 @@ def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         "key_walk": _key(tree["key_walk"]),
         "key_train": _key(tree["key_train"]),
         "stats": {k: int(np.asarray(v)) for k, v in tree.get("stats", {}).items()},
+        "assignment": (None if tree.get("assignment") is None
+                       else np.array(tree["assignment"], np.int32)),
     }
     g = tree.get("graph")
     if g is not None:

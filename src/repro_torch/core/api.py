@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
+
 from repro_torch.core.corpus import Corpus, generate_corpus
 from repro_torch.core.transition import make_policy
 from repro_torch.core.walker import WalkSpec
@@ -60,6 +62,8 @@ def make_walk_plan(cfg: EmbedConfig) -> Tuple[object, WalkSpec, Dict]:
 
 
 def sample_corpus(graph, cfg: EmbedConfig, *, device="cuda") -> Corpus:
+    """Rounds of walks until the ΔD gate stops them, as a host ``Corpus``
+    (the dense engine; the reference's sharded engine draws the same walks)."""
     policy, spec, rounds = make_walk_plan(cfg)
     return generate_corpus(graph.to(device), policy=policy, spec=spec,
                            seed=cfg.seed, **rounds)
@@ -72,36 +76,75 @@ def embed_graph(
     num_shards: int = 1,
     return_corpus: bool = False,
     return_stats: bool = False,
+    streaming: bool = True,
     device="cuda",
 ):
-    """info-oriented walks -> streamed DSGL -> embeddings, on ``device``.
+    """partition -> info-oriented walks -> DSGL -> embeddings, on ``device``.
 
-    The streaming pipeline (``runtime.trainer.StreamingEmbedPipeline``):
-    finished walk rounds append into a device-resident corpus ring and
-    DSGL training consumes ring slots directly. Each round walks from every
-    node in batches of up to ``walker.MAX_LANES`` lanes (one batch on every
-    preset up to or-sim). Returns (phi_in, phi_out) as tensors on ``device`` in
-    node-id space, plus the host ``Corpus`` if ``return_corpus`` and the
-    run's summary (rounds, steps, walk statistics, Cm time) if
-    ``return_stats``.
-    """
-    from repro_torch.core.dsgl import DSGLConfig
+    With ``num_shards`` > 1 the graph is partitioned by MPGP first and DSGL
+    trains that many replicas under the hotness-block sync. The default path
+    is the streaming pipeline (``runtime.trainer.StreamingEmbedPipeline``):
+    finished walk rounds append into a device-resident corpus ring and DSGL
+    training consumes ring slots directly. Each round walks from every node
+    in batches of up to ``walker.MAX_LANES`` lanes (one batch on every
+    preset up to or-sim). ``streaming=False`` is the two-phase path: sample
+    the whole corpus, then ``dsgl.train_dsgl`` in frequency-rank space.
+
+    Returns (phi_in, phi_out) as tensors on ``device`` in node-id space
+    (replica-averaged), plus the host ``Corpus`` if ``return_corpus`` and,
+    on the streaming path, the run's summary if ``return_stats``: rounds,
+    steps, chunks, syncs and their bytes, walk statistics, the Cm and
+    partition seconds (``cm_s``, ``part_s``), the partition's locality,
+    balance and per-part node counts."""
+    import time
+
+    import torch
+
+    from repro_torch.core.corpus import FrequencyOrder
+    from repro_torch.core.dsgl import DSGLConfig, train_dsgl
+    from repro_torch.core.mpgp import mpgp_partition
     from repro_torch.runtime.trainer import StreamingEmbedPipeline
 
-    graph = graph.to(resolve_device(device))
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    policy, spec, rounds = make_walk_plan(cfg)
+    part, summary = None, {"cm_s": 0.0}
+    if num_shards > 1:
+        if graph.edge_cm is None:                # PS2's counts, and HuGE's
+            t0 = time.perf_counter()
+            graph = graph.with_edge_cm()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            summary["cm_s"] = time.perf_counter() - t0
+        result = mpgp_partition(graph, num_shards)
+        part = result.assignment
+        summary.update(part_s=result.seconds, locality=result.locality,
+                       balance=result.balance, part_counts=result.counts().tolist())
     dsgl_cfg = DSGLConfig(
         dim=cfg.dim, window=cfg.window, negatives=cfg.negatives,
         epochs=cfg.epochs, lr=cfg.lr, multi_windows=cfg.multi_windows,
         seed=cfg.seed,
     )
-    policy, spec, rounds = make_walk_plan(cfg)
+
+    if not streaming:
+        if return_stats:
+            raise ValueError("return_stats needs the streaming pipeline")
+        corpus = sample_corpus(graph, cfg, device=dev)
+        order = FrequencyOrder.from_ocn(corpus.ocn)
+        phi_in, phi_out = train_dsgl(corpus, order, dsgl_cfg, num_shards=num_shards,
+                                     device=dev)
+        to_rank = torch.as_tensor(order.to_rank.astype(np.int64), device=dev)
+        out = (phi_in[to_rank], phi_out[to_rank])        # back to node-id space
+        return out + (corpus,) if return_corpus else out
+
     pipe = StreamingEmbedPipeline(graph, policy, spec, rounds, dsgl_cfg,
-                                  num_shards=num_shards)
-    summary = pipe.run()
+                                  assignment=part, num_shards=num_shards)
+    run = pipe.run()
+    run["cm_s"] += summary.pop("cm_s")
+    summary.update({k: v for k, v in run.items() if k not in ("phi_in", "phi_out", "ring")})
     out = pipe.embeddings()
     if return_corpus:
         out = out + (pipe.corpus(),)
     if return_stats:
-        out = out + ({k: v for k, v in summary.items()
-                      if k not in ("phi_in", "phi_out", "ring")},)
+        out = out + (summary,)
     return out

@@ -1,7 +1,15 @@
-"""Training-batch indices over the device corpus ring."""
+"""Training batches: indices over the device corpus ring (the streaming
+pipeline), and lifetime batches of a materialized corpus with a prefetch
+thread (the two-phase path)."""
 
 from __future__ import annotations
 
+import dataclasses
+import queue
+import threading
+from typing import Callable, Sequence
+
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -22,3 +30,90 @@ def ring_chunk_indices(key: prng.Key, base: int, pool: int, count: int,
     if need > pool:                         # np.resize: repeat cyclically
         perm = perm.repeat(-(-need // pool))
     return base + perm[:need].reshape(count, shards, groups, windows)
+
+
+# ---------------------------------------------------------------------------
+# The two-phase path: batches from a materialized corpus
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkCorpusStream:
+    """Batches of walk lifetimes from a materialized corpus (the two-phase
+    learner's input). The shuffle order is a pure function of (seed,
+    epoch); the cursor (epoch, step) names a batch."""
+
+    walks: np.ndarray            # (n_walks, T) int32, -1 padded
+    group_size: int              # G lifetimes per batch
+    multi_windows: int           # W walks per lifetime
+    seed: int = 0
+    shard_id: int = 0
+    num_shards: int = 1
+
+    def _order(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed * 7919 + epoch)
+        order = rng.permutation(self.walks.shape[0])
+        return order[self.shard_id::self.num_shards]
+
+    def steps_per_epoch(self) -> int:
+        per = self.group_size * self.multi_windows
+        return max(len(self._order(0)) // per, 1)
+
+    def batch_at(self, epoch: int, step: int) -> np.ndarray:
+        order = self._order(epoch)
+        per = self.group_size * self.multi_windows
+        if len(order) < per:   # tiny corpora: tile
+            order = np.tile(order, -(-per // max(len(order), 1)))
+        lo = (step * per) % max(len(order) - per + 1, 1)
+        sel = order[lo:lo + per]
+        return self.walks[sel].reshape(self.group_size, self.multi_windows,
+                                       self.walks.shape[1])
+
+    def chunk_at(self, epoch: int, step: int, chunk: int) -> np.ndarray:
+        """``chunk`` consecutive batches stacked to (C, G, W, T), the unit one
+        ``core.dsgl.train_chunk`` call trains."""
+        return np.stack([self.batch_at(epoch, step + c) for c in range(chunk)])
+
+
+def stacked_shard_chunk(streams: Sequence[WalkCorpusStream], epoch: int, step: int,
+                        chunk: int) -> np.ndarray:
+    """Chunks from every shard's stream stacked to (C, S, G, W, T): replica
+    s trains on its own slice of the corpus."""
+    return np.stack([s.chunk_at(epoch, step, chunk) for s in streams], axis=1)
+
+
+class Prefetcher:
+    """Bounded background prefetch over any ``fetch(step)`` source."""
+
+    def __init__(self, fetch: Callable[[int], object], depth: int = 2,
+                 start_step: int = 0):
+        self._fetch = fetch
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self._fetch(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self, timeout: float = 60.0):
+        return self._q.get(timeout=timeout)
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)

@@ -55,12 +55,22 @@
 // - No tensor cores: the products are 40x128 by 128x7 and 7x40 by 40x128,
 //   below one wgmma tile, and their latency, not FLOPs, bounds them; TF32
 //   would put the 5e-4 tolerance at risk. f32 FMA throughout.
-// - The write-back counts duplicates as the reference does (phi_in: valid
-//   walk tokens; phi_out: valid walk tokens plus every negative slot, also
-//   at dead positions), counted by the lifetime kernel; then
-//   phi[id] += delta / count only for live slots (a valid token, or a
-//   negative at a position with a valid target) with float4 atomics; then
-//   the counts are cleared by the ids that touched them.
+// - The write-back (sgns_wb_keys_kernel, a stable sort of its keys, then
+//   sgns_wb_segments_kernel) adds the deltas in a fixed order, so the same
+//   step from the same state gives the same phi on every run. Each slot
+//   gets a key: its row (phi_in rows first, then phi_out's), or a sentinel
+//   for a dead walk slot. The keys sit in the reference's slot order
+//   (context slots for phi_in; target slots, then negative slots for
+//   phi_out), and a stable sort keeps that order within a row. For each
+//   row segment (a run of one key) delta / count is added in that order
+//   into the row, which is written once: eight lanes per segment of up to
+//   32 slots, a CTA per longer one (a hub's row, hundreds or thousands of
+//   slots, staged through shared memory). count is the segment's length,
+//   which is the reference's duplicate count (phi_in: valid walk tokens;
+//   phi_out: valid walk tokens plus every negative slot, also at dead
+//   positions, whose deltas are not added). The sort is a library call;
+//   every size is static, so a CUDA graph captures the step. The order
+//   costs: the atomic adds it replaced took a tenth of the time (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -77,6 +87,13 @@ constexpr int kSmemMax = 232448;
 constexpr float kMaxExp = 6.0f;
 constexpr float kEps = 1e-7f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDeadKey = 0x7fffffff;        // a write-back key that sorts after every row
+constexpr int kGroup = 8;                   // lanes per short write-back segment
+constexpr int kWbBatch = 2;                 // rows a write-back group loads ahead
+constexpr int kWbShort = 32;                // longer segments go to the CTA kernel
+constexpr int kLongRows = 128;              // slots a long-segment stage holds
+constexpr int kLongThreads = 256;
+constexpr int kLongCtas = 132;              // one per SM
 
 // Warps per CTA and ring slots per warp for up to NCP columns; both cover
 // kMaxRing slots. 8 columns keep the T rows and g^T C partials of a lane
@@ -97,8 +114,6 @@ struct Args {
   float* d_out;           // (L, W, T, D)
   float* d_neg;           // (L, T, K, D)
   float* loss;            // (L,)
-  float* cnt_in;          // duplicate counts for the write-back, or null
-  float* cnt_out;
   const float* lr;        // device scalar
   int W, T, D, K, win;
 };
@@ -243,16 +258,6 @@ sgns_lifetime_kernel(const Args a) {
     for (int w = 0; w < W; ++w) m |= (wid[w * T + p] >= 0 ? 1 : 0) << w;
     live[p] = m;
     if (m) { atomicMin(&s_lo, p); atomicMax(&s_hi, p); }
-  }
-  if (a.cnt_in != nullptr) {       // fused step: the write-back's duplicate counts
-    for (int e = tid; e < W * T; e += NW * 32) {
-      const int id = wid[e];
-      if (id >= 0) {
-        atomicAdd(a.cnt_in + row0 + id, 1.f);
-        atomicAdd(a.cnt_out + row0 + id, 1.f);
-      }
-    }
-    for (int e = tid; e < T * K; e += NW * 32) atomicAdd(a.cnt_out + row0 + nid[e], 1.f);
   }
   __syncthreads();
   const int lo = s_lo, hi = s_hi;
@@ -415,68 +420,185 @@ sgns_lifetime_kernel(const Args a) {
   }
 }
 
-// phi[row] += delta / count[row] for every live slot: one warp per slot,
-// one float4 atomic per lane. Rows 0..n_walk-1 are the context slots
-// (phi_in), then the target slots (phi_out), then the negative slots
-// (phi_out), live where some walk has a valid target at their position.
+// The write-back's keys, one per slot, in the reference's slot order: the
+// n_walk context slots (phi_in), then the n_walk target slots and the n_neg
+// negative slots (phi_out). A slot's key is its row of the stacked matrix,
+// plus `rows` for phi_out, or kDeadKey for a walk slot without a token. A
+// negative at a position where no walk has a token counts but adds nothing
+// (its delta was not written): dead[f] marks it. Zeroes the long-segment
+// count of this step.
 __global__ void __launch_bounds__(256)
-sgns_writeback_kernel(float* phi_in, float* phi_out, const int* walk_ids, const int* neg_ids,
-                      const float* d_ctx, const float* d_out, const float* d_neg,
-                      const float* cnt_in, const float* cnt_out, long long n_walk,
-                      long long n_neg, int W, int T, int K, int D, int per_rep,
-                      long long rep_rows) {
-  const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (lane * 4 >= D) return;
-  long long e, row;
-  const float* delta;
-  const float* cnt;
-  float* base;
-  if (r < 2 * n_walk) {
-    const bool target = r >= n_walk;
-    e = target ? r - n_walk : r;
-    const int id = walk_ids[e];
-    if (id < 0) return;
-    row = (e / ((long long)W * T) / per_rep) * rep_rows + id;
-    delta = (target ? d_out : d_ctx) + e * D;
-    cnt = target ? cnt_out : cnt_in;
-    base = target ? phi_out : phi_in;
-  } else if (r < 2 * n_walk + n_neg) {
-    e = r - 2 * n_walk;
-    const long long lp = e / K, l = lp / T;
+sgns_wb_keys_kernel(const int* walk_ids, const int* neg_ids, int* keys, unsigned char* dead,
+                    long long* segs, long long n_walk, long long n_neg, int W, int T, int K,
+                    int per_rep, long long rep_rows, long long rows) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) segs[0] = 0;
+  if (e < 2 * n_walk) {
+    const bool target = e >= n_walk;
+    const long long f = target ? e - n_walk : e;
+    const int id = walk_ids[f];
+    keys[e] = id < 0 ? kDeadKey
+                     : (int)((f / ((long long)W * T) / per_rep) * rep_rows + id + (target ? rows : 0));
+  } else if (e < 2 * n_walk + n_neg) {
+    const long long f = e - 2 * n_walk, lp = f / K, l = lp / T;
     const int p = (int)(lp - l * T);
     bool alive = false;
     for (int w = 0; w < W; ++w) alive |= walk_ids[(l * W + w) * T + p] >= 0;
-    if (!alive) return;
-    row = (l / per_rep) * rep_rows + neg_ids[e];
-    delta = d_neg + e * D;
-    cnt = cnt_out;
-    base = phi_out;
-  } else {
-    return;
+    keys[e] = (int)(rows + (l / per_rep) * rep_rows + neg_ids[f]);
+    dead[f] = alive ? 0 : 1;
   }
-  const float inv = 1.f / fmaxf(cnt[row], 1.f);
-  const float4 d4 = ld4(delta + lane * 4);
-  atomicAdd(reinterpret_cast<float4*>(base + row * D + lane * 4),
-            make_float4(d4.x * inv, d4.y * inv, d4.z * inv, d4.w * inv));
 }
 
-// Zero the counts the step set, by the ids that set them.
-__global__ void __launch_bounds__(256)
-sgns_clear_kernel(float* cnt_in, float* cnt_out, const int* walk_ids, const int* neg_ids,
-                  long long n_walk, long long n_neg, int W, int T, int K, int per_rep,
-                  long long rep_rows) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < n_walk) {
-    const int id = walk_ids[e];
-    if (id >= 0) {
-      const long long row = (e / ((long long)W * T) / per_rep) * rep_rows + id;
-      cnt_in[row] = 0.f;
-      cnt_out[row] = 0.f;
+// Where slot `slot`'s delta is.
+__device__ __forceinline__ const float* delta_of(long long slot, long long n_walk, int D,
+                                                 const float* d_ctx, const float* d_out,
+                                                 const float* d_neg) {
+  return slot < n_walk ? d_ctx + slot * D
+         : slot < 2 * n_walk ? d_out + (slot - n_walk) * D
+                             : d_neg + (slot - 2 * n_walk) * D;
+}
+
+// A group of kGroup lanes per sorted key; the group whose key starts a
+// segment (a run of one row) of at most kWbShort slots adds, in sorted
+// order (the slots' own order, kept by the stable sort), each slot's delta
+// times 1 / count into the row, count being the segment's length, and
+// writes the row once (lane g holds float4 columns g, g + kGroup, ...). A
+// longer segment goes to the list that sgns_wb_long_kernel reads. Multiply
+// and add round separately, as the reference's scatter of delta * inv does.
+__global__ void __launch_bounds__(256, 3)
+sgns_wb_segments_kernel(float* phi_in, float* phi_out, const int* sorted, const long long* slot_of,
+                        const unsigned char* dead, const float* d_ctx, const float* d_out,
+                        const float* d_neg, long long* segs, long long n_walk, long long n_neg,
+                        int D, long long rows) {
+  constexpr int kCols = kMaxDim / (4 * kGroup);   // float4 columns a lane holds
+  const int lane = threadIdx.x & 31, g = lane & (kGroup - 1), base = lane & ~(kGroup - 1);
+  const unsigned gmask = ((1u << kGroup) - 1) << base;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
+  const long long n = 2 * n_walk + n_neg;
+  if (i >= n) return;                        // i is the same in every lane of a group
+  const int key = sorted[i];
+  if (key == kDeadKey || (i > 0 && sorted[i - 1] == key)) return;
+  long long end = i + 1;                     // the segment is [i, end)
+  while (true) {
+    const long long j = end + g;
+    const unsigned other = (__ballot_sync(gmask, j >= n || sorted[j] != key) & gmask) >> base;
+    if (other) { end += __ffs(other) - 1; break; }
+    end += kGroup;
+    if (end - i > kWbShort) break;
+  }
+  if (end - i > kWbShort) {                  // a long segment: the CTA kernel's
+    // Its end by a kGroup-way search: each round probes kGroup points of
+    // [lo, hi), where sorted[lo - 1] == key and the end lies in [lo, hi].
+    long long lo = end, hi = n;
+    while (lo < hi) {
+      const long long span = hi - lo, p = lo + span * g / kGroup;
+      const int c = __popc(__ballot_sync(gmask, sorted[p] == key) & gmask);   // a prefix
+      if (c == 0) break;
+      const long long nlo = lo + span * (c - 1) / kGroup + 1;
+      hi = c < kGroup ? lo + span * c / kGroup : hi;
+      lo = nlo;
     }
-  } else if (e < n_walk + n_neg) {
-    const long long f = e - n_walk;
-    cnt_out[(f / ((long long)T * K) / per_rep) * rep_rows + neg_ids[f]] = 0.f;
+    if (g == 0) {
+      const long long at = (long long)atomicAdd(reinterpret_cast<unsigned long long*>(segs), 1ull);
+      segs[1 + 2 * at] = i;
+      segs[2 + 2 * at] = lo;
+    }
+    return;
+  }
+  const float inv = 1.f / fmaxf((float)(end - i), 1.f);
+  const bool out = key >= rows;
+  float* dst = (out ? phi_out : phi_in) + ((long long)key - (out ? rows : 0)) * D;
+  float4 acc[kCols];
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) {
+    const int c = (q * kGroup + g) * 4;
+    acc[q] = c < D ? ld4(dst + c) : zero4();
+  }
+  const int m = (int)(end - i);              // <= kWbShort
+  for (int s0 = 0; s0 < m; s0 += kGroup) {
+    const long long my = s0 + g < m ? slot_of[i + s0 + g] : 0;
+    const bool my_live = s0 + g < m && (my < 2 * n_walk || !dead[my - 2 * n_walk]);
+    const unsigned live = (__ballot_sync(gmask, my_live) & gmask) >> base;
+    // kWbBatch slots' rows in flight, then their adds in order.
+    for (int t0 = 0; t0 < kGroup && s0 + t0 < m; t0 += kWbBatch) {
+      float4 d[kWbBatch][kCols];
+#pragma unroll
+      for (int u = 0; u < kWbBatch; ++u) {
+        const long long slot = __shfl_sync(gmask, my, t0 + u, kGroup);
+        const float* src = delta_of(slot, n_walk, D, d_ctx, d_out, d_neg);
+        const bool use = (live >> (t0 + u)) & 1;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          const int c = (q * kGroup + g) * 4;
+          d[u][q] = (use && c < D) ? ld4(src + c) : zero4();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kWbBatch; ++u) {
+        if ((live >> (t0 + u)) & 1) {
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) {
+            acc[q].x = __fadd_rn(acc[q].x, __fmul_rn(d[u][q].x, inv));
+            acc[q].y = __fadd_rn(acc[q].y, __fmul_rn(d[u][q].y, inv));
+            acc[q].z = __fadd_rn(acc[q].z, __fmul_rn(d[u][q].z, inv));
+            acc[q].w = __fadd_rn(acc[q].w, __fmul_rn(d[u][q].w, inv));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) {
+    const int c = (q * kGroup + g) * 4;
+    if (c < D) st4(dst + c, acc[q]);
+  }
+}
+
+// The long segments (a hub's row: hundreds or thousands of slots), one CTA
+// each: stages of kLongRows slots, their delta rows copied into shared
+// memory by every thread (cp.async, many rows in flight), then thread c
+// adds column c of each row in slot order. The same order and rounding as
+// the short segments'.
+__global__ void __launch_bounds__(kLongThreads)
+sgns_wb_long_kernel(float* phi_in, float* phi_out, const int* sorted, const long long* slot_of,
+                    const unsigned char* dead, const float* d_ctx, const float* d_out,
+                    const float* d_neg, const long long* segs, long long n_walk, int D,
+                    long long rows) {
+  extern __shared__ __align__(16) float tile[];          // kLongRows x D
+  __shared__ long long s_slot[kLongRows];
+  __shared__ int s_live[kLongRows];
+  const int t = threadIdx.x, d4 = D / 4;
+  const long long count = segs[0];
+  for (long long g = blockIdx.x; g < count; g += gridDim.x) {
+    const long long start = segs[1 + 2 * g], end = segs[2 + 2 * g];
+    const int key = sorted[start];
+    const bool out = key >= rows;
+    float* dst = (out ? phi_out : phi_in) + ((long long)key - (out ? rows : 0)) * D;
+    const float inv = 1.f / fmaxf((float)(end - start), 1.f);
+    float acc = t < D ? dst[t] : 0.f;
+    for (long long s0 = start; s0 < end; s0 += kLongRows) {
+      const int m = (int)min((long long)kLongRows, end - s0);
+      for (int r = t; r < m; r += kLongThreads) {
+        const long long slot = slot_of[s0 + r];
+        s_slot[r] = slot;
+        s_live[r] = slot < 2 * n_walk || !dead[slot - 2 * n_walk];
+      }
+      __syncthreads();
+      for (int e = t; e < m * d4; e += kLongThreads) {
+        const int r = e / d4, c = e - r * d4;
+        if (s_live[r])
+          cp_async16(smem_u32(tile + (size_t)r * D + c * 4),
+                     delta_of(s_slot[r], n_walk, D, d_ctx, d_out, d_neg) + c * 4);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      if (t < D) {
+        for (int r = 0; r < m; ++r)
+          if (s_live[r]) acc = __fadd_rn(acc, __fmul_rn(tile[(size_t)r * D + t], inv));
+      }
+      __syncthreads();
+    }
+    if (t < D) dst[t] = acc;
   }
 }
 
@@ -498,8 +620,11 @@ int sgns_init() {
     err = cudaFuncSetAttribute(sgns_lifetime_kernel<16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_writeback_kernel);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_clear_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_wb_keys_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, sgns_wb_segments_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sgns_wb_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kLongRows * kMaxDim * 4);
   return (int)err;
 }
 
@@ -514,16 +639,16 @@ int sgns_lifetime_max_ring() { return kMaxRing; }
 int sgns_lifetime_max_dim() { return kMaxDim; }
 int sgns_lifetime_prefetch() { return kPrefetch; }
 
-// The lifetime kernel for L lifetimes on `stream`; counts duplicates into
-// cnt_in / cnt_out unless they are null. Returns the launch's cudaError_t.
+// The lifetime kernel for L lifetimes on `stream`. Returns the launch's
+// cudaError_t.
 int sgns_lifetime_launch(const float* ctx_src, const float* out_src, const float* neg_src,
                          const int* walk_ids, const int* neg_ids, long long rep_rows,
                          int per_rep, float* d_ctx, float* d_out, float* d_neg, float* loss,
-                         float* cnt_in, float* cnt_out, const float* lr, int L, int W, int T,
-                         int D, int K, int window, void* stream) {
+                         const float* lr, int L, int W, int T, int D, int K, int window,
+                         void* stream) {
   const Args a{ctx_src, out_src, neg_src, walk_ids, neg_ids, rep_rows, per_rep, d_ctx,
-               d_out,   d_neg,   loss,    cnt_in,   cnt_out, lr,       W,       T,
-               D,       K,       window};
+               d_out,   d_neg,   loss,    lr,       W,        T,        D,       K,
+               window};
   const size_t smem = sgns_lifetime_smem_bytes(W, T, D, K, window);
   cudaStream_t s = (cudaStream_t)stream;
   if (W + K <= 8)
@@ -533,22 +658,43 @@ int sgns_lifetime_launch(const float* ctx_src, const float* out_src, const float
   return (int)cudaGetLastError();
 }
 
-// The write-back of one step after sgns_lifetime_launch counted it: the
-// live deltas into phi_in / phi_out, then the counts cleared.
-int sgns_writeback_launch(float* phi_in, float* phi_out, const int* walk_ids,
-                          const int* neg_ids, const float* d_ctx, const float* d_out,
-                          const float* d_neg, float* cnt_in, float* cnt_out, int L, int W,
-                          int T, int D, int K, int per_rep, long long rep_rows, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// The write-back's first launch: the 2 L W T + L T K keys of one step into
+// `keys` and the dead negatives into `dead`, for a matrix of `rows` stacked
+// rows (phi_out's keys are offset by rows, so 2 rows must stay below
+// 2^31 - 1).
+int sgns_wb_keys_launch(const int* walk_ids, const int* neg_ids, int* keys, unsigned char* dead,
+                        long long* segs, int L, int W, int T, int K, int per_rep,
+                        long long rep_rows, long long rows, void* stream) {
   const long long n_walk = (long long)L * W * T, n_neg = (long long)L * T * K;
-  const long long rows = 2 * n_walk + n_neg;
-  sgns_writeback_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      phi_in, phi_out, walk_ids, neg_ids, d_ctx, d_out, d_neg, cnt_in, cnt_out, n_walk, n_neg,
-      W, T, K, D, per_rep, rep_rows);
+  sgns_wb_keys_kernel<<<(unsigned)((2 * n_walk + n_neg + 255) / 256), 256, 0,
+                        (cudaStream_t)stream>>>(walk_ids, neg_ids, keys, dead, segs, n_walk, n_neg,
+                                                W, T, K, per_rep, rep_rows, rows);
+  return (int)cudaGetLastError();
+}
+
+// The long-segment list's capacity for a step of L lifetimes: segs holds
+// its count, then (start, end) pairs.
+long long sgns_wb_segs_len(int L, int W, int T, int K) {
+  return 1 + 2 * ((2LL * L * W * T + (long long)L * T * K) / (kWbShort + 1) + 1);
+}
+
+// The write-back's last launches, after the keys were sorted stably into
+// `sorted` with each one's slot in `slot_of`: the live deltas into phi_in
+// and phi_out, short segments a warp each, then long ones a CTA each.
+int sgns_wb_segments_launch(float* phi_in, float* phi_out, const int* sorted,
+                            const long long* slot_of, const unsigned char* dead,
+                            const float* d_ctx, const float* d_out, const float* d_neg,
+                            long long* segs, int L, int W, int T, int D, int K, long long rows,
+                            void* stream) {
+  const long long n_walk = (long long)L * W * T, n_neg = (long long)L * T * K;
+  const long long n = 2 * n_walk + n_neg;
+  cudaStream_t s = (cudaStream_t)stream;
+  sgns_wb_segments_kernel<<<(unsigned)((n * kGroup + 255) / 256), 256, 0, s>>>(
+      phi_in, phi_out, sorted, slot_of, dead, d_ctx, d_out, d_neg, segs, n_walk, n_neg, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sgns_clear_kernel<<<(unsigned)((n_walk + n_neg + 255) / 256), 256, 0, s>>>(
-      cnt_in, cnt_out, walk_ids, neg_ids, n_walk, n_neg, W, T, K, per_rep, rep_rows);
+  sgns_wb_long_kernel<<<kLongCtas, kLongThreads, (size_t)kLongRows * D * 4, s>>>(
+      phi_in, phi_out, sorted, slot_of, dead, d_ctx, d_out, d_neg, segs, n_walk, D, rows);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@ versions (``ref.py``); tensors on the card go to the CUDA kernels
 the card to the plain version. One kernel serves both: it reads rows by
 id, and the buffer interface hands it identity ids into the buffers.
 
-``LAUNCHES`` counts launches of the lifetime kernel, so that a run can
-show it went through the kernel; a CUDA graph that replays C steps adds C
-(``core.dsgl.ChunkGraphs``).
+``LAUNCHES`` counts launches of the lifetime kernel and ``WRITEBACKS``
+launches of the write-back, so that a run can show it went through both;
+a CUDA graph that replays C steps adds C to each (``core.dsgl.ChunkGraphs``).
+The write-back adds each row's deltas in the reference's slot order, so a
+step is bit-for-bit repeatable on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -28,6 +30,7 @@ from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.sgns import ref
 
 LAUNCHES = 0
+WRITEBACKS = 0
 SMEM_LIMIT = 232_448     # bytes of shared memory one Hopper block may use
 
 
@@ -35,11 +38,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sgns_init.argtypes = []
     lib.sgns_init.restype = i32
-    lib.sgns_lifetime_launch.argtypes = ([ptr] * 5 + [i64, i32] + [ptr] * 7
+    lib.sgns_lifetime_launch.argtypes = ([ptr] * 5 + [i64, i32] + [ptr] * 5
                                          + [i32] * 6 + [ptr])
     lib.sgns_lifetime_launch.restype = i32
-    lib.sgns_writeback_launch.argtypes = [ptr] * 9 + [i32] * 6 + [i64, ptr]
-    lib.sgns_writeback_launch.restype = i32
+    lib.sgns_wb_keys_launch.argtypes = [ptr] * 5 + [i32] * 5 + [i64, i64, ptr]
+    lib.sgns_wb_keys_launch.restype = i32
+    lib.sgns_wb_segs_len.argtypes = [i32] * 4
+    lib.sgns_wb_segs_len.restype = i64
+    lib.sgns_wb_segments_launch.argtypes = [ptr] * 9 + [i32] * 5 + [i64, ptr]
+    lib.sgns_wb_segments_launch.restype = i32
     lib.sgns_lifetime_smem_bytes.argtypes = [i32] * 5
     lib.sgns_lifetime_smem_bytes.restype = ctypes.c_size_t
     for name in ("sgns_lifetime_max_cols", "sgns_lifetime_max_ring",
@@ -62,32 +69,31 @@ LIBRARY = CudaLibrary("sgns_lifetime",
 @dataclasses.dataclass
 class StepScratch:
     """Where the lifetime kernel writes one step's deltas (live slots only)
-    and per-lifetime losses."""
+    and per-lifetime losses, and where the write-back sorts its keys: one
+    per slot, S G W T context slots, then as many target slots, then
+    S G T K negative slots. Made on the card (the long-segment list's
+    length comes from the kernel library)."""
 
     d_ctx: torch.Tensor   # (S, G, W, T, d)
     d_out: torch.Tensor   # (S, G, W, T, d)
     d_neg: torch.Tensor   # (S, G, T, K, d)
     loss: torch.Tensor    # (S * G,)
+    keys: torch.Tensor    # (2 S G W T + S G T K,) int32
+    sorted: torch.Tensor  # the keys, sorted stably
+    slot_of: torch.Tensor  # int64: the slot of each sorted key
+    dead: torch.Tensor    # (S G T K,) uint8: a negative at a position with no token
+    segs: torch.Tensor    # int64: the long segments' count, then (start, end) pairs
 
     @classmethod
     def empty(cls, walks_shape, negatives: int, dim: int, device) -> "StepScratch":
         s, g, w, t = walks_shape
         f = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
-        return cls(f(s, g, w, t, dim), f(s, g, w, t, dim), f(s, g, t, negatives, dim), f(s * g))
-
-
-_COUNTS: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def count_buffers(device, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The write-back's duplicate counts for ``rows`` rows of phi_in and of
-    phi_out: zero between steps (each step clears what it counted), made
-    once per device and size, so a captured graph may hold them."""
-    key = (torch.device(device), int(rows))
-    if key not in _COUNTS:
-        _COUNTS[key] = (torch.zeros(rows, dtype=torch.float32, device=device),
-                        torch.zeros(rows, dtype=torch.float32, device=device))
-    return _COUNTS[key]
+        n_keys = 2 * s * g * w * t + s * g * t * negatives
+        i = lambda dtype, n=n_keys: torch.empty(n, dtype=dtype, device=device)
+        segs = LIBRARY.load().sgns_wb_segs_len(s * g, w, t, negatives)
+        return cls(f(s, g, w, t, dim), f(s, g, w, t, dim), f(s, g, t, negatives, dim), f(s * g),
+                   i(torch.int32), i(torch.int32), i(torch.int64),
+                   i(torch.uint8, s * g * t * negatives), i(torch.int64, segs))
 
 
 def _check_kernel_shape(lib, w_cnt: int, t_len: int, dim: int, k: int, window: int,
@@ -115,8 +121,7 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _lifetimes(lib, ctx_src, out_src, neg_src, walk_ids, neg_ids, rep_rows: int,
-               per_rep: int, scratch: StepScratch, counts, lr: torch.Tensor,
-               window: int) -> None:
+               per_rep: int, scratch: StepScratch, lr: torch.Tensor, window: int) -> None:
     """One launch of the lifetime kernel over every lifetime of walk_ids."""
     global LAUNCHES
     w_cnt, t_len = walk_ids.shape[-2:]
@@ -126,15 +131,11 @@ def _lifetimes(lib, ctx_src, out_src, neg_src, walk_ids, neg_ids, rep_rows: int,
     if n_life == 0:
         scratch.loss.zero_()
         return
-    cnt_in, cnt_out = counts if counts is not None else (None, None)
     err = lib.sgns_lifetime_launch(
         ctx_src.data_ptr(), out_src.data_ptr(), neg_src.data_ptr(),
         walk_ids.data_ptr(), neg_ids.data_ptr(), rep_rows, per_rep,
         scratch.d_ctx.data_ptr(), scratch.d_out.data_ptr(), scratch.d_neg.data_ptr(),
-        scratch.loss.data_ptr(),
-        None if cnt_in is None else cnt_in.data_ptr(),
-        None if cnt_out is None else cnt_out.data_ptr(),
-        lr.data_ptr(), n_life, w_cnt, t_len, dim, k, window,
+        scratch.loss.data_ptr(), lr.data_ptr(), n_life, w_cnt, t_len, dim, k, window,
         torch.cuda.current_stream(ctx_src.device).cuda_stream)
     _raise_on(lib, err, "sgns_lifetime kernel")
     LAUNCHES += 1
@@ -188,42 +189,54 @@ def _check_step_args(phi_in, phi_out, walks, negs, lr, window: int, what: str):
 
 def launch_step(phi_in, phi_out, walks, negs, lr, window: int, scratch: StepScratch) -> None:
     """The step's kernels on the card, on the current stream: the lifetime
-    kernel (which also counts duplicates), then the write-back. Per-lifetime
-    losses land in ``scratch.loss``. Issues no host synchronisation, so a
-    CUDA graph can capture it."""
+    kernel, then the write-back. Per-lifetime losses land in
+    ``scratch.loss``. Issues no host synchronisation and keeps no state
+    between steps, so a CUDA graph can capture it and a step that fails
+    leaves nothing for the next."""
     lib = _check_step_args(phi_in, phi_out, walks, negs, lr, window, "sgns_step")
+    with torch.cuda.device(phi_in.device):
+        _lifetimes(lib, phi_in, phi_out, phi_out, walks, negs, phi_in.shape[1], walks.shape[1],
+                   scratch, lr, window)
+        write_back(phi_in, phi_out, walks, negs, scratch)
+
+
+def write_back(phi_in, phi_out, walks, negs, scratch: StepScratch) -> None:
+    """The step's write-back on the card, on the current stream: each live
+    slot's delta in ``scratch`` (as the lifetime kernel leaves them) into
+    phi_in / phi_out, duplicates averaged, each row's deltas added in the
+    reference's slot order (``ref.write_back_ref`` is the plain version).
+    The slots' keys, their stable sort (a library sort), then the row
+    segments (short ones eight lanes each, long ones a CTA each);
+    ``WRITEBACKS`` counts the write-backs."""
+    global WRITEBACKS
     s_cnt, n_rows, dim = phi_in.shape
     _, g_cnt, w_cnt, t_len = walks.shape
     k = negs.shape[-1]
-    dev = phi_in.device
-    counts = count_buffers(dev, s_cnt * n_rows)
-    try:
-        with torch.cuda.device(dev):
-            _lifetimes(lib, phi_in, phi_out, phi_out, walks, negs, n_rows, g_cnt, scratch,
-                       counts, lr, window)
-            if s_cnt * g_cnt:
-                err = lib.sgns_writeback_launch(
-                    phi_in.data_ptr(), phi_out.data_ptr(), walks.data_ptr(),
-                    negs.data_ptr(), scratch.d_ctx.data_ptr(), scratch.d_out.data_ptr(),
-                    scratch.d_neg.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
-                    s_cnt * g_cnt, w_cnt, t_len, dim, k, g_cnt, n_rows,
-                    torch.cuda.current_stream(dev).cuda_stream)
-                _raise_on(lib, err, "sgns write-back")
-    except BaseException:
-        # The lifetime kernel may have counted what no clear will uncount:
-        # zero the counts, or every later step divides by stale ones. (A
-        # failed capture ran nothing.)
-        with torch.cuda.device(dev):
-            if not torch.cuda.is_current_stream_capturing():
-                for c in counts:
-                    c.zero_()
-        raise
+    n_life, rows = s_cnt * g_cnt, s_cnt * n_rows
+    if n_life == 0:
+        return
+    if 2 * rows >= 2**31 - 1:
+        raise ValueError(f"write-back: {s_cnt} x {n_rows} rows exceed its int32 keys")
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(phi_in.device).cuda_stream
+    with torch.cuda.device(phi_in.device):
+        _raise_on(lib, lib.sgns_wb_keys_launch(
+            walks.data_ptr(), negs.data_ptr(), scratch.keys.data_ptr(), scratch.dead.data_ptr(),
+            scratch.segs.data_ptr(), n_life, w_cnt, t_len, k, g_cnt, n_rows, rows, stream),
+            "sgns write-back keys")
+        torch.sort(scratch.keys, stable=True, out=(scratch.sorted, scratch.slot_of))
+        _raise_on(lib, lib.sgns_wb_segments_launch(
+            phi_in.data_ptr(), phi_out.data_ptr(), scratch.sorted.data_ptr(),
+            scratch.slot_of.data_ptr(), scratch.dead.data_ptr(), scratch.d_ctx.data_ptr(),
+            scratch.d_out.data_ptr(), scratch.d_neg.data_ptr(), scratch.segs.data_ptr(), n_life,
+            w_cnt, t_len, dim, k, rows, stream), "sgns write-back")
+    WRITEBACKS += 1
 
 
 def lifetime_deltas(phi_in, phi_out, walks, negs, lr, window: int,
                     scratch: StepScratch = None) -> StepScratch:
-    """The lifetime kernel alone on rows of phi gathered by id (no counts,
-    phi unchanged): each live slot's delta and each lifetime's loss, the
+    """The lifetime kernel alone on rows of phi gathered by id (phi
+    unchanged): each live slot's delta and each lifetime's loss, the
     function ``ref.lifetime_deltas_ref`` computes, which gives every slot a
     delta, zero where the slot is dead. Without ``scratch``, a zeroed one is
     made; a given one keeps what its dead slots hold. For checks and
@@ -236,7 +249,7 @@ def lifetime_deltas(phi_in, phi_out, walks, negs, lr, window: int,
             t.zero_()
     with torch.cuda.device(phi_in.device):
         _lifetimes(lib, phi_in, phi_out, phi_out, walks, negs, phi_in.shape[1],
-                   walks.shape[1], scratch, None, lr, window)
+                   walks.shape[1], scratch, lr, window)
     return scratch
 
 
@@ -288,6 +301,6 @@ def _launch(ctx, out, neg, valid, lr: float, window: int):
     lr_t = torch.full((1,), lr, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _lifetimes(lib, ctx.view(-1, dim), out.view(-1, dim), neg.view(-1, dim), walk_ids,
-                   neg_ids, 0, max(g_cnt, 1), scratch, None, lr_t, window)
+                   neg_ids, 0, max(g_cnt, 1), scratch, lr_t, window)
     return (ctx + scratch.d_ctx[0], out + scratch.d_out[0], neg + scratch.d_neg[0],
             scratch.loss)

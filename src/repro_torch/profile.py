@@ -2,7 +2,9 @@
 
 Runs the embedding path's two phases on one GPU — the first 40 walk
 supersteps of round 0 and 100 DSGL training steps over round 0's walks,
-as ``embed_graph(PAPER_EMBED)`` runs them on the yt-sim R-MAT preset —
+as ``embed_graph(PAPER_EMBED, num_shards=2)`` runs them on the yt-sim
+R-MAT preset (two replicas, a hotness sync at the step-50 boundary; the
+MPGP partition steers nothing on the dense walk engine, so it is skipped) —
 and the LM serving paths' two each — one prefill of 4 prompts of 2,048
 tokens and 10 decode steps after it, qwen3-1.7b and then zamba2-7b at
 full width over a 4,096-position cache, as ``chip_smoke.py``'s server
@@ -15,10 +17,13 @@ time per step between CUDA events around the plain run, the device-busy
 time per step (the sum of the kernels' times in the trace, which records
 the kernels a graph replays), their ratio, the kernel launches per step,
 the kernels that take the most device time and the share of the port's
-own kernels (K1 ``sgns_lifetime`` and its write-back, K2 ``flash``, K3
+own kernels (K1 ``sgns_lifetime`` and its write-back: its keys, the
+library's radix sort and the short and long row segments; K2 ``flash``; K3
 ``ssd_chunk_state`` and ``ssd_chunk_out``) in the device time.
 
-    PYTHONPATH=src python3 -m repro_torch.profile
+    PYTHONPATH=src python3 -m repro_torch.profile [embed]
+
+With ``embed`` it profiles the embedding path only.
 
 It needs a CUDA device.
 """
@@ -37,8 +42,10 @@ LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
 # Substrings of the port's kernel names: "flash_kernel" matches both of
 # K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16); K3 is two
 # launches, its states (with C B^T) and its output.
-OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_writeback_kernel", "sgns_clear_kernel",
-               "flash_kernel", "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
+OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
+               "sgns_wb_segments_kernel", "sgns_wb_long_kernel", "flash_kernel",
+               "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
+SHARDS = 2
 
 
 def _device_us(evt) -> float:
@@ -88,7 +95,7 @@ def profile_window(torch, label: str, fn, count: int, warmup: bool = False) -> N
                   f"{us / busy_us * 100:.2f}% of the device-busy time", flush=True)
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -114,7 +121,7 @@ def main() -> int:
         graph, policy, spec, rounds,
         DSGLConfig(dim=cfg.dim, window=cfg.window, negatives=cfg.negatives,
                    epochs=cfg.epochs, lr=cfg.lr, multi_windows=cfg.multi_windows,
-                   seed=cfg.seed))
+                   seed=cfg.seed), num_shards=SHARDS)
     print(f"[setup] {preset.name}: |V|={graph.num_nodes} Cm {pipe.cm_seconds:.3f} s", flush=True)
 
     # Walks: the first supersteps of round 0, all lanes busy.
@@ -136,8 +143,11 @@ def main() -> int:
     profile_window(torch, "train",
                    lambda: pipe._train_slots(0, n, ocn, STEPS, table=table),
                    STEPS, warmup=True)
+    print(f"[train] {pipe.syncs} hotness syncs in the windows", flush=True)
     del pipe, graph, table
     torch.cuda.empty_cache()
+    if "embed" in argv:
+        return 0
     for arch in LM_ARCHS:
         lm_windows(torch, dev, arch)
         torch.cuda.empty_cache()
@@ -172,4 +182,4 @@ def lm_windows(torch, dev, arch: str) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

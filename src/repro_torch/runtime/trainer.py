@@ -1,4 +1,6 @@
-"""The fused walk -> train pipeline (``StreamingEmbedPipeline``).
+"""The embedding trainers: the fused walk -> train pipeline
+(``StreamingEmbedPipeline``) and the two-phase trainer over a materialized
+corpus (``DSGLTrainer``).
 
 Walk rounds append into a device-resident ``CorpusRing``; DSGL training
 consumes ring slots through one device gather per chunk of lifetimes, so
@@ -19,22 +21,31 @@ Every source of randomness is keyed off the run's state: round keys are
 fold_in(key_walk, r), chunk keys fold_in(key_train, global_step), so a run
 is a pure function of the graph and the configuration.
 
-This slice runs one replica (``num_shards=1``): the MPGP partition, the
-sharded walk engine and the hotness-block sync come with ``num_shards > 1``.
+With ``num_shards`` = S > 1 (the paper's distributed regime) DSGL trains
+S replicas of the embedding matrices, each on its own ring slots, and a
+chunk that crosses a ``sync_period`` boundary of global steps ends with the
+hotness-block sync (Improvement-III); ``embeddings()`` is the replica mean.
+The MPGP assignment is stored with the walk shard count, but the walks run
+on the dense engine: the partition-sharded engine draws the same walks
+(the reference's DESIGN.md §9), and it is not ported yet, so the
+partition steers nothing here and the walk statistics carry no message
+counts.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core.corpus import Corpus, CorpusRing, ring_append, ring_to_numpy
+from repro_torch.core.corpus import (Corpus, CorpusRing, FrequencyOrder, ring_append,
+                                     ring_to_numpy)
 from repro_torch.core.dsgl import ChunkGraphs, build_alias_table, init_embeddings, train_chunk
 from repro_torch.core.info import relative_entropy_dpq
+from repro_torch.core.sync import replica_mean, sample_hotness_rows
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.walker import MAX_LANES, LaneKeys, WalkerBatchState, run_walk_batch
 from repro_torch.data.pipeline import ring_chunk_indices
@@ -44,11 +55,7 @@ class StreamingEmbedPipeline:
     """walks -> device corpus ring -> DSGL, on one device."""
 
     def __init__(self, graph, policy, spec, rounds_cfg: Dict, dsgl_cfg, *,
-                 num_shards: int = 1):
-        if num_shards != 1:
-            raise NotImplementedError(
-                "num_shards > 1 (MPGP partition, sharded walks, hotness sync) "
-                "is not ported yet")
+                 assignment: Optional[np.ndarray] = None, num_shards: int = 1):
         self.cm_seconds = 0.0
         if getattr(policy, "needs_edge_cm", False) and graph.edge_cm is None:
             t0 = time.perf_counter()
@@ -61,7 +68,12 @@ class StreamingEmbedPipeline:
         self.policy = policy
         self.spec = spec
         self.cfg = dsgl_cfg
-        self.num_shards = num_shards
+        self.num_shards = max(num_shards, 1)
+        # The walk shard count starts at the replica count; the two are
+        # independent (the reference's elastic path changes the first only).
+        self.walk_shards = self.num_shards
+        self.assignment = (None if assignment is None
+                           else np.asarray(assignment, dtype=np.int32))
         self.controller = WalkCountController(**rounds_cfg)
         self.degrees = graph.degrees().cpu().numpy()
 
@@ -83,10 +95,12 @@ class StreamingEmbedPipeline:
                             * self.steps_per_round)
         self.global_step = 0
         self.chunks = 0                          # training chunks run
+        self.syncs = 0                           # chunks that ended with a hotness sync
+        self.sync_bytes = 0.0                    # the reference's byte count of those syncs
         self._graphs = ChunkGraphs() if self.device.type == "cuda" else None
 
         key = prng.PRNGKey(dsgl_cfg.seed)
-        self.key_walk, self.key_train, *rep_keys = prng.split(key, 2 + num_shards)
+        self.key_walk, self.key_train, *rep_keys = prng.split(key, 2 + self.num_shards)
         reps = [init_embeddings(n, dsgl_cfg.dim, k, self.device) for k in rep_keys]
         self.phi_in = torch.stack([r[0] for r in reps])      # (S, N, d)
         self.phi_out = torch.stack([r[1] for r in reps])
@@ -98,9 +112,15 @@ class StreamingEmbedPipeline:
 
     def adopt_state(self, state: Dict[str, Any]) -> None:
         """Continue from imported state (``convert.from_reference_state``):
-        the replica matrices, the ring and both RNG keys."""
+        the (S, N, d) replica matrices, the ring, both RNG keys and the
+        MPGP assignment, when the state has one."""
+        if state["phi_in"].shape[0] != self.num_shards:
+            raise ValueError(f"state has {state['phi_in'].shape[0]} replicas, the pipeline "
+                             f"{self.num_shards}")
         self.phi_in = state["phi_in"].to(self.device)
         self.phi_out = state["phi_out"].to(self.device)
+        if state.get("assignment") is not None:
+            self.assignment = np.asarray(state["assignment"], dtype=np.int32)
         self.ring = state["ring"]
         self.key_walk, self.key_train = state["key_walk"], state["key_train"]
         if self._graphs is not None:              # the graphs hold the old phi
@@ -136,25 +156,50 @@ class StreamingEmbedPipeline:
                           self.cfg.min_lr).astype(np.float32)
 
     def _train_slots(self, base: int, pool: int, ocn_host: np.ndarray,
-                     steps: int, table=None) -> None:
-        """Train ``steps`` lifetime batches over ring slots [base, base+pool)."""
+                     steps: int, table=None, order=None) -> None:
+        """Train ``steps`` lifetime batches over ring slots [base, base+pool).
+
+        ``table``/``order`` let the schedule tail, whose ocn is frozen, build
+        the alias table and the frequency order once. With S > 1 replicas,
+        the hotness rows of the syncs of this call come from one generator
+        seeded by the call's first global step, as the reference's do."""
         cfg = self.cfg
         if table is None:
             table = build_alias_table(ocn_host, cfg.neg_power, self.device)
+        replicated = self.num_shards > 1
+        rng = np.random.default_rng(cfg.seed * 9176 + self.global_step)
+        if order is None and replicated:
+            order = FrequencyOrder.from_ocn(ocn_host)
+        blocks = None
         chunk = max(min(cfg.sync_period, steps), 1)
         train = self._graphs.train_chunk if self._graphs is not None else train_chunk
         done = 0
         while done < steps:
             count = min(chunk, steps - done)
+            # One hotness exchange per sync_period global steps (not per
+            # chunk): a chunk that crosses a period boundary ends with one.
+            sync_now = replicated and (self.global_step // cfg.sync_period
+                                       != (self.global_step + count) // cfg.sync_period)
             idx = ring_chunk_indices(
                 prng.fold_in(self.key_train, self.global_step), base, pool,
                 count, self.num_shards, cfg.batch_groups, cfg.multi_windows,
                 self.device)
             walks = self.ring.walks[idx]                   # (C,S,G,W,T) gather
+            rows = None
+            if sync_now:
+                if blocks is None:
+                    blocks = order.hotness_blocks()
+                rows_rank = sample_hotness_rows(*blocks, rng)
+                rows = torch.from_numpy(order.to_node[rows_rank].astype(np.int64))
+                if self.device.type == "cuda":    # no wait for the queued chunks
+                    rows = rows.pin_memory().to(self.device, non_blocking=True)
+                self.syncs += 1
+                self.sync_bytes += float(rows.numel() * cfg.dim * 4 * self.num_shards * 2)
             key = prng.fold_in(self.key_train,
                                2 * self.total_steps + self.global_step)
             train(self.phi_in, self.phi_out, walks, table, key,
-                  self._lrs(count), cfg.window, cfg.negatives)
+                  self._lrs(count), cfg.window, cfg.negatives,
+                  sync_rows=rows, sync=sync_now)
             self.global_step += count
             self.chunks += 1
             done += count
@@ -194,14 +239,16 @@ class StreamingEmbedPipeline:
             r += 1
 
         # Tail: re-consume the filled ring until the a-priori lr schedule
-        # ends. ocn is frozen now, so one alias table serves every call.
+        # ends. ocn is frozen now, so one alias table and one frequency
+        # order serve every call.
         ocn_host = self.ring.ocn.cpu().numpy()
         filled = self.ring.num_filled
         table = build_alias_table(ocn_host, self.cfg.neg_power, self.device)
+        order = FrequencyOrder.from_ocn(ocn_host) if self.num_shards > 1 else None
         while self.global_step < self.total_steps:
             self._train(0, filled, ocn_host,
                         min(self.steps_per_round,
-                            self.total_steps - self.global_step), table=table)
+                            self.total_steps - self.global_step), table=table, order=order)
 
         phi_in, phi_out = self.embeddings()
         return {
@@ -209,6 +256,8 @@ class StreamingEmbedPipeline:
             "rounds": self.controller.rounds,
             "steps": self.global_step,
             "chunks": self.chunks,
+            "syncs": self.syncs,
+            "sync_bytes": self.sync_bytes,
             "ring": self.ring,
             "stats": self.stats(),
             "cm_s": self.cm_seconds,
@@ -234,5 +283,105 @@ class StreamingEmbedPipeline:
                       rounds=self.controller.rounds, stats=stats)
 
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Current (phi_in, phi_out) in node space (the one replica)."""
+        """Current (phi_in, phi_out) in node space, replica-averaged."""
+        if self.num_shards > 1:
+            return replica_mean(self.phi_in), replica_mean(self.phi_out)
+        return self.phi_in[0], self.phi_out[0]
+
+
+class DSGLTrainer:
+    """Chunked, prefetched loop of ``core.dsgl.train_chunk`` over a
+    materialized corpus in rank space.
+
+    Host side: one ``WalkCorpusStream`` per shard replica; a ``Prefetcher``
+    thread stacks the next (C, S, G, W, T) chunk while the device trains the
+    current one. Device side: the stacked replica matrices stay resident;
+    per chunk there is one walk upload, C fused steps (negatives drawn on
+    the device from the alias table; on the card one CUDA graph replay) and,
+    with S > 1 replicas, one hotness-row exchange. The chunk schedule, the
+    chunk keys and the hotness rows are the reference's."""
+
+    def __init__(self, walks_rank: np.ndarray, order, cfg, *, num_shards: int = 1,
+                 prefetch_depth: int = 2, device="cuda"):
+        from repro_torch.data.pipeline import WalkCorpusStream
+        from repro_torch.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.num_shards = num_shards
+        self.order = order
+        self.chunk = max(cfg.sync_period, 1)
+        self.streams = [
+            WalkCorpusStream(walks=walks_rank, group_size=cfg.batch_groups,
+                             multi_windows=cfg.multi_windows, seed=cfg.seed,
+                             shard_id=s, num_shards=num_shards)
+            for s in range(num_shards)]
+        self.starts, self.ends = order.hotness_blocks()
+        self.neg_table = build_alias_table(order.sorted_ocn, cfg.neg_power, self.device)
+        self.prefetch_depth = prefetch_depth
+        n = len(order.to_rank)
+        self.key, *rep_keys = prng.split(prng.PRNGKey(cfg.seed), num_shards + 1)
+        reps = [init_embeddings(n, cfg.dim, k, self.device) for k in rep_keys]
+        self.phi_in = torch.stack([r[0] for r in reps])
+        self.phi_out = torch.stack([r[1] for r in reps])
+        self._graphs = ChunkGraphs() if self.device.type == "cuda" else None
+
+    def steps_per_epoch(self) -> int:
+        return min(s.steps_per_epoch() for s in self.streams)
+
+    def _lrs(self, global_step: int, count: int, total: int) -> np.ndarray:
+        fracs = (global_step + np.arange(count)) / max(total, 1)
+        return np.maximum(self.cfg.lr * (1.0 - fracs), self.cfg.min_lr).astype(np.float32)
+
+    def run(self) -> Dict[str, Any]:
+        from repro_torch.data.pipeline import Prefetcher, stacked_shard_chunk
+
+        cfg = self.cfg
+        spe = self.steps_per_epoch()
+        total = cfg.epochs * spe
+        rng = np.random.default_rng(cfg.seed)
+        # Chunks end at epoch boundaries: each epoch is its own shuffle.
+        schedule = [(epoch, step0, min(step0 + self.chunk, spe) - step0)
+                    for epoch in range(cfg.epochs) for step0 in range(0, spe, self.chunk)]
+
+        def fetch(chunk_idx: int) -> np.ndarray:
+            epoch, step0, count = schedule[chunk_idx % len(schedule)]
+            return stacked_shard_chunk(self.streams, epoch, step0, count)
+
+        train = self._graphs.train_chunk if self._graphs is not None else train_chunk
+        prefetcher = Prefetcher(fetch, depth=self.prefetch_depth)
+        losses: list = []
+        t0 = time.perf_counter()
+        sync_bytes = 0.0
+        do_sync = self.num_shards > 1
+        try:
+            for epoch, step0, count in schedule:
+                _, chunk_np = prefetcher.next()
+                wb = torch.from_numpy(chunk_np).to(self.device)
+                rows = (torch.from_numpy(sample_hotness_rows(self.starts, self.ends, rng))
+                        if do_sync else None)
+                self.key, sub = prng.split(self.key)
+                losses.append(train(self.phi_in, self.phi_out, wb, self.neg_table, sub,
+                                    self._lrs(epoch * spe + step0, count, total),
+                                    cfg.window, cfg.negatives, sync_rows=rows,
+                                    sync=do_sync))
+                if do_sync:
+                    sync_bytes += float(rows.numel() * cfg.dim * 4 * self.num_shards * 2)
+        finally:
+            prefetcher.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        return {
+            "steps": total,
+            "steps_per_s": total / max(wall, 1e-9),
+            "loss": [float(v) for l in losses for v in l.reshape(-1).tolist()],
+            "sync_bytes": sync_bytes,
+            "wall_s": wall,
+        }
+
+    def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(phi_in, phi_out) in rank space, replica-averaged."""
+        if self.num_shards > 1:
+            return replica_mean(self.phi_in), replica_mean(self.phi_out)
         return self.phi_in[0], self.phi_out[0]

@@ -53,11 +53,97 @@ def test_embed_graph_auc_matches_reference(medium_graph, lr, auc_floor):
         assert auc > auc_floor, auc
 
 
-def test_num_shards_above_one_is_not_ported(small_graph):
+RECIPE = dict(dim=32, epochs=1, lr=0.05, delta=1e-4, max_len=40, min_len=10, window=6,
+              negatives=4)
+
+
+def test_embed_graph_recipe_at_two_shards(medium_graph):
+    """tests/test_e2e.py's recipe as written (k = 2, lr 0.05), both packages,
+    one scorer: the port's replica mean above 0.8 and within 0.02 of the
+    reference's; the MPGP partition and the syncs are the reference's."""
+    from repro.core.mpgp import mpgp_partition as jax_mpgp_partition
+
+    ref_in, _ = jax_embed_graph(medium_graph, JaxEmbedConfig(**RECIPE), num_shards=2)
+    graph = rmat_graph(1024, 10, seed=3, device="cpu")
+    phi_in, phi_out, stats = embed_graph(graph, EmbedConfig(**RECIPE), num_shards=2,
+                                         return_stats=True, device="cpu")
+    assert phi_in.shape == (1024, 32) and torch.isfinite(phi_in).all()
+    assert torch.isfinite(phi_out).all()
+    part = jax_mpgp_partition(medium_graph, 2)
+    assert stats["part_counts"] == part.counts().tolist()
+    assert (stats["locality"], stats["balance"]) == (part.locality, part.balance)
+    steps = 20 * (1024 // 2 // 128)
+    assert stats["steps"] == steps and stats["syncs"] == steps // 50
+    auc_ref = link_prediction_auc(graph, np.asarray(ref_in), np.random.default_rng(0))
+    auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0))
+    print(f"k=2 lr 0.05: AUC port {auc:.6f}, reference {auc_ref:.6f}")
+    assert auc > 0.8, auc
+    assert abs(auc - auc_ref) <= 0.02, (auc, auc_ref)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2])
+def test_two_phase_path_matches_reference(medium_graph, num_shards):
+    """``streaming=False``: the whole corpus, then ``train_dsgl`` in rank
+    space, both packages: AUC within 0.02."""
+    kw = dict(RECIPE, delta=1e-3)                # fewer walk rounds than the recipe's
+    ref_in, _ = jax_embed_graph(medium_graph, JaxEmbedConfig(**kw), num_shards=num_shards,
+                                streaming=False)
+    graph = rmat_graph(1024, 10, seed=3, device="cpu")
+    phi_in, phi_out, corpus = embed_graph(graph, EmbedConfig(**kw), num_shards=num_shards,
+                                          streaming=False, return_corpus=True, device="cpu")
+    assert phi_in.shape == (1024, 32) and torch.isfinite(phi_in).all()
+    assert torch.isfinite(phi_out).all() and corpus.num_walks == corpus.rounds * 1024
+    auc_ref = link_prediction_auc(graph, np.asarray(ref_in), np.random.default_rng(0))
+    auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0))
+    print(f"two-phase k={num_shards}: AUC port {auc:.6f}, reference {auc_ref:.6f}")
+    assert abs(auc - auc_ref) <= 0.02, (auc, auc_ref)
+    with pytest.raises(ValueError, match="streaming"):
+        embed_graph(graph, EmbedConfig(**RECIPE), streaming=False, return_stats=True,
+                    device="cpu")
+
+
+@pytest.mark.parametrize("partitioner", ["mpgp_partition", "hash_partition"])
+@pytest.mark.parametrize("method,p,q", [("deepwalk", 1.0, 1.0), ("node2vec", 2.0, 0.5)])
+def test_fixed_mode_walks_at_two_shards_equal_sharded_engine(small_graph, method, p, q,
+                                                            partitioner):
+    """The port's dense engine draws what the reference's partition-sharded
+    engine draws under a 2-way assignment, bit for bit: MPGP's (which keeps
+    this graph's one component on one shard, so no walk crosses) and the
+    hash partition's (whose walks cross shards at most steps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.transition import make_policy as jax_make_policy
+    from repro.core.walker import WalkSpec as JaxWalkSpec
+    from repro.core.walker import run_walk_batch as jax_run_walk_batch
+    from repro_torch import prng
+    from repro_torch.core import mpgp
+    from repro_torch.core.transition import make_policy
+    from repro_torch.core.walker import LaneKeys, WalkSpec, run_walk_batch
+
     graph = rmat_graph(256, 8, seed=7, device="cpu")
-    with pytest.raises(NotImplementedError):
-        embed_graph(graph, EmbedConfig(dim=8, max_len=12, min_len=4),
-                    num_shards=2, device="cpu")
+    part = getattr(mpgp, partitioner)(graph, 2).assignment
+    kw = dict(max_len=24, info_mode="fixed", fixed_len=24, max_supersteps=0)
+    sources = np.arange(graph.num_nodes, dtype=np.int32)
+    ref = jax_run_walk_batch(small_graph, jnp.asarray(sources), jax.random.PRNGKey(5),
+                             jax_make_policy(method, p=p, q=q), JaxWalkSpec(**kw),
+                             jnp.asarray(part), num_shards=2)
+    got = run_walk_batch(graph, torch.as_tensor(sources, dtype=torch.int64),
+                         LaneKeys.of([prng.PRNGKey(5)], len(sources), len(sources), "cpu"),
+                         make_policy(method, p=p, q=q), WalkSpec(**kw))
+    assert (int(ref.msg_count) > 0) == (partitioner == "hash_partition")
+    np.testing.assert_array_equal(np.asarray(ref.path), got.path.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.info.L), got.info.L.numpy())
+    assert (int(ref.accepts), int(ref.rejects)) == (int(got.accepts), int(got.rejects))
+
+
+def test_torch_quickstart_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+                           "--device", "cpu", "--nodes", "300"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "hotness syncs" in proc.stdout and "nearest neighbors of node 0" in proc.stdout
 
 
 def test_cuda_request_raises_without_a_card():

@@ -176,6 +176,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,n,d,g,w,t,k,window", [(1, 5000, 128, 64, 2, 100, 5, 10),
+                                                  (2, 5000, 128, 64, 2, 100, 5, 10),
                                                   (2, 700, 96, 5, 2, 37, 5, 10),
                                                   (1, 900, 128, 7, 3, 23, 4, 5),
                                                   (1, 900, 128, 6, 2, 30, 14, 4)])
@@ -184,10 +185,10 @@ def test_cuda_step_matches_plain_version(cuda_device, s, n, d, g, w, t, k, windo
                                     _torch(*_step_inputs(s, n, d, g, w, t, k, seed=g)))
     lr = torch.tensor([0.025], device=cuda_device)
     want_in, want_out = phi_in.clone(), phi_out.clone()
-    before = ops.LAUNCHES
+    before = ops.LAUNCHES, ops.WRITEBACKS
     loss = ops.sgns_step(phi_in, phi_out, walks, negs, lr, window)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == before + 1
+    assert (ops.LAUNCHES, ops.WRITEBACKS) == (before[0] + 1, before[1] + 1)
     want_loss = ref.sgns_step_ref(want_in, want_out, walks, negs, lr, window)
     torch.testing.assert_close(phi_in, want_in, atol=TOL, rtol=TOL)
     torch.testing.assert_close(phi_out, want_out, atol=TOL, rtol=TOL)
@@ -255,8 +256,10 @@ def test_cuda_graph_keeps_its_scratch(cuda_device):
     graphs = dsgl.ChunkGraphs()
     graphs.train_chunk(graph_in, graph_out, chunk, table, (0, 1), lrs, window, k)
     torch.cuda.synchronize()
+    keys = 2 * s * g * w * t + s * g * t * k
     held = [torch.full(shape, 7.0, device=cuda_device)
-            for shape in ((s, g, w, t, d), (s, g, w, t, d), (s, g, t, k, d), (s * g,))]
+            for shape in ((s, g, w, t, d), (s, g, w, t, d), (s, g, t, k, d), (s * g,), (keys,),
+                          (2 * keys,))]
     graphs.train_chunk(graph_in, graph_out, chunk, table, (0, 2), lrs, window, k)
     for key in ((0, 1), (0, 2)):
         dsgl.train_chunk(phi_in, phi_out, chunk, table, key, lrs, window, k)
@@ -269,21 +272,103 @@ def test_cuda_graph_keeps_its_scratch(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_failed_step_leaves_counts_zero(cuda_device, monkeypatch):
-    """A step whose write-back fails to launch raises and leaves the shared
-    duplicate counts at zero, so later steps divide by their own counts."""
+    """A step whose write-back fails to launch raises and leaves nothing that
+    later steps read: phi untouched (the write-back keeps no duplicate
+    counts between steps; each step counts its own segments), and the next
+    step equals its plain version."""
     s, n, d, g, w, t, k, window = 1, 300, 128, 4, 2, 12, 3, 3
     args = [a.to(cuda_device) for a in _torch(*_step_inputs(s, n, d, g, w, t, k, seed=13))]
     lr = torch.tensor([0.025], device=cuda_device)
+    before = [a.clone() for a in args[:2]]
     lib = ops.LIBRARY.load()
-    monkeypatch.setattr(lib, "sgns_writeback_launch", lambda *a: 1)
+    monkeypatch.setattr(lib, "sgns_wb_segments_launch", lambda *a: 1)
     with pytest.raises(RuntimeError, match="write-back"):
         ops.sgns_step(*args, lr, window)
     monkeypatch.undo()
     torch.cuda.synchronize()
-    for c in ops.count_buffers(args[0].device, s * n):      # the step's own buffers
-        assert c.abs().sum().item() == 0
+    assert torch.equal(args[0], before[0]) and torch.equal(args[1], before[1])
     want = [a.clone() for a in args[:2]]
     ops.sgns_step(*args, lr, window)
     ref.sgns_step_ref(*want, *args[2:], lr, window)
     torch.testing.assert_close(args[0], want[0], atol=TOL, rtol=TOL)
     torch.testing.assert_close(args[1], want[1], atol=TOL, rtol=TOL)
+
+
+def _hub_chunk(device, s=2, n=3000, g=64, w=2, t=100, c=4, seed=21):
+    """A (C, S, G, W, T) chunk in which row 7 fills a third of the walk
+    slots (thousands per step) and row 8 a tenth of them."""
+    rng = np.random.default_rng(seed)
+    walks = rng.integers(0, n, (c, s, g, w, t)).astype(np.int32)
+    walks[rng.random(walks.shape) < 0.3] = 7
+    walks[rng.random(walks.shape) < 0.1] = 8
+    walks[rng.random(walks.shape) < 0.15] = -1
+    f = lambda: torch.from_numpy((rng.standard_normal((s, n, 128)) * 0.1).astype(np.float32))
+    table = dsgl.build_alias_table(np.where(np.arange(n) < 10, 5000, 3), 0.75, device)
+    return f().to(device), f().to(device), torch.from_numpy(walks).to(device), table
+
+
+@pytest.mark.cuda
+def test_cuda_step_and_chunk_are_bit_repeatable(cuda_device):
+    """The write-back adds in a fixed order: the same hub-heavy step, and
+    the same chunk replayed as a CUDA graph, from the same state give
+    bit-equal phi on every run, and the step equals its plain version."""
+    phi_in, phi_out, chunk, table = _hub_chunk(cuda_device)
+    lrs = np.asarray([0.05, 0.04, 0.03, 0.02], np.float32)
+    negs = dsgl.chunk_negatives(table, (0, 5), chunk.shape, 5)
+    lr = torch.tensor([0.05], device=cuda_device)
+    runs = []
+    for _ in range(3):
+        a, b = phi_in.clone(), phi_out.clone()
+        ops.sgns_step(a, b, chunk[0], negs[0], lr, 10)
+        runs.append((a, b))
+    want = [phi_in.clone(), phi_out.clone()]
+    ref.sgns_step_ref(*want, chunk[0], negs[0], lr, 10)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x[0], runs[0][0]) and torch.equal(x[1], runs[0][1]) for x in runs)
+    torch.testing.assert_close(runs[0][0], want[0], atol=TOL, rtol=TOL)
+    torch.testing.assert_close(runs[0][1], want[1], atol=TOL, rtol=TOL)
+    chunks = []
+    for _ in range(2):
+        a, b = phi_in.clone(), phi_out.clone()
+        graphs = dsgl.ChunkGraphs()
+        for key in ((0, 1), (0, 2)):
+            graphs.train_chunk(a, b, chunk, table, key, lrs, 10, 5)
+        chunks.append((a, b))
+    torch.cuda.synchronize()
+    assert torch.equal(chunks[0][0], chunks[1][0]) and torch.equal(chunks[0][1], chunks[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_sync_in_graph_equals_eager_sync(cuda_device):
+    """Two replicas through graph chunks, the first and third ending with
+    the hotness sync captured in their graph (five rows in a buffer of
+    eight): phi bit-equal to the same graph chunks with the sync run after
+    the replay, within 5e-4 of the eager chunks; the synced rows equal
+    across the replicas, the others not."""
+    from repro_torch.core.sync import hotness_sync_stacked
+
+    phi_in, phi_out, chunk, table = _hub_chunk(cuda_device, seed=22)
+    lrs = np.asarray([0.05, 0.04, 0.03, 0.02], np.float32)
+    rows = torch.tensor([7, 8, 11, 500, 2999], dtype=torch.int64)
+    plan = (((0, 1), True), ((0, 2), False), ((0, 3), True))
+    out = {}
+    for name in ("in_graph", "after", "eager"):
+        a, b = phi_in.clone(), phi_out.clone()
+        graphs = dsgl.ChunkGraphs()
+        for key, sync in plan:
+            if name == "eager":
+                dsgl.train_chunk(a, b, chunk, table, key, lrs, 10, 5, sync_rows=rows, sync=sync)
+            elif name == "in_graph":
+                graphs.train_chunk(a, b, chunk, table, key, lrs, 10, 5, sync_rows=rows, sync=sync)
+            else:
+                graphs.train_chunk(a, b, chunk, table, key, lrs, 10, 5)
+                if sync:
+                    hotness_sync_stacked(a, b, rows.to(cuda_device))
+        out[name] = (a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out["in_graph"][0], out["after"][0])
+    assert torch.equal(out["in_graph"][1], out["after"][1])
+    torch.testing.assert_close(out["in_graph"][0], out["eager"][0], atol=TOL, rtol=TOL)
+    torch.testing.assert_close(out["in_graph"][1], out["eager"][1], atol=TOL, rtol=TOL)
+    a = out["in_graph"][0]
+    assert torch.equal(a[0, rows], a[1, rows]) and not torch.equal(a[0, 4], a[1, 4])
