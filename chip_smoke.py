@@ -5,10 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each failure raises and ends the run with a non-zero exit):
 
-1. Build the three kernels with nvcc for sm_90a, one nvcc each, started
-   together: the SGNS lifetime kernel (``kernels/sgns/csrc``), the flash
-   attention kernel (``kernels/flash_attention/csrc``) and the chunked SSD
-   scan (``kernels/ssm_scan/csrc``). Print the compiler's
+1. Build the four kernel libraries with nvcc for sm_90a, one nvcc each,
+   started together: the SGNS lifetime kernel (``kernels/sgns/csrc``), the
+   flash attention kernel (``kernels/flash_attention/csrc``) and the
+   chunked SSD scan's two routes (``kernels/ssm_scan/csrc``: ``ssd_scan.cu``
+   and the wide route, ``ssd_wide.cu``). Print the compiler's
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
    (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
@@ -27,7 +28,12 @@ Phases (each failure raises and ends the run with a non-zero exit):
    prefill shape with the model's decay, where the masked decay overflows
    above the diagonal, and in the mixer's form (strided views, B and C per
    group) at that shape and with two groups of distinct B and C (3e-3
-   against ``ssd_chunked_ref``, y and the final state).
+   against ``ssd_chunked_ref``, y and the final state); the SSD scan's
+   wide route at the xLSTM's scan shape (P 513, N 512, chunk 512, inputs
+   at the mLSTM's scale, where exp(cum) underflows within a chunk) at the
+   traffic's longest prompt, at 2,048 steps, at a ragged 1,100 and at
+   4,608 (nine chunks), and at the reference's test cases forced through
+   it (3e-3, its chunk-state scratch NaN-filled, y and the state finite).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
    ``yt-sim`` R-MAT preset (1,138,499 nodes), first at ``num_shards=2`` (the
    paper's regime: the MPGP partition, two replicas, the hotness-block
@@ -66,6 +72,15 @@ Phases (each failure raises and ends the run with a non-zero exit):
    (in the mixer's form, and in the 3-D form on B and C broadcast, beside
    its bounds with B and C per batch and broadcast) and flash attention at
    zamba2's prefill shapes.
+6. The recurrent LM path: the same traffic served by xlstm-350m at full
+   width and depth (24 blocks: 21 mLSTM, 3 sLSTM; d 1,024, bf16, seeded
+   random weights). The wide route must have scanned 21 times per prefill
+   and nothing else launched; the fresh-prefill check holds every mLSTM
+   state and every sLSTM c, n and h after step n, and two state faults (an
+   mLSTM decode step without the decay, the sLSTM state reset before a
+   decode step) must fail it. Then the sLSTM loop's share of each wave's
+   prefill wall time, and the wide route's time at the prefill shape
+   against its plain version and its bound.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers (flash
@@ -115,8 +130,14 @@ SSD_CASES = [(2, 64, 16, 8, 32), (4, 128, 32, 16, 32), (1, 200, 64, 32, 32),
              (3, 96, 8, 64, 32)] + [(2, 128, 16, 8, q) for q in (16, 64, 128)]
 # The mixer's form (B, H, G, S, P, N, chunk): two groups of distinct B and C.
 SSD_GROUP_CASES = [(2, 8, 2, 300, 64, 64, 128)]
+# The wide route at the mLSTM's scan (B, H, S, P, N, chunk), G = H: four full
+# chunks, a ragged S and nine chunks (the chain); the traffic's longest
+# prompt is added in main().
+WIDE_MLSTM_CASES = [(4, 4, 2048, 513, 512, 512), (4, 4, 1100, 513, 512, 512),
+                    (4, 4, 4608, 513, 512, 512)]
 LM_ARCH = "qwen3-1.7b"
 HYBRID_ARCH = "zamba2-7b"
+RECURRENT_ARCH = "xlstm-350m"
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
@@ -131,9 +152,22 @@ KV_CHECK_STEPS = (1, 16, 31)
 # 0.69-1.00, conv fault 1.56, ssm fault 1.15. In float32 zamba2's decode
 # equals a fresh prefill within 1e-3 (tests/test_torch_zamba2.py, on the
 # card): the rest is bf16 rounding that differs between the batched
-# prefill and the one-token decode.
+# prefill and the one-token decode. xlstm-350m (mLSTM matrix memory; sLSTM
+# c, n, h): the correct bf16 model drifts further, and more with each step
+# (n = 1: logits 0.019-0.021, states up to 0.073; n = 31: logits up to
+# 0.184, mlstm 0.124, c 0.136, n 0.118, h 0.529; which elements round which
+# way, and so each maximum, moves with any change to the rounding: logits
+# 0.094 before k / sqrt(P) was rounded as the reference rounds it), against
+# faults of mlstm 1.099 (decode without the decay) and c 1.052 (sLSTM state
+# reset). The JAX reference drifts as much in bf16: on the CPU at the
+# reduced config the port's mean drift of each kind is 0.84-1.68x the
+# reference's, and the mixers' states match the reference's within 2e-4
+# through 31 bf16 decode steps (tests/test_torch_xlstm.py); in float32 the
+# port's decode equals a fresh prefill within 1.8e-4 after 1, 16 and 31
+# steps at full width on the card (the same file's card test).
 BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
-          "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3}}
+          "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3},
+          "xlstm-350m": {"logits": 0.2, "mlstm": 0.5, "c": 0.5, "n": 0.4, "h": 0.9}}
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -663,6 +697,75 @@ def ssd_times(torch, ssd_ops, case, device) -> dict:
             "broadcast_bound_ms": bcast, "shape": list(case)}
 
 
+def wide_check(torch, ssd_ops, case, seed, device) -> float:
+    """The SSD scan's wide route against ``ssd_chunked_ref`` on the card
+    (the plain route, B and C expanded to every head), y and the final
+    state within SSD_TOL, its chunk-state scratch NaN-filled first (a chunk
+    that reads its predecessor's state before it is written reads NaN) and
+    its outputs finite; raises otherwise. A case of 6 numbers (B, H, S, P,
+    N, chunk) is the mLSTM's scan in the mixer's strided layout, inputs at
+    the mLSTM's scale; one of 5 (BH, S, P, N, chunk) a reference test case
+    in the 3-D form, forced through the wide route."""
+    from repro_torch.kernels.ssm_scan import bench as ssd_bench
+    from repro_torch.kernels.ssm_scan import wide
+
+    if len(case) == 6:
+        bsz, h, s, p, n, chunk = case
+        args = ssd_bench.mlstm_inputs(torch, bsz, h, s, p, n, seed, device)
+    else:
+        bh, s, p, n, chunk = case
+        bsz, h = 1, bh
+        x, loga, b, c = ssd_inputs(torch, bh, s, p, n, seed, device, model_decay=True)
+        args = (x[None], loga[None], b[None], c[None])
+    q = min(chunk, s)
+    y = torch.empty(bsz, s, h, p, device=device).transpose(1, 2)
+    states = torch.full((bsz, h, -(-s // q), n, p), float("nan"), device=device)
+    before = wide.LAUNCHES
+    if len(case) == 6:
+        y, st = ssd_ops._run(*args, chunk, y, states=states)
+    else:
+        y, st = wide.launch(*args, q, y, *ssd_ops.frame(*args, q, y, states))
+    want_y, want_s = ssd_ops._plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if wide.LAUNCHES != before + 1:
+        raise AssertionError(f"ssd_scan wide {case}: the route did not count its scan")
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+        raise AssertionError(f"ssd_scan wide {case}: non-finite output")
+    err = 0.0
+    for name, got, want in (("y", y, want_y), ("state", st, want_s)):
+        if not torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL):
+            raise AssertionError(f"ssd_scan wide {case}: {name} differs by "
+                                 f"{(got - want).abs().max().item():.3e}")
+        err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def wide_times(torch, ssd_ops, case, device) -> dict:
+    """The wide route at the xLSTM's prefill shape (the mixer's call,
+    inputs at the mLSTM's scale) and its plain route, beside its bound (the
+    TF32 tensor-core peak against the bytes, as for the first route); the
+    log also gives its operations' time at the float32 FMA peak that its
+    kernels use."""
+    from repro_torch.kernels.ssm_scan import bench as ssd_bench
+
+    bsz, h, s, p, n, chunk = case
+    args = ssd_bench.mlstm_inputs(torch, bsz, h, s, p, n, seed=9, device=device)
+    ms = time_ms(torch, lambda: ssd_ops.ssd_scan_heads(*args, chunk=chunk), 20)
+    plain_ms = time_ms(torch, lambda: ssd_ops._plain(*args, chunk=chunk), 5)
+    ms2 = time_ms(torch, lambda: ssd_ops.ssd_scan_heads(*args, chunk=chunk), 20)
+    bound, by = ssd_bench.bound_ms(bsz, h, h, s, p, n, chunk)
+    fma = ssd_bench.scan_work(bsz, h, h, s, p, n, chunk)[1] / ssd_bench.H100_F32_FLOPS * 1e3
+    log(f"[time] ssd_scan wide route at xlstm-350m's prefill shape (B, H, S, P, N, chunk) "
+        f"{case} float32: kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms; bound "
+        f"{bound:.6f} ms ({by}, TF32 tensor-core peak), {ms / bound:.2f}x; its operations "
+        f"take {fma:.6f} ms at the float32 FMA peak that its kernels use, {ms / fma:.2f}x; no "
+        "single PyTorch call computes it")
+    del args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "shape": list(case)}
+
+
 # --- the LM paths -----------------------------------------------------------
 
 def lm_prompts(np, vocab: int):
@@ -679,11 +782,19 @@ def block_kinds(cfg) -> list:
     return list(cyc) * n + list(rem)
 
 
+def cache_leaves(entry) -> dict:
+    """One layer's cache by name: an attention layer's k and v, a Mamba2
+    layer's conv and ssm, an sLSTM layer's c, n and h, or an mLSTM layer's
+    matrix memory (one tensor) as "mlstm"."""
+    return entry if isinstance(entry, dict) else {"mlstm": entry}
+
+
 def recurrent_states(caches) -> dict:
-    """A copy of every Mamba2 layer's (conv, ssm) state, by layer."""
-    return {(g, r, blk): {name: t.clone() for name, t in entry.items()}
+    """A copy of every recurrent layer's state (Mamba2, mLSTM, sLSTM), by
+    layer."""
+    return {(g, r, blk): {name: t.clone() for name, t in cache_leaves(entry).items()}
             for g, reps in caches.items() for r, rep in enumerate(reps)
-            for blk, entry in rep.items() if "ssm" in entry}
+            for blk, entry in rep.items() if "k" not in cache_leaves(entry)}
 
 
 def tap(torch, server, seconds):
@@ -719,21 +830,24 @@ def tap(torch, server, seconds):
 
 def cache_diff(served, fresh, rows: int, states=None) -> dict:
     """For each kind of cache entry ("kv": every attention layer's k and v
-    at positions [0, rows); "conv" and "ssm": every Mamba2 layer's state,
-    from ``states`` when given, else from ``served``), the largest
-    |served - fresh| over that tensor's largest |fresh| entry."""
+    at positions [0, rows); "conv" and "ssm": every Mamba2 layer's state;
+    "mlstm": every mLSTM layer's matrix memory; "c", "n" and "h": every
+    sLSTM layer's state; the recurrent ones from ``states`` when given,
+    else from ``served``), the largest |served - fresh| over that tensor's
+    largest |fresh| entry."""
     worst = {}
     for group, reps in fresh.items():
         for r, (rep_served, rep_fresh) in enumerate(zip(served[group], reps)):
             for block, entry in rep_fresh.items():
-                for name, want in entry.items():
+                for name, want in cache_leaves(entry).items():
                     if name in ("k", "v"):
                         kind = "kv"
                         want = want[:, :, :rows]
                         got = rep_served[block][name][:, :, :rows]
                     else:
                         kind = name
-                        src = states[(group, r, block)] if states is not None else rep_served[block]
+                        src = states[(group, r, block)] if states is not None \
+                            else cache_leaves(rep_served[block])
                         got = src[name]
                     want, got = want.float(), got.float()
                     d = (got - want).abs().max().item() / want.abs().max().item()
@@ -797,7 +911,7 @@ def _entries(caches, name):
     for reps in caches.values():
         for rep in reps:
             for entry in rep.values():
-                if name in entry:
+                if isinstance(entry, dict) and name in entry:
                     yield entry
 
 
@@ -811,9 +925,13 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     window shifted back by one step before the decode (it sees
     x_{t-3}, x_{t-3}, x_{t-2}, x_t), which must move the conv state beyond
     its bound, and a decode step that skips the decay exp(loga), which
-    must move the ssm state beyond its bound. The logits' difference is
-    printed beside each."""
+    must move the ssm state beyond its bound. With mLSTM layers: a decode
+    step that skips the decay, which must move the mLSTM state beyond its
+    bound; with sLSTM layers: its state (c, n, h) reset to the initial one
+    before the decode step, which must move c beyond its bound. The
+    logits' difference is printed beside each."""
     from repro_torch.models import mamba2 as mamba_mod
+    from repro_torch.models import xlstm as xlstm_mod
 
     plen = max(len(r.prompt) for r in wave)
     toks = np.zeros((len(wave), plen + 1), np.int64)
@@ -835,26 +953,41 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
         for st in _entries(caches, "conv"):
             st["conv"][:, 1:] = st["conv"][:, :-1].clone()
 
+    def reset_slstm(caches):
+        for st in _entries(caches, "c"):
+            st["c"].zero_()
+            st["n"].fill_(xlstm_mod.EPS)
+            st["h"].zero_()
+
     orig_step = mamba_mod.ssd_decode_step
     no_decay = lambda state, xdt, loga, b, c: orig_step(state, xdt, torch.zeros_like(loga), b, c)
-    faults = []          # (name, kind that must fail, cache_len shift, before, after, decode step)
+    # (name, kind that must fail, cache_len shift, before, after, module whose
+    # ssd_decode_step skips the decay)
+    faults = []
     if "a" in kinds:
         faults += [("cache length -1", "kv", -1, None, None, None),
                    ("cache length +1", "kv", 1, None, None, None),
                    ("rope phase +1", "kv", 1, None, shift_kv_back, None)]
     if "m" in kinds:
         faults += [("conv window shifted by one", "conv", 0, shift_conv, None, None),
-                   ("decode skips the decay exp(loga)", "ssm", 0, None, None, no_decay)]
-    for fault, kind, shift, before, after, step_fn in faults:
+                   ("decode skips the decay exp(loga)", "ssm", 0, None, None, mamba_mod)]
+    if "x" in kinds:
+        faults += [("mLSTM decode skips the decay exp(log f)", "mlstm", 0, None, None,
+                    xlstm_mod)]
+    if "s" in kinds:
+        faults += [("sLSTM state reset before the decode step", "c", 0, reset_slstm, None,
+                    None)]
+    for fault, kind, shift, before, after, patched in faults:
         _, caches = prefill(server.params, {"tokens": toks[:, :plen]})
         if before:
             before(caches)
-        if step_fn:
-            mamba_mod.ssd_decode_step = step_fn
+        if patched:
+            patched.ssd_decode_step = no_decay
         try:
             step, caches = decode(server.params, caches, toks[:, plen:], plen + shift)
         finally:
-            mamba_mod.ssd_decode_step = orig_step
+            for mod in (mamba_mod, xlstm_mod):
+                mod.ssd_decode_step = orig_step
         if after:
             after(caches)
         state = cache_diff(caches, fresh_caches, plen + 1)
@@ -869,11 +1002,47 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     del fresh_caches
 
 
+def slstm_share(torch, np, prefill, params, waves, device) -> list:
+    """Each wave's prefill again, its sLSTM layers timed apart (the device
+    drained before and after each): [(prompt length, prefill s, sLSTM s)]."""
+    from repro_torch.models import xlstm as xlstm_mod
+
+    orig = xlstm_mod.slstm_mixer
+    spent = [0.0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    rows = []
+    xlstm_mod.slstm_mixer = timed
+    try:
+        for wave in waves:
+            plen = max(len(r.prompt) for r in wave)
+            toks = np.zeros((len(wave), plen), np.int64)
+            for i, r in enumerate(wave):
+                toks[i, plen - len(r.prompt):] = r.prompt
+            spent[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": torch.as_tensor(toks, device=device)})
+            torch.cuda.synchronize()
+            rows.append((plen, time.perf_counter() - t0, spent[0]))
+    finally:
+        xlstm_mod.slstm_mixer = orig
+    return rows
+
+
 def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     """Serve ``cfg`` at full width to ``prompts`` with every launch count set
-    to 0 just before, check the launches (K2 once per attention layer and
-    K3 once per Mamba2 layer in each prefill, nothing else), the outputs
-    and the caches; returns the launch counts read just after serving."""
+    to 0 just before, check the launches (K2 once per attention layer, K3
+    once per Mamba2 layer and its wide route once per mLSTM layer in each
+    prefill, nothing else), the outputs and the caches; returns the launch
+    counts read just after serving."""
     from repro_torch.models import zoo
     from repro_torch.runtime.server import Request, Server, ServerConfig, throughput_stats
 
@@ -882,7 +1051,8 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     params = zoo.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({kinds.count('a')} attention, "
-        f"{kinds.count('m')} Mamba2), d {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{kinds.count('m')} Mamba2, {kinds.count('x')} mLSTM, {kinds.count('s')} sLSTM), "
+        f"d {cfg.d_model}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count()} parameters (seed 0) in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -920,6 +1090,7 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     expected = {name: 0 for name in counters}
     expected["flash_attention"] = kinds.count("a") * prefills
     expected["ssd_scan"] = kinds.count("m") * prefills
+    expected["ssd_scan_wide"] = kinds.count("x") * prefills
     if launches != expected:
         raise AssertionError(f"{cfg.name}: launches {launches}, expected {expected} "
                              f"({prefills} prefills)")
@@ -938,6 +1109,11 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
         f"{fmt_diff(worst_state, bounds)}")
     del wave_caches, calls, snapshots
     cache_mutation(torch, np, server, prefill, decode, waves[0], set(kinds), bounds)
+    if "s" in kinds:
+        for plen, total, rec in slstm_share(torch, np, prefill, server.params, waves, device):
+            log(f"[lm] {cfg.name} prefill of {plen} positions: {total:.3f} s, of which the "
+                f"{kinds.count('s')} sLSTM loops {rec:.3f} s ({rec / total * 100:.2f}%; "
+                f"{rec / kinds.count('s') / plen * 1e6:.2f} us per step)")
     return launches
 
 
@@ -962,9 +1138,11 @@ def main() -> int:
     from repro_torch.kernels.sgns import ops, ref
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan import ref as ssd_ref
+    from repro_torch.kernels.ssm_scan import wide as ssd_wide
 
-    counters = {"sgns_lifetime": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops}
-    libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY]
+    counters = {"sgns_lifetime": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops,
+                "ssd_scan_wide": ssd_wide}
+    libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY, ssd_wide.LIBRARY]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build ---------------------------------------------------------------
@@ -995,9 +1173,10 @@ def main() -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg, hy_cfg = get_config(LM_ARCH), get_config(HYBRID_ARCH)
+    lm_cfg, hy_cfg, rec_cfg = (get_config(a) for a in (LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH))
     prompts = lm_prompts(np, lm_cfg.vocab_size)
     hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
+    rec_prompts = lm_prompts(np, rec_cfg.vocab_size)
     s_prefill = max(len(p) for p in prompts)     # the longest padded prompt
     prefill_case = (LM_SLOTS, lm_cfg.num_heads, lm_cfg.num_kv_heads, s_prefill, s_prefill,
                     lm_cfg.resolved_head_dim, True, 0, "bfloat16")
@@ -1027,6 +1206,17 @@ def main() -> int:
             f"max abs err {err:.3e}")
     torch.cuda.empty_cache()
 
+    rec_heads = rec_cfg.ssm_heads
+    rec_p = rec_cfg.ssm_expand * rec_cfg.d_model // rec_heads
+    wide_main_case = (LM_SLOTS, rec_heads, s_prefill, rec_p + 1, rec_p, rec_cfg.ssm_chunk)
+    wide_err = 0.0
+    for i, case in enumerate([wide_main_case, *WIDE_MLSTM_CASES, *SSD_CASES]):
+        err = wide_check(torch, ssd_ops, case, seed=300 + i, device=dev)
+        wide_err = max(wide_err, err)
+        log(f"[check] ssd_scan wide route {case}"
+            f"{' (mLSTM scale)' if len(case) == 6 else ' (model decay)'}: max abs err {err:.3e}")
+        torch.cuda.empty_cache()
+
     # 3. the embedding path: k = 2 (the paper's regime), then k = 1 ---------------
     preset = GRAPH_PRESETS["yt-sim"]
     t0 = time.perf_counter()
@@ -1052,6 +1242,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
     ssd = ssd_times(torch, ssd_ops, ssd_main_case, dev)
+
+    # 6. the recurrent LM path -------------------------------------------------------
+    launches[RECURRENT_ARCH] = lm_path(torch, np, counters, rec_cfg, rec_prompts)
+    torch.cuda.empty_cache()
+    wide_t = wide_times(torch, ssd_ops, wide_main_case, dev)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"]
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "
@@ -1114,6 +1309,23 @@ def main() -> int:
         "broadcast_bound_ms": ssd["broadcast_bound_ms"],
         "ms_3d": ssd["ms_3d"],
         "shape": ssd["shape"],
+    }, {
+        "name": "ssd_scan_wide",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssd_wide.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
+        "reference_on_path": "src/repro/models/xlstm.py:112 ssd_chunked_ref (plain jnp; the "
+                             "wide route computes the function of _ssd_kernel, "
+                             "src/repro/kernels/ssm_scan/kernel.py:27)",
+        "launches": total["ssd_scan_wide"],
+        "launches_by_path": by_path("ssd_scan_wide"),
+        "max_abs_err": wide_err,
+        "ms": wide_t["ms"],
+        "plain_ms": wide_t["plain_ms"],
+        "bound_ms": wide_t["bound_ms"],
+        "bound_by": wide_t["bound_by"],
+        "library_ms": None,
+        "shape": wide_t["shape"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the full published config, ``get_reduced(name)``
 the CPU-test version (same family, tiny dims), with the JAX package's names
-and aliases. The port serves the dense decoder-only ``qwen3-1.7b`` and
-the Mamba2 + attention hybrid ``zamba2-7b`` so far; any other architecture of the reference raises and names the ROADMAP item
-that ports it. ``distger`` holds the embedding system's own presets.
+and aliases. The port serves the dense decoder-only ``qwen3-1.7b``, the
+Mamba2 + attention hybrid ``zamba2-7b`` and the mLSTM + sLSTM recurrent
+``xlstm-350m`` so far; any other architecture of the reference raises and
+names the ROADMAP item that ports it. ``distger`` holds the embedding system's own presets.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b"]
+ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m"]
 
 # canonical external ids (grid spelling) -> module names, as in the reference
 ALIASES: Dict[str, str] = {

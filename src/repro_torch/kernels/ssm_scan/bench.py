@@ -1,7 +1,9 @@
 """Time the chunked SSD scan (K3) on the card at zamba2-7b's prefill shape,
-against its two bounds, its plain version and other builds of the kernel.
+against its two bounds, its plain version and other builds of the kernel;
+with ``--wide``, its wide route at xlstm-350m's.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ssm_scan.bench [DIR ...]
+    PYTHONPATH=src python3 -m repro_torch.kernels.ssm_scan.bench --wide [DIR ...]
 
 Each DIR holds an edited copy of this kernel's ``csrc/`` directory (a
 variant, named by DIR, or by its parent when DIR is called ``csrc``; for
@@ -21,6 +23,14 @@ turns (every build, then every build again in reverse order), so that
 versions are compared within one run on one card, and each build's
 kernels are timed apart under the profiler. Prints each build's
 ptxas report, the card's name and power limit and one line per build.
+
+With ``--wide`` each DIR holds an edited copy of ``csrc/ssd_wide.cu``,
+and every build of the wide route runs the mLSTM's scan (``WIDE_SHAPE``,
+inputs at the mLSTM's scale, in the mixer's layout), is checked three
+times against the plain version with its chunk-state scratch NaN-filled,
+and is timed in turns beside its bound (the TF32 peak) and its
+operations' time at the float32 FMA peak that its kernels use,
+each of its four kernels timed apart under the profiler.
 Needs a CUDA device.
 """
 
@@ -35,20 +45,24 @@ from pathlib import Path
 TOL = 3e-3
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores, SXM, 700 W
+H100_F32_FLOPS = 67e12          # float32 FMA outside the tensor cores, SXM, 700 W
 # zamba2-7b's prefill wave: 4 prompts padded to 1,819 tokens, 112 heads of
 # 64, state 64, one group, chunk 128.
 SHAPE = dict(bsz=4, h=112, g=1, s=1819, p=64, n=64, chunk=128)
+# xlstm-350m's prefill wave: 4 prompts padded to 1,819 tokens, 4 heads
+# with a 512 x 513 matrix memory each (G = H), chunk 512.
+WIDE_SHAPE = dict(bsz=4, h=4, s=1819, p=513, n=512, chunk=512)
 
 
-def bound_ms(bsz, h, g, s, p, n, chunk) -> tuple:
-    """Least time for the scan on an H100, float32: xdt and loga read and y
-    and the final state written once per head, B and C read once per group,
-    over the memory rate; against the products per chunk of L valid steps
-    (C B^T over the L(L+1)/2 lower-triangle pairs once per group; per head
-    the intra-chunk product over those pairs, the inter-chunk product and
-    the state update over L·N·P) over the TF32 tensor-core peak. G = H is
-    the bound of the same function fed B and C broadcast to every head.
-    Returns (ms, "bytes" | "operations")."""
+def scan_work(bsz, h, g, s, p, n, chunk) -> tuple:
+    """The bytes and operations the scan must take, float32: xdt and loga
+    read and y and the final state written once per head, B and C read
+    once per group; the products per chunk of L valid steps (C B^T over
+    the L(L+1)/2 lower-triangle pairs once per group; per head the
+    intra-chunk product over those pairs and the state update over L·N·P,
+    and after the first chunk the inter-chunk product over L·N·P). G = H is
+    the same function fed B and C broadcast to every head. Returns (bytes,
+    flops)."""
     nbytes = 4 * (bsz * h * (2 * s * p + s + n * p) + 2 * bsz * g * s * n)
     q = min(chunk, s)
     per_head = per_group = 0
@@ -56,8 +70,17 @@ def bound_ms(bsz, h, g, s, p, n, chunk) -> tuple:
         steps = min(q, s - t0)
         tri = steps * (steps + 1) // 2
         per_group += 2 * tri * n
-        per_head += 2 * tri * p + 4 * steps * n * p
-    flops = bsz * h * per_head + bsz * g * per_group
+        per_head += 2 * tri * p + (4 if t0 else 2) * steps * n * p
+    return nbytes, bsz * h * per_head + bsz * g * per_group
+
+
+def bound_ms(bsz, h, g, s, p, n, chunk) -> tuple:
+    """Least time for the scan on an H100: ``scan_work``'s bytes over the
+    memory rate against its operations over the TF32 tensor-core peak, the
+    card's peak for float32 operands (both routes: the first runs 3xTF32
+    products, the wide one float32 FMA, but the function is the same).
+    Returns (ms, "bytes" | "operations")."""
+    nbytes, flops = scan_work(bsz, h, g, s, p, n, chunk)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_TF32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -89,6 +112,23 @@ def heads_inputs(torch, bsz, h, g, s, p, n, seed, device="cuda"):
     b, c = (torch.randn(bsz, g, s, n, generator=gen) for _ in range(2))
     xdt, loga, b, c = (t.to(device) for t in (xdt, loga, b, c))
     return xdt.transpose(1, 2), loga.transpose(1, 2), b, c
+
+
+def mlstm_inputs(torch, bsz, h, s, p, n, seed, device="cuda"):
+    """The mLSTM's scan inputs at the reference's init, in the mixer's
+    layout: q ~ N(0, 1), k ~ N(0, 1) / sqrt(N), v ~ N(0, 1), i = sigmoid(N(0,
+    1)), log f = log sigmoid(N(0, 1)) (~-0.8 a step, so that exp(cum) over a
+    512-step chunk underflows to 0); xdt = [v ‖ 1] i (B, S, H, P + 1 = p),
+    loga (B, S, H), b = k and c = q (B, S, H, N), returned as (B, H, S, ·)
+    views with G = H."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen)
+    i_gate = torch.sigmoid(rnd(bsz, s, h))
+    loga = torch.nn.functional.logsigmoid(rnd(bsz, s, h))
+    v = torch.cat([rnd(bsz, s, h, p - 1), torch.ones(bsz, s, h, 1)], dim=-1)
+    xdt = v * i_gate[..., None]
+    b, c = rnd(bsz, s, h, n) / n ** 0.5, rnd(bsz, s, h, n)
+    return tuple(t.to(device).transpose(1, 2) for t in (xdt, loga, b, c))
 
 
 def broadcast_3d(xdt, loga, b, c):
@@ -162,6 +202,8 @@ def main(argv: list[str]) -> int:
         print("ssm_scan.bench: needs a CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if argv[:1] == ["--wide"]:
+        return main_wide(torch, argv[1:])
     builds = {"port": ops.LIBRARY}
     for arg in argv:
         d = Path(arg)
@@ -229,8 +271,69 @@ def main(argv: list[str]) -> int:
     return 0
 
 
-def _kernel_times(torch, name: str, run, reps: int = 10) -> None:
-    """Each kernel's mean device time per call of ``run``, from the profiler."""
+def main_wide(torch, argv: list[str]) -> int:
+    """The wide route's builds in turns at ``WIDE_SHAPE``."""
+    from repro_torch.kernels.build import CudaLibrary, build_all
+    from repro_torch.kernels.ssm_scan import ops, wide
+
+    builds = {"port": wide.LIBRARY}
+    for arg in argv:
+        d = Path(arg)
+        name = d.parent.name if d.name == "csrc" else d.name
+        builds[name] = CudaLibrary(f"ssd_wide_{name}", d / "ssd_wide.cu", wide._declare)
+    build_all(builds.values())
+    for name, lib in builds.items():
+        _ptxas_report(name, lib.build_log)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    sh = WIDE_SHAPE
+    args = mlstm_inputs(torch, sh["bsz"], sh["h"], sh["s"], sh["p"], sh["n"], seed=9)
+    want_y, want_s = ops._plain(*args, chunk=sh["chunk"])
+    port = wide.LIBRARY
+
+    def with_lib(lib, fn):
+        def run():
+            wide.LIBRARY = lib
+            return fn()
+        return run
+
+    def nan_states():
+        bsz, h, s, p = args[0].shape
+        y = torch.empty(bsz, s, h, p, device="cuda").transpose(1, 2)
+        states = torch.full((bsz, h, -(-s // sh["chunk"]), sh["n"], p), float("nan"),
+                            device="cuda")
+        return ops._run(*args, sh["chunk"], y, states=states)
+
+    runs = {name: with_lib(lib, lambda: ops.ssd_scan_heads(*args, chunk=sh["chunk"]))
+            for name, lib in builds.items()}
+    try:
+        for name, lib in builds.items():
+            for _ in range(3):
+                _check(torch, name, with_lib(lib, nan_states), want_y, want_s)
+        del want_y, want_s
+        times = {}
+        for name in [*runs, *reversed(runs)]:
+            times.setdefault(name, []).append(_time_ms(torch, runs[name]))
+        plain_ms = _time_ms(torch, lambda: ops._plain(*args, chunk=sh["chunk"]), 5)
+        dims = (sh["bsz"], sh["h"], sh["h"], sh["s"], sh["p"], sh["n"], sh["chunk"])
+        bound, by = bound_ms(*dims)
+        fma = scan_work(*dims)[1] / H100_F32_FLOPS * 1e3
+        print(f"[time] xlstm-350m prefill shape {sh}, float32: bound {bound:.6f} ms ({by}, "
+              f"TF32 peak), {fma:.6f} ms for its operations at the float32 FMA peak that the "
+              f"route's kernels use; plain {plain_ms:.4f} ms", flush=True)
+        for name, t in times.items():
+            print(f"[time] {name}: {t[0]:.4f} / {t[1]:.4f} ms, {min(t) / bound:.2f}x the "
+                  f"bound, {min(t) / fma:.2f}x the float32 FMA time", flush=True)
+        for name, run in runs.items():
+            _kernel_times(torch, name, run, pattern=r"wide_\w+")
+    finally:
+        wide.LIBRARY = port
+    return 0
+
+
+def _kernel_times(torch, name: str, run, reps: int = 10, pattern: str = r"ssd_\w+") -> None:
+    """Each kernel's mean device time per call of ``run`` (the kernels whose
+    names match ``pattern``), from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -241,8 +344,9 @@ def _kernel_times(torch, name: str, run, reps: int = 10) -> None:
         torch.cuda.synchronize()
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-        if "ssd_" in e.key and us:
-            kernel = re.search(r"ssd_\w+", e.key).group(0)
+        found = re.search(pattern, e.key)
+        if found and us:
+            kernel = found.group(0)
             print(f"[kernel] {name}: {kernel} {us / reps / 1e3:.4f} ms "
                   f"x{e.count / reps:.0f}", flush=True)
 

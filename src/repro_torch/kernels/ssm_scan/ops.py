@@ -16,16 +16,22 @@ of q with loga = 0 and xdt = b = c = 0, y cut back to S. Two forms:
 
 Tensors on the CPU expand b and c to every head and go to the plain
 version (``ref.ssd_chunked_ref``). Tensors on the card go to the CUDA
-kernels (``csrc/ssd_scan.cu``; the 3-D form is the case B = 1, G = BH),
-or the call raises: there is no fallback from the card to the plain
-version. The kernels read the ragged last chunk zero-filled, as the
-padding is, so the wrapper pads nothing along S. They take a head dim P of
-64 and a state N that is a multiple of 8, up to 64 (zamba2's, and
-Mamba2's usual head dim): a smaller P, or N, is padded with zeros, which
-add nothing; a larger one is refused.
+kernels (the 3-D form is the case B = 1, G = BH), or the call raises:
+there is no fallback from the card to the plain version. The kernels read
+the ragged last chunk zero-filled, as the padding is, so the wrapper pads
+nothing along S. Two routes, picked by shape:
 
-``LAUNCHES`` counts scans run on the card (each is two kernel launches),
-so that a run can show it went through the kernels.
+- the first (``csrc/ssd_scan.cu``, two launches) takes a head dim P of 64
+  and a state N that is a multiple of 8, up to 64, and chunks up to 128
+  (zamba2's, and Mamba2's usual head dim): a smaller P, or N, is padded
+  with zeros, which add nothing;
+- the wide one (``wide.py``, ``csrc/ssd_wide.cu``) takes the larger
+  shapes, P and N up to 1,024 and chunks up to 512 (the xLSTM's mLSTM:
+  P = 513, N = 512, chunk 512).
+
+A shape beyond both is refused. ``LAUNCHES`` counts scans run on the
+first route (each is two kernel launches), ``wide.LAUNCHES`` those on the
+wide one, so that a run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaLibrary
-from repro_torch.kernels.ssm_scan import ref
+from repro_torch.kernels.ssm_scan import ref, wide
 
 LAUNCHES = 0
 MAX_CHUNK = 128          # the kernels' longest chunk (eight 16-row blocks)
@@ -144,14 +150,37 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _run(xdt, loga, b, c, chunk: int, y, states=None):
-    """Checks, then the two launches; y (B, H, S, P) float32 is written in
-    place. ``states``, if given, is the launches' scratch for the state after
-    each chunk, (B, H, nc, N, P) float32 with nc = ceil(S / min(chunk, S)),
-    so that a test can read it back; else it is allocated here."""
-    global LAUNCHES
+def frame(xdt, loga, b, c, q: int, y, states=None):
+    """What each route's launcher takes besides the tensors, for chunk q
+    (<= S): the final state (B, H, N, P) float32 to write; the scratch for
+    the state after each chunk, (B, H, nc, N, P) float32 contiguous with nc
+    = ceil(S / q), ``states`` checked or else allocated; and the dims and
+    strides as the sources read them. Returns (s_fin, states, dims,
+    strides)."""
     bsz, h, s, p = xdt.shape
     g, n = b.shape[1], b.shape[-1]
+    nc = -(-s // q)
+    s_fin = torch.empty(bsz, h, n, p, dtype=torch.float32, device=xdt.device)
+    if states is None:
+        states = torch.empty(bsz, h, nc, n, p, dtype=torch.float32, device=xdt.device)
+    elif tuple(states.shape) != (bsz, h, nc, n, p) or states.dtype != torch.float32 \
+            or not states.is_contiguous() or states.device != xdt.device:
+        raise ValueError(f"ssd_chunked_scan: states must be a contiguous float32 "
+                         f"{(bsz, h, nc, n, p)} tensor on {xdt.device}")
+    dims = (ctypes.c_longlong * 7)(bsz, h, g, s, p, n, q)
+    strides = (ctypes.c_longlong * 15)(*xdt.stride()[:3], *loga.stride(), *b.stride()[:3],
+                                       *c.stride()[:3], *y.stride()[:3])
+    return s_fin, states, dims, strides
+
+
+def _run(xdt, loga, b, c, chunk: int, y, states=None):
+    """Checks, then the scan on the card through the route that holds the
+    shape: the first where P and N <= 64 and the chunk <= 128, else the
+    wide one (``wide.launch``). y (B, H, S, P) float32 is written in place.
+    ``states``, if given, is the kernels' scratch for the state after each
+    chunk (``frame``), so that a test can read it back."""
+    bsz, h, s, p = xdt.shape
+    n = b.shape[-1]
     if any(t.dtype != torch.float32 for t in (xdt, loga, b, c)):
         raise ValueError("ssd_chunked_scan: the kernel takes float32 xdt, loga, b and c, got "
                          f"{xdt.dtype}, {loga.dtype}, {b.dtype}, {c.dtype}")
@@ -161,46 +190,50 @@ def _run(xdt, loga, b, c, chunk: int, y, states=None):
         raise ValueError(f"ssd_chunked_scan: needs S > 0 and chunk > 0, got S={s}, "
                          f"chunk={chunk}")
     q = min(chunk, s)
-    if q > MAX_CHUNK:
-        raise ValueError(f"ssd_chunked_scan: chunk {q} is longer than the kernel's "
-                         f"{MAX_CHUNK}; use a smaller chunk")
-    if p > HEAD_DIM or n > MAX_STATE:
-        raise ValueError(f"ssd_chunked_scan: the kernel takes P <= {HEAD_DIM} and N <= "
-                         f"{MAX_STATE}, got P={p}, N={n}")
-    pad_p, pad_n = HEAD_DIM - p, -n % 8
-    need = smem_bytes(q, n + pad_n)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunked_scan: chunk {q} with N={n} needs {need} bytes "
-                         f"of shared memory, above the {SMEM_LIMIT} a block may use; "
-                         "use a smaller chunk")
-    if pad_p or pad_n:
-        # Zero columns of xdt, b and c add nothing to y or the state.
-        y_pad = torch.empty(bsz, h, s, HEAD_DIM, dtype=torch.float32, device=xdt.device)
-        if states is not None:
-            raise ValueError("ssd_chunked_scan: a states scratch needs P = "
-                             f"{HEAD_DIM} and N a multiple of 8, got P={p}, N={n}")
-        _, st = _run(F.pad(xdt, (0, pad_p)), loga, F.pad(b, (0, pad_n)), F.pad(c, (0, pad_n)),
-                     chunk, y_pad)
-        y.copy_(y_pad[..., :p])
-        return y, st[..., :n, :p].contiguous()
-    xdt, b, c = _aligned(xdt), _aligned(b), _aligned(c)
-    nc, qb = -(-s // q), -(-q // 16)
-    s_fin = torch.empty(bsz, h, n, p, dtype=torch.float32, device=xdt.device)
+    if q <= MAX_CHUNK and p <= HEAD_DIM and n <= MAX_STATE:
+        pad_p, pad_n = HEAD_DIM - p, -n % 8
+        need = smem_bytes(q, n + pad_n)
+        if need > SMEM_LIMIT:
+            raise ValueError(f"ssd_chunked_scan: chunk {q} with N={n} needs {need} bytes "
+                             f"of shared memory, above the {SMEM_LIMIT} a block may use; "
+                             "use a smaller chunk")
+        if pad_p or pad_n:
+            # Zero columns of xdt, b and c add nothing to y or the state.
+            y_pad = torch.empty(bsz, h, s, HEAD_DIM, dtype=torch.float32, device=xdt.device)
+            if states is not None:
+                raise ValueError("ssd_chunked_scan: a states scratch needs P = "
+                                 f"{HEAD_DIM} and N a multiple of 8, got P={p}, N={n}")
+            _, st = _run(F.pad(xdt, (0, pad_p)), loga, F.pad(b, (0, pad_n)),
+                         F.pad(c, (0, pad_n)), chunk, y_pad)
+            y.copy_(y_pad[..., :p])
+            return y, st[..., :n, :p].contiguous()
+        xdt, b, c = _aligned(xdt), _aligned(b), _aligned(c)
+        launch = _launch_first
+    elif q <= wide.MAX_CHUNK and p <= wide.MAX_DIM and n <= wide.MAX_DIM:
+        xdt, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (xdt, b, c))
+        launch = wide.launch
+    else:
+        raise ValueError(f"ssd_chunked_scan: chunk {q} with P={p}, N={n} is beyond both "
+                         f"routes: the first takes chunks up to {MAX_CHUNK} and P and N up "
+                         f"to {HEAD_DIM}, the wide one chunks up to {wide.MAX_CHUNK} and P "
+                         f"and N up to {wide.MAX_DIM}")
+    s_fin, states, dims, strides = frame(xdt, loga, b, c, q, y, states)
     if bsz * h == 0:
         return y, s_fin
+    return launch(xdt, loga, b, c, q, y, s_fin, states, dims, strides)
+
+
+def _launch_first(xdt, loga, b, c, q: int, y, s_fin, states, dims, strides):
+    """One scan through the first route's two launches, as ``_run`` has
+    checked and framed it. Returns (y, s_fin)."""
+    global LAUNCHES
+    bsz, h, s, _ = xdt.shape
+    g = b.shape[1]
+    nc, qb = -(-s // q), -(-q // 16)
     lib = LIBRARY.load()
-    f32 = dict(dtype=torch.float32, device=xdt.device)
-    cbt = torch.empty(bsz * g * nc * qb * (qb + 1) * 128, **f32)
-    if states is None:
-        states = torch.empty(bsz * h * nc * n * p, **f32)
-    elif tuple(states.shape) != (bsz, h, nc, n, p) or states.dtype != torch.float32 \
-            or not states.is_contiguous() or states.device != xdt.device:
-        raise ValueError(f"ssd_chunked_scan: states must be a contiguous float32 "
-                         f"{(bsz, h, nc, n, p)} tensor on {xdt.device}")
+    cbt = torch.empty(bsz * g * nc * qb * (qb + 1) * 128, dtype=torch.float32,
+                      device=xdt.device)
     sync = torch.empty(lib.ssd_sync_ints(bsz, h, g, nc), dtype=torch.int32, device=xdt.device)
-    dims = (ctypes.c_longlong * 7)(bsz, h, g, s, p, n, q)
-    strides = (ctypes.c_longlong * 15)(*xdt.stride()[:3], *loga.stride(), *b.stride()[:3],
-                                       *c.stride()[:3], *y.stride()[:3])
     with torch.cuda.device(xdt.device):
         err = lib.ssd_chunked_launch(
             xdt.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),

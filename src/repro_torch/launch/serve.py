@@ -4,6 +4,8 @@
       --requests 6 --new-tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+      --reduced --device cpu
 
 The flags and defaults of the JAX package's ``launch/serve.py``, plus
 ``--device`` (the card by default; ``--device cpu`` with ``--reduced`` runs

@@ -1,8 +1,8 @@
 """Model configuration: a copy of the JAX package's ``models/config.py``.
 
 One frozen dataclass covers every family the reference supports; per-family
-fields default off. The port runs the dense decoder-only family and the
-Mamba2 + attention hybrid so far
+fields default off. The port runs the dense decoder-only family, the
+Mamba2 + attention hybrid and the xLSTM so far
 (``repro_torch.configs`` lists what it runs); the other fields are kept so
 that configurations read the same in both packages. ``attn_impl``, ``remat``
 and ``fsdp`` are read by the reference only: on the port the tensors'

@@ -2,13 +2,15 @@
 and decode.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-blocks (kind ``"a"``) without MLA or MoE and Mamba2 blocks (kind ``"m"``).
+blocks (kind ``"a"``) without MLA or MoE, Mamba2 blocks (kind ``"m"``) and
+the xLSTM's mLSTM and sLSTM blocks (kinds ``"x"`` and ``"s"``).
 ``cfg.block_cycle`` repeats to
 cover ``num_layers`` as in the reference (``_groups``), but the layers of
 a group are a list of per-repetition dicts run by an ordinary loop, not a
 stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
 Caches mirror the same structure: {k, v} for an attention block, {conv,
-ssm} for a Mamba2 block, both updated in place.
+ssm} for a Mamba2 block, the (B, H, N, P + 1) matrix memory for an mLSTM
+block and {c, n, h} for an sLSTM block, all updated in place.
 ``repro_torch.convert.lm_params_from_reference`` unstacks a reference tree
 into this layout.
 """
@@ -22,6 +24,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
@@ -39,10 +42,10 @@ def _check(cfg: ModelConfig) -> None:
     if cfg.encdec or cfg.frontend != "none":
         raise NotImplementedError("encoder-decoder models and frontends are not "
                                   "ported yet (ROADMAP.md item 12)")
-    kinds = set(cfg.block_cycle) - {"a", "m"}
+    kinds = set(cfg.block_cycle) - {"a", "m", "x", "s"}
     if kinds:
-        raise NotImplementedError(f"block kinds {sorted(kinds)} (the xLSTM mixers) are "
-                                  "not ported yet (ROADMAP.md item 12)")
+        raise NotImplementedError(f"block kinds {sorted(kinds)} are not ported yet "
+                                  "(ROADMAP.md item 12)")
 
 
 def _groups(cfg: ModelConfig):
@@ -64,6 +67,16 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, device) -> Params:
     if kind == "m":
         return {"ln": init_rmsnorm(d, dtype, device),
                 "mixer": mamba_mod.init_mamba(gen, cfg, dtype, device)}
+    if kind == "x":
+        p = {"ln": init_rmsnorm(d, dtype, device),
+             "mixer": xlstm_mod.init_mlstm(gen, cfg, dtype, device)}
+        if cfg.d_ff:
+            p["ln2"] = init_rmsnorm(d, dtype, device)
+            p["ffn"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+        return p
+    if kind == "s":
+        return {"ln": init_rmsnorm(d, dtype, device),
+                "mixer": xlstm_mod.init_slstm(gen, cfg, dtype, device)}
     return {
         "ln1": init_rmsnorm(d, dtype, device),
         "attn": attn_mod.init_attention(gen, cfg, dtype, device),
@@ -75,16 +88,36 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, device) -> Params:
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     if kind == "m":
         return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+    if kind == "x":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if kind == "s":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
 
 
 def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=None,
                 cache_len=None, causal: bool = True):
-    """Kind "a": pre-norm attention, then pre-norm SwiGLU. Kind "m":
-    pre-norm Mamba2 mixer. With ``cache`` and no ``cache_len`` (prefill)
-    a Mamba2 block writes its final state into the cache; with
-    ``cache_len`` (decode) it steps the cached state, as the reference's
-    modes do. Caches change in place."""
+    """Kind "a": pre-norm attention, then pre-norm SwiGLU. Kinds "m", "x"
+    and "s": the pre-norm Mamba2, mLSTM or sLSTM mixer (an mLSTM block with
+    ``d_ff`` adds a pre-norm SwiGLU). With ``cache`` and no ``cache_len``
+    (prefill) a recurrent block writes its final state into the cache;
+    with ``cache_len`` (decode) it steps the cached state, as the
+    reference's modes do. Caches change in place."""
+    if kind in ("x", "s"):
+        decode = cache_len is not None
+        h = rmsnorm(x, p["ln"], cfg.norm_eps)
+        mixer = xlstm_mod.mlstm_mixer if kind == "x" else xlstm_mod.slstm_mixer
+        y, new_state = mixer(h, p["mixer"], cfg, state=cache if decode else None,
+                             return_state=cache is not None and not decode)
+        if kind == "x" and new_state is not None:
+            cache.copy_(new_state)
+        elif new_state is not None:
+            for name, t in new_state.items():
+                cache[name].copy_(t)
+        x = x + y
+        if kind == "x" and cfg.d_ff:
+            x = x + mlp(rmsnorm(x, p["ln2"], cfg.norm_eps), p["ffn"])
+        return x
     if kind == "m":
         decode = cache_len is not None
         h = rmsnorm(x, p["ln"], cfg.norm_eps)

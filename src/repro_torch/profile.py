@@ -6,8 +6,8 @@ as ``embed_graph(PAPER_EMBED, num_shards=2)`` runs them on the yt-sim
 R-MAT preset (two replicas, a hotness sync at the step-50 boundary; the
 MPGP partition steers nothing on the dense walk engine, so it is skipped) —
 and the LM serving paths' two each — one prefill of 4 prompts of 2,048
-tokens and 10 decode steps after it, qwen3-1.7b and then zamba2-7b at
-full width over a 4,096-position cache, as ``chip_smoke.py``'s server
+tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b and then
+xlstm-350m at full width over a 4,096-position cache, as ``chip_smoke.py``'s server
 runs them — each first timed plainly and then under ``torch.profiler``.
 The training window runs the pipeline's path on the card: two chunks of
 50 steps, each one CUDA graph replay, after a warm-up call that captures
@@ -19,7 +19,9 @@ the kernels a graph replays), their ratio, the kernel launches per step,
 the kernels that take the most device time and the share of the port's
 own kernels (K1 ``sgns_lifetime`` and its write-back: its keys, the
 library's radix sort and the short and long row segments; K2 ``flash``; K3
-``ssd_chunk_state`` and ``ssd_chunk_out``) in the device time.
+``ssd_chunk_state`` and ``ssd_chunk_out``, and its wide route's
+``wide_cum``, ``wide_cb``, ``wide_state`` and ``wide_out``) in the device
+time.
 
     PYTHONPATH=src python3 -m repro_torch.profile [embed]
 
@@ -37,14 +39,15 @@ import time
 PRESET = "yt-sim"
 SUPERSTEPS = 40
 STEPS = 100
-LM_ARCHS = ("qwen3-1.7b", "zamba2-7b")
+LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
 # Substrings of the port's kernel names: "flash_kernel" matches both of
 # K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16); K3 is two
-# launches, its states (with C B^T) and its output.
+# launches, its states (with C B^T) and its output, and its wide route four.
 OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "sgns_wb_segments_kernel", "sgns_wb_long_kernel", "flash_kernel",
-               "ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
+               "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
+               "wide_cb_kernel", "wide_state_kernel", "wide_out_kernel")
 SHARDS = 2
 
 

@@ -6,8 +6,10 @@ wave's prompts are left-padded with token 0 to the longest, with no pad
 mask, and prefilled in one call; then every slot decodes greedily (argmax)
 up to the wave's largest ``max_new_tokens``, and each request keeps its
 own first ``max_new_tokens`` tokens. On the card a prefill runs the flash
-kernel in every attention layer and the chunked SSD scan in every Mamba2
-layer; a Mamba2 state runs over the pad tokens, as in the reference.
+kernel in every attention layer, the chunked SSD scan in every Mamba2
+layer and its wide route in every mLSTM layer; an sLSTM layer steps its
+recurrence token by token. The recurrent states run over the pad tokens,
+as in the reference.
 """
 
 from __future__ import annotations

@@ -133,13 +133,14 @@ def test_cpu_tensors_take_the_plain_route():
 
 
 def test_kernel_route_refuses_chunks_it_cannot_hold():
-    """The kernel holds chunk 128 at N = P = 64 (Mamba2's width); its
-    wrapper refuses xLSTM's 512, with the reason, before any launch."""
+    """The first route holds chunk 128 at N = P = 64 (Mamba2's width), not
+    the xLSTM's 512, which goes to the wide route; a chunk beyond the wide
+    route's 512 is refused, with the reason, before any launch."""
     assert ops.smem_bytes(128, 64) <= ops.SMEM_LIMIT
     assert ops.smem_bytes(512, 64) > ops.SMEM_LIMIT
     _, args = _inputs(1, 1024, 64, 64, seed=6)
-    with pytest.raises(ValueError, match="chunk 512"):
-        ops._launch(*args, chunk=512)
+    with pytest.raises(ValueError, match="chunk 1024"):
+        ops._launch(*args, chunk=1024)
     with pytest.raises(ValueError, match="float32"):
         ops._launch(*(a.double() for a in args), chunk=128)
 
