@@ -13,9 +13,11 @@ Phases (each failure raises and ends the run with a non-zero exit):
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
    (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``), and in the SSD library's that both kernels run their
-   products on the tensor cores in TF32 (``HGMMA`` ... ``TF32``; the
-   C B^T blocks by ``HMMA`` ... ``TF32``).
+   (``UTMALDG``), and in the SSD libraries' that every product kernel runs
+   on the tensor cores in TF32 (the first route's two kernels ``HGMMA``
+   ... ``TF32``, its C B^T blocks ``HMMA`` ... ``TF32``; the wide route's
+   C B^T-and-local-state kernel and its output kernel ``HGMMA`` or
+   ``HMMA`` ... ``TF32``).
 2. Hold each kernel against its plain torch version on the card: SGNS
    (the TPU kernel's buffer interface) at the paper width and three
    ragged shapes, one of W + K = 16 columns (5e-4); flash attention at the
@@ -80,7 +82,8 @@ Phases (each failure raises and ends the run with a non-zero exit):
    mLSTM decode step without the decay, the sLSTM state reset before a
    decode step) must fail it. Then the sLSTM loop's share of each wave's
    prefill wall time, and the wide route's time at the prefill shape
-   against its plain version and its bound.
+   against its plain version, its bound and the 3xTF32 floor, with each of
+   its kernels' device time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers (flash
@@ -560,24 +563,34 @@ def sass_check(lib, head_dims) -> None:
                              f"{len(head_dims)}")
 
 
-def ssd_sass_check(lib) -> None:
-    """Both SSD kernels' products must run on the tensor cores in TF32:
-    wgmma (HGMMA ... TF32) in each, and the C B^T blocks of the state
-    kernel by mma.sync (HMMA ... TF32); raises otherwise."""
-    found = set()
-    for name, fn in sass_functions(lib):
-        for kernel in ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel"):
-            if kernel not in name:
-                continue
-            lines = fn.splitlines()
-            hgmma = sum("HGMMA" in ln and "TF32" in ln for ln in lines)
-            hmma = sum("HMMA" in ln and "TF32" in ln for ln in lines)
-            log(f"[check] {lib.name} SASS {kernel}: {hgmma} HGMMA TF32, {hmma} HMMA TF32")
-            if not hgmma or (kernel == "ssd_chunk_state_kernel" and not hmma):
-                raise AssertionError(f"{kernel} issues no tensor-core TF32 product")
-            found.add(kernel)
-    if len(found) != 2:
-        raise AssertionError(f"SSD kernels in the SASS: {sorted(found)}")
+def ssd_sass_check(lib, wide_lib) -> None:
+    """The SSD scan's product kernels must run on the tensor cores in TF32:
+    in the first route's library wgmma (HGMMA ... TF32) in both kernels and
+    the C B^T blocks of the state kernel by mma.sync (HMMA ... TF32); in
+    the wide route's, HGMMA or HMMA ... TF32 in each product kernel (C B^T
+    with the local states, and the output). Raises otherwise."""
+    kernels = {lib: ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel"),
+               wide_lib: ("wide_cb_state_kernel", "wide_out_kernel")}
+    for library, names in kernels.items():
+        found = set()
+        for name, fn in sass_functions(library):
+            for kernel in names:
+                if kernel not in name:
+                    continue
+                lines = fn.splitlines()
+                hgmma = sum("HGMMA" in ln and "TF32" in ln for ln in lines)
+                hmma = sum("HMMA" in ln and "TF32" in ln for ln in lines)
+                log(f"[check] {library.name} SASS {kernel}: {hgmma} HGMMA TF32, "
+                    f"{hmma} HMMA TF32")
+                first_route = library is lib
+                if (first_route and (not hgmma or (kernel == "ssd_chunk_state_kernel"
+                                                   and not hmma))) \
+                        or not (hgmma or hmma):
+                    raise AssertionError(f"{kernel} issues no tensor-core TF32 product")
+                found.add(kernel)
+        if found != set(names):
+            raise AssertionError(f"{library.name} kernels in the SASS: {sorted(found)}, "
+                                 f"expected {sorted(names)}")
 
 
 def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
@@ -724,7 +737,7 @@ def wide_check(torch, ssd_ops, case, seed, device) -> float:
     if len(case) == 6:
         y, st = ssd_ops._run(*args, chunk, y, states=states)
     else:
-        y, st = wide.launch(*args, q, y, *ssd_ops.frame(*args, q, y, states))
+        y, st = ssd_ops._run_wide(*args, q, y, states)
     want_y, want_s = ssd_ops._plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     if wide.LAUNCHES != before + 1:
@@ -742,10 +755,11 @@ def wide_check(torch, ssd_ops, case, seed, device) -> float:
 
 def wide_times(torch, ssd_ops, case, device) -> dict:
     """The wide route at the xLSTM's prefill shape (the mixer's call,
-    inputs at the mLSTM's scale) and its plain route, beside its bound (the
-    TF32 tensor-core peak against the bytes, as for the first route); the
-    log also gives its operations' time at the float32 FMA peak that its
-    kernels use."""
+    inputs at the mLSTM's scale and layout) and its plain route, beside its
+    bound (the TF32 tensor-core peak against the bytes, as for the first
+    route); the log also gives the 3xTF32 floor (three TF32 products for
+    each, as its kernels run them) and each of its kernels' device time
+    from the profiler."""
     from repro_torch.kernels.ssm_scan import bench as ssd_bench
 
     bsz, h, s, p, n, chunk = case
@@ -754,15 +768,20 @@ def wide_times(torch, ssd_ops, case, device) -> dict:
     plain_ms = time_ms(torch, lambda: ssd_ops._plain(*args, chunk=chunk), 5)
     ms2 = time_ms(torch, lambda: ssd_ops.ssd_scan_heads(*args, chunk=chunk), 20)
     bound, by = ssd_bench.bound_ms(bsz, h, h, s, p, n, chunk)
-    fma = ssd_bench.scan_work(bsz, h, h, s, p, n, chunk)[1] / ssd_bench.H100_F32_FLOPS * 1e3
+    floor3 = 3 * ssd_bench.scan_work(bsz, h, h, s, p, n, chunk)[1] \
+        / ssd_bench.H100_TF32_FLOPS * 1e3
+    by_kernel = ssd_bench.kernel_times(
+        torch, lambda: ssd_ops.ssd_scan_heads(*args, chunk=chunk), r"wide_\w+")
     log(f"[time] ssd_scan wide route at xlstm-350m's prefill shape (B, H, S, P, N, chunk) "
         f"{case} float32: kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms; bound "
-        f"{bound:.6f} ms ({by}, TF32 tensor-core peak), {ms / bound:.2f}x; its operations "
-        f"take {fma:.6f} ms at the float32 FMA peak that its kernels use, {ms / fma:.2f}x; no "
-        "single PyTorch call computes it")
+        f"{bound:.6f} ms ({by}, TF32 tensor-core peak), {ms / bound:.2f}x; 3xTF32 floor "
+        f"{floor3:.6f} ms, {ms / floor3:.2f}x; no single PyTorch call computes it")
+    log("[time] ssd_scan wide route by kernel: " + ", ".join(
+        f"{k} {t:.4f} ms x{c:.0f}" for k, (t, c) in by_kernel.items()))
     del args
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "ms_by_kernel": {k: t for k, (t, _) in by_kernel.items()},
             "shape": list(case)}
 
 
@@ -1159,7 +1178,7 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
     sass_check(fa_ops.LIBRARY, fa_ops.HEAD_DIMS)
-    ssd_sass_check(ssd_ops.LIBRARY)
+    ssd_sass_check(ssd_ops.LIBRARY, ssd_wide.LIBRARY)
 
     # 2. kernels against their plain versions ----------------------------------
     sgns_err = 0.0
@@ -1325,6 +1344,7 @@ def main() -> int:
         "bound_ms": wide_t["bound_ms"],
         "bound_by": wide_t["bound_by"],
         "library_ms": None,
+        "ms_by_kernel": wide_t["ms_by_kernel"],
         "shape": wide_t["shape"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,13 +24,20 @@ versions are compared within one run on one card, and each build's
 kernels are timed apart under the profiler. Prints each build's
 ptxas report, the card's name and power limit and one line per build.
 
-With ``--wide`` each DIR holds an edited copy of ``csrc/ssd_wide.cu``,
-and every build of the wide route runs the mLSTM's scan (``WIDE_SHAPE``,
-inputs at the mLSTM's scale, in the mixer's layout), is checked three
-times against the plain version with its chunk-state scratch NaN-filled,
-and is timed in turns beside its bound (the TF32 peak) and its
-operations' time at the float32 FMA peak that its kernels use,
-each of its four kernels timed apart under the profiler.
+With ``--wide`` each DIR holds an edited copy of ``csrc/`` with its
+``ssd_wide.cu``, and every build of the wide route runs the mLSTM's scan
+(``WIDE_SHAPE``, inputs at the mLSTM's scale, in the mixer's layout), is
+checked three times against the plain version with its chunk-state
+scratch NaN-filled, and is timed in turns beside its bound (the TF32
+peak), the 3xTF32 floor (three TF32 products for each, the way the
+route's products run) and its operations' time at the float32 FMA peak,
+each of its kernels timed apart under the profiler. The route's first
+version (float32 FMA, four launches) is one such build:
+
+    mkdir -p build/dev/pr18/csrc && git show \
+        03c8dfb:src/repro_torch/kernels/ssm_scan/csrc/ssd_wide.cu \
+        > build/dev/pr18/csrc/ssd_wide.cu
+
 Needs a CUDA device.
 """
 
@@ -118,17 +125,21 @@ def mlstm_inputs(torch, bsz, h, s, p, n, seed, device="cuda"):
     """The mLSTM's scan inputs at the reference's init, in the mixer's
     layout: q ~ N(0, 1), k ~ N(0, 1) / sqrt(N), v ~ N(0, 1), i = sigmoid(N(0,
     1)), log f = log sigmoid(N(0, 1)) (~-0.8 a step, so that exp(cum) over a
-    512-step chunk underflows to 0); xdt = [v ‖ 1] i (B, S, H, P + 1 = p),
+    512-step chunk underflows to 0); xdt = [v ‖ 1] i (B, S, H, P + 1 = p) on
+    rows padded to a multiple of 4 floats, as ``xlstm.values_ext`` builds it,
     loga (B, S, H), b = k and c = q (B, S, H, N), returned as (B, H, S, ·)
     views with G = H."""
+    from repro_torch.kernels.ssm_scan import wide
+
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=gen)
     i_gate = torch.sigmoid(rnd(bsz, s, h))
     loga = torch.nn.functional.logsigmoid(rnd(bsz, s, h))
     v = torch.cat([rnd(bsz, s, h, p - 1), torch.ones(bsz, s, h, 1)], dim=-1)
-    xdt = v * i_gate[..., None]
+    xdt = wide.empty_aligned((bsz, s, h, p), device)
+    xdt.copy_(v * i_gate[..., None])
     b, c = rnd(bsz, s, h, n) / n ** 0.5, rnd(bsz, s, h, n)
-    return tuple(t.to(device).transpose(1, 2) for t in (xdt, loga, b, c))
+    return (xdt.transpose(1, 2), *(t.to(device).transpose(1, 2) for t in (loga, b, c)))
 
 
 def broadcast_3d(xdt, loga, b, c):
@@ -188,7 +199,7 @@ def _ptxas_report(name: str, log: str) -> None:
         if "Compiling entry" in line:
             print(f"[ptxas {name}] {line.split('Compiling entry function')[-1].strip()[:60]}",
                   flush=True)
-        elif "registers" in line or "spill" in line or "error" in line:
+        elif any(w in line for w in ("registers", "spill", "error", "C75")):
             print(f"[ptxas {name}]   {line.strip()[:160]}", flush=True)
 
 
@@ -317,13 +328,17 @@ def main_wide(torch, argv: list[str]) -> int:
         plain_ms = _time_ms(torch, lambda: ops._plain(*args, chunk=sh["chunk"]), 5)
         dims = (sh["bsz"], sh["h"], sh["h"], sh["s"], sh["p"], sh["n"], sh["chunk"])
         bound, by = bound_ms(*dims)
-        fma = scan_work(*dims)[1] / H100_F32_FLOPS * 1e3
+        flops = scan_work(*dims)[1]
+        fma = flops / H100_F32_FLOPS * 1e3
+        floor3 = 3 * flops / H100_TF32_FLOPS * 1e3
         print(f"[time] xlstm-350m prefill shape {sh}, float32: bound {bound:.6f} ms ({by}, "
-              f"TF32 peak), {fma:.6f} ms for its operations at the float32 FMA peak that the "
-              f"route's kernels use; plain {plain_ms:.4f} ms", flush=True)
+              f"TF32 peak); 3xTF32 floor {floor3:.6f} ms (three TF32 products each); "
+              f"{fma:.6f} ms for its operations at the float32 FMA peak; plain "
+              f"{plain_ms:.4f} ms", flush=True)
         for name, t in times.items():
             print(f"[time] {name}: {t[0]:.4f} / {t[1]:.4f} ms, {min(t) / bound:.2f}x the "
-                  f"bound, {min(t) / fma:.2f}x the float32 FMA time", flush=True)
+                  f"bound, {min(t) / floor3:.2f}x the 3xTF32 floor, {min(t) / fma:.2f}x the "
+                  "float32 FMA time", flush=True)
         for name, run in runs.items():
             _kernel_times(torch, name, run, pattern=r"wide_\w+")
     finally:
@@ -331,9 +346,9 @@ def main_wide(torch, argv: list[str]) -> int:
     return 0
 
 
-def _kernel_times(torch, name: str, run, reps: int = 10, pattern: str = r"ssd_\w+") -> None:
-    """Each kernel's mean device time per call of ``run`` (the kernels whose
-    names match ``pattern``), from the profiler."""
+def kernel_times(torch, run, pattern: str, reps: int = 10) -> dict:
+    """{kernel: (mean device ms per call of ``run``, launches per call)} of
+    the kernels whose names match ``pattern``, from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -342,13 +357,18 @@ def _kernel_times(torch, name: str, run, reps: int = 10, pattern: str = r"ssd_\w
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
+    times = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
         found = re.search(pattern, e.key)
         if found and us:
-            kernel = found.group(0)
-            print(f"[kernel] {name}: {kernel} {us / reps / 1e3:.4f} ms "
-                  f"x{e.count / reps:.0f}", flush=True)
+            times[found.group(0)] = (us / reps / 1e3, e.count / reps)
+    return times
+
+
+def _kernel_times(torch, name: str, run, pattern: str = r"ssd_\w+") -> None:
+    for kernel, (ms, count) in kernel_times(torch, run, pattern).items():
+        print(f"[kernel] {name}: {kernel} {ms:.4f} ms x{count:.0f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -97,7 +97,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using namespace tf32x3;   // split precision, K-major swizzled tiles, wgmma sync
 
 constexpr int kThreads = 256;      // two warpgroups per CTA
 constexpr int kMaxQ = 128;         // longest chunk: eight 16-row blocks
@@ -161,16 +165,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, 
   }
 }
 
-// Split precision: hi keeps the top 10 mantissa bits (a TF32 value), lo the
-// rest (the tensor core reads its top 10 bits).
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const float h = tf32_hi(x);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(x - h);
-}
 __device__ __forceinline__ void split_a(const float (&a)[4], uint32_t (&ah)[4],
                                         uint32_t (&al)[4]) {
 #pragma unroll
@@ -192,50 +186,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, al, bh[0], bh[1]);
   mma_tf32(d, ah, bl[0], bl[1]);
   mma_tf32(d, ah, bh[0], bh[1]);
-}
-
-// --- wgmma (TF32, A from registers, B from shared memory) -------------------
-//
-// B tiles are K-major with the 128-byte swizzle: a row per column n of the
-// product, 32 values of k (128 bytes) per row, blocks of 32 k one after the
-// other (a block is rows x 128 bytes), the 16-byte chunks of row r
-// XOR-permuted by r % 8, every block 1,024-byte aligned.
-
-__device__ __forceinline__ int km_offset(int row, int k, int rows) {   // in floats
-  return (((k >> 5) * rows + row) * 32 + (k & 31)) ^ ((row & 7) << 2);
-}
-
-// Descriptor of a K-major 128-byte-swizzled operand at shared address addr.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(1) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
-}
-// The descriptor of k-step ks (8 values of k) of a B tile, rows [row0, row0 + 32).
-__device__ __forceinline__ uint64_t desc_k8(const float* tile, int rows, int row0, int ks) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-  return desc_sw128(a + ((ks >> 2) * rows + row0) * 128 + (ks & 3) * 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of registers across an
-// asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D (64 x 64, f32) += A (64 x 8, tf32, registers) B (8 x 64, tf32, shared, K-major).

@@ -25,9 +25,10 @@ nothing along S. Two routes, picked by shape:
   and a state N that is a multiple of 8, up to 64, and chunks up to 128
   (zamba2's, and Mamba2's usual head dim): a smaller P, or N, is padded
   with zeros, which add nothing;
-- the wide one (``wide.py``, ``csrc/ssd_wide.cu``) takes the larger
-  shapes, P and N up to 1,024 and chunks up to 512 (the xLSTM's mLSTM:
-  P = 513, N = 512, chunk 512).
+- the wide one (``wide.py``, ``csrc/ssd_wide.cu``, four launches) takes
+  the larger shapes, P and N up to 1,024 and chunks up to 512 (the xLSTM's
+  mLSTM: P = 513, N = 512, chunk 512); it reads xdt, b and c and writes y
+  with every row on 16 bytes, through copies where they are not so.
 
 A shape beyond both is refused. ``LAUNCHES`` counts scans run on the
 first route (each is two kernel launches), ``wide.LAUNCHES`` those on the
@@ -123,7 +124,7 @@ def ssd_scan_heads(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor, c: to
         return _plain(xdt, loga, b, c, chunk)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan_heads: unsupported device {xdt.device}")
-    y = torch.empty(bsz, s, h, p, dtype=torch.float32, device=xdt.device).transpose(1, 2)
+    y = wide.empty_aligned((bsz, s, h, p), xdt.device).transpose(1, 2)
     return _run(xdt, loga, b, c, int(chunk), y)
 
 
@@ -140,14 +141,6 @@ def _launch(xdt, loga, b, c, chunk: int):
     y = torch.empty(bh, s, p, dtype=torch.float32, device=xdt.device)
     _, st = _run(xdt[None], loga[None], b[None], c[None], chunk, y[None])
     return y, st[0]
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself if its last dim is contiguous and every row starts on 16
-    bytes (the kernels' cp.async copies), else a contiguous copy."""
-    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-        and all(st % 4 == 0 for st in t.stride()[:-1])
-    return t if ok else t.contiguous()
 
 
 def frame(xdt, loga, b, c, q: int, y, states=None):
@@ -176,7 +169,7 @@ def frame(xdt, loga, b, c, q: int, y, states=None):
 def _run(xdt, loga, b, c, chunk: int, y, states=None):
     """Checks, then the scan on the card through the route that holds the
     shape: the first where P and N <= 64 and the chunk <= 128, else the
-    wide one (``wide.launch``). y (B, H, S, P) float32 is written in place.
+    wide one (``_run_wide``). y (B, H, S, P) float32 is written in place.
     ``states``, if given, is the kernels' scratch for the state after each
     chunk (``frame``), so that a test can read it back."""
     bsz, h, s, p = xdt.shape
@@ -207,20 +200,35 @@ def _run(xdt, loga, b, c, chunk: int, y, states=None):
                          F.pad(c, (0, pad_n)), chunk, y_pad)
             y.copy_(y_pad[..., :p])
             return y, st[..., :n, :p].contiguous()
-        xdt, b, c = _aligned(xdt), _aligned(b), _aligned(c)
-        launch = _launch_first
-    elif q <= wide.MAX_CHUNK and p <= wide.MAX_DIM and n <= wide.MAX_DIM:
-        xdt, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (xdt, b, c))
-        launch = wide.launch
-    else:
-        raise ValueError(f"ssd_chunked_scan: chunk {q} with P={p}, N={n} is beyond both "
-                         f"routes: the first takes chunks up to {MAX_CHUNK} and P and N up "
-                         f"to {HEAD_DIM}, the wide one chunks up to {wide.MAX_CHUNK} and P "
-                         f"and N up to {wide.MAX_DIM}")
+        xdt, b, c = wide.aligned(xdt), wide.aligned(b), wide.aligned(c)
+        s_fin, states, dims, strides = frame(xdt, loga, b, c, q, y, states)
+        if bsz * h == 0:
+            return y, s_fin
+        return _launch_first(xdt, loga, b, c, q, y, s_fin, states, dims, strides)
+    if q <= wide.MAX_CHUNK and p <= wide.MAX_DIM and n <= wide.MAX_DIM:
+        return _run_wide(xdt, loga, b, c, q, y, states)
+    raise ValueError(f"ssd_chunked_scan: chunk {q} with P={p}, N={n} is beyond both "
+                     f"routes: the first takes chunks up to {MAX_CHUNK} and P and N up "
+                     f"to {HEAD_DIM}, the wide one chunks up to {wide.MAX_CHUNK} and P "
+                     f"and N up to {wide.MAX_DIM}")
+
+
+def _run_wide(xdt, loga, b, c, q: int, y, states=None):
+    """The wide route for chunk q (<= S), as ``_run`` has checked the
+    tensors: xdt, b and c are copied where their rows do not start on 16
+    bytes (``wide.aligned``), and y is written through such a copy where its
+    rows do not. Tests call it to force the route at shapes the first route
+    holds. Returns (y, s_fin)."""
+    xdt, b, c = wide.aligned(xdt), wide.aligned(b), wide.aligned(c)
+    if not wide.is_aligned(y):
+        out = wide.empty_aligned(y.shape, y.device)
+        _, st = _run_wide(xdt, loga, b, c, q, out, states)
+        y.copy_(out)
+        return y, st
     s_fin, states, dims, strides = frame(xdt, loga, b, c, q, y, states)
-    if bsz * h == 0:
+    if y.shape[0] * y.shape[1] == 0:
         return y, s_fin
-    return launch(xdt, loga, b, c, q, y, s_fin, states, dims, strides)
+    return wide.launch(xdt, loga, b, c, q, y, s_fin, states, dims, strides)
 
 
 def _launch_first(xdt, loga, b, c, q: int, y, s_fin, states, dims, strides):

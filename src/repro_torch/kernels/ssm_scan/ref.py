@@ -11,9 +11,11 @@ decay a_t = exp(loga_t) (Mamba2's scalar-identity A):
 dt * A (negative). ``ssd_scan_reference`` is the sequential oracle,
 ``ssd_chunked_ref`` the chunked matrix form the CUDA kernels compute,
 ``ssd_chunk_state_ref`` and ``ssd_chunk_out_ref`` its two phases as the
-kernels' two launches split it (C B^T and the chained state after each
-chunk; then the output; composed in ``ssd_chunked_phases_ref``), and
-``ssd_decode_step`` one recurrent token step.
+first route's two launches split it (C B^T and the chained state after each
+chunk; then the output; composed in ``ssd_chunked_phases_ref``; the chained
+state is itself each chunk's local state, ``ssd_chunk_local_ref``, chained
+elementwise, ``ssd_state_chain_ref``, as the wide route's launches split
+it), and ``ssd_decode_step`` one recurrent token step.
 """
 
 from __future__ import annotations
@@ -91,24 +93,41 @@ def _chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.nn.functional.pad(t.float(), pad).reshape(bh, -1, q, *t.shape[2:])
 
 
+def ssd_chunk_local_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cum (BH, nc, q) and each chunk's local state (BH, nc, N, P), (B .
+    exp(cum_q - cum))^T xdt over that chunk alone: the state the chunk
+    leaves from a zero state, for every chunk at once (the wide route's
+    cum and state launches)."""
+    x, bb = _chunks(xdt, chunk), _chunks(b, chunk)
+    cum = torch.cumsum(_chunks(loga, chunk), dim=-1)
+    wdec = torch.exp(cum[..., -1:] - cum)
+    return cum, torch.einsum("zkqn,zkqp->zknp", bb * wdec[..., None], x)
+
+
+def ssd_state_chain_ref(cum: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """The state after each chunk (BH, nc, N, P), S_k = exp(cum_q,k) S_{k-1}
+    + local_k from S_{-1} = 0: elementwise along the chunks (the wide
+    route's chain launch)."""
+    state = torch.zeros_like(local[:, 0])
+    states = []
+    for k in range(local.shape[1]):
+        state = torch.exp(cum[:, k, -1])[:, None, None] * state + local[:, k]
+        states.append(state)
+    return torch.stack(states, dim=1)
+
+
 def ssd_chunk_state_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
                         c: torch.Tensor, chunk: int = 128):
     """Launch 1: cum (BH, nc, q), C B^T (BH, nc, q, q) (the kernel keeps its
     blocks on and below the diagonal, once per group) and the state after
     each chunk (BH, nc, N, P), S_k = exp(cum_q,k) S_{k-1} + (B .
     exp(cum_q - cum))^T xdt, the chain along the chunks that the kernel's
-    CTAs pass on to each other (its ``states`` scratch)."""
-    x, bb, cc = _chunks(xdt, chunk), _chunks(b, chunk), _chunks(c, chunk)
-    cum = torch.cumsum(_chunks(loga, chunk), dim=-1)
-    cb = torch.einsum("zkin,zkjn->zkij", cc, bb)
-    wdec = torch.exp(cum[..., -1:] - cum)
-    local = torch.einsum("zkqn,zkqp->zknp", bb * wdec[..., None], x)
-    state = torch.zeros_like(local[:, 0])
-    states = []
-    for k in range(local.shape[1]):
-        state = torch.exp(cum[:, k, -1])[:, None, None] * state + local[:, k]
-        states.append(state)
-    return cum, cb, torch.stack(states, dim=1)
+    CTAs pass on to each other (its ``states`` scratch): the local states
+    (``ssd_chunk_local_ref``) chained (``ssd_state_chain_ref``)."""
+    cum, local = ssd_chunk_local_ref(xdt, loga, b, chunk)
+    cb = torch.einsum("zkin,zkjn->zkij", _chunks(c, chunk), _chunks(b, chunk))
+    return cum, cb, ssd_state_chain_ref(cum, local)
 
 
 def ssd_chunk_out_ref(xdt: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,

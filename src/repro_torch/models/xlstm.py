@@ -14,7 +14,8 @@ so the normaliser n rides along as one extra value column (P + 1). The
 prefill scans through ``kernels.ssm_scan.ssd_scan_heads``, each head its
 own group (G = H): on the card that is K3's wide route at the xLSTM's
 shape (P = 513, N = 512, chunk 512), reading xdt, loga, k and q in the
-mixer's (B, S, H, ·) layout through strided views and writing y in it; on
+mixer's (B, S, H, ·) layout through strided views and writing y in it,
+xdt's and y's rows padded to 516 floats so that each starts on 16 bytes; on
 the CPU its plain version, the reference's ``ssd_chunked_ref``. Decode
 steps the (B, H, N, P + 1) state with the plain ``ssd_decode_step``, as
 the reference does outside any kernel. Types follow the reference: q, k
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import ssd_scan_heads
 from repro_torch.kernels.ssm_scan.ref import ssd_decode_step
+from repro_torch.kernels.ssm_scan.wide import empty_aligned
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm
 
@@ -76,6 +78,20 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> torch.Tensor:
     return torch.zeros(batch, nh, p_dim, p_dim + 1, dtype=torch.float32, device=device)
 
 
+def values_ext(v: torch.Tensor, i_gate: torch.Tensor) -> torch.Tensor:
+    """The values extended with the normaliser column, [v ‖ 1] i, float32 in
+    the mixer's (B, S, nh, P + 1): a view of a buffer whose last dim is
+    padded to a multiple of 4, so that every row starts on 16 bytes, as K3's
+    wide route reads them (it copies rows that do not). Each entry is the
+    float32 product v i (i itself in the last column), as
+    ``cat([v, 1]) * i`` gives it."""
+    bsz, s, nh, p_dim = v.shape
+    ext = empty_aligned((bsz, s, nh, p_dim + 1), v.device)
+    ext[..., :p_dim] = v.float() * i_gate[..., None]
+    ext[..., p_dim] = i_gate
+    return ext
+
+
 def mlstm_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 state: Optional[torch.Tensor] = None,
                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -95,9 +111,7 @@ def mlstm_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
     f_gate = torch.sigmoid(xf @ p["wf"])
     loga = torch.log(torch.clamp_min(f_gate, 1e-6))
 
-    # values extended with the normaliser column, in the mixer's (B, S, nh, P + 1)
-    v_ext = torch.cat([v.float(), torch.ones(bsz, s, nh, 1, device=x.device)], dim=-1) \
-        * i_gate[..., None]
+    v_ext = values_ext(v, i_gate)
     b_f, c_f = k.float(), q.float()
 
     new_state = None

@@ -20,8 +20,8 @@ the kernels that take the most device time and the share of the port's
 own kernels (K1 ``sgns_lifetime`` and its write-back: its keys, the
 library's radix sort and the short and long row segments; K2 ``flash``; K3
 ``ssd_chunk_state`` and ``ssd_chunk_out``, and its wide route's
-``wide_cum``, ``wide_cb``, ``wide_state`` and ``wide_out``) in the device
-time.
+``wide_cum``, ``wide_cb_state``, ``wide_chain`` and ``wide_out``) in the
+device time.
 
     PYTHONPATH=src python3 -m repro_torch.profile [embed]
 
@@ -43,11 +43,12 @@ LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
 # Substrings of the port's kernel names: "flash_kernel" matches both of
 # K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16); K3 is two
-# launches, its states (with C B^T) and its output, and its wide route four.
+# launches, its states (with C B^T) and its output, and its wide route four:
+# cum, C B^T with the chunks' local states, their chain, and the output.
 OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "sgns_wb_segments_kernel", "sgns_wb_long_kernel", "flash_kernel",
                "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
-               "wide_cb_kernel", "wide_state_kernel", "wide_out_kernel")
+               "wide_cb_state_kernel", "wide_chain_kernel", "wide_out_kernel")
 SHARDS = 2
 
 

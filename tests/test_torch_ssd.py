@@ -216,6 +216,38 @@ def test_phases_compose_to_chunked_ref(bh, s, p, n, chunk):
     torch.testing.assert_close(states[:, -1], want_s, atol=PHASES_TOL, rtol=PHASES_TOL)
 
 
+@pytest.mark.parametrize("bh,s,p,n,chunk", [
+    (2, 300, 97, 96, 256), (1, 600, 100, 36, 512), (3, 130, 12, 130, 64),
+    (1, 700, 513, 512, 512)])                # the mLSTM's width, a ragged second chunk
+def test_local_states_and_chain_compose_to_chunked_ref(bh, s, p, n, chunk):
+    """The wide route's split of the state phase at wide shapes, with the
+    mixer's decay (-softplus(N(0, 1)), so that exp(cum) underflows over a
+    long chunk): each chunk's local state is the state that chunk alone
+    leaves from a zero state (``ssd_chunked_ref`` over its steps), the
+    elementwise chain of the local states gives the chunked scan's state
+    at every chunk boundary, and the phases composed give
+    ``ssd_chunked_ref``."""
+    rng = np.random.default_rng(s + p)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((bh, s, p)), -np.logaddexp(0, rng.standard_normal((bh, s))),
+        rng.standard_normal((bh, s, n)) / np.sqrt(n), rng.standard_normal((bh, s, n)))]
+    xdt, loga, b, c = args
+    q = min(chunk, s)
+    cum, local = ref.ssd_chunk_local_ref(xdt, loga, b, chunk)
+    states = ref.ssd_state_chain_ref(cum, local)
+    for k in range(-(-s // q)):
+        sl = slice(k * q, min(s, (k + 1) * q))
+        _, alone = ref.ssd_chunked_ref(xdt[:, sl], loga[:, sl], b[:, sl], c[:, sl], chunk=q)
+        torch.testing.assert_close(local[:, k], alone, atol=PHASES_TOL, rtol=PHASES_TOL)
+        _, upto = ref.ssd_chunked_ref(xdt[:, :sl.stop], loga[:, :sl.stop], b[:, :sl.stop],
+                                      c[:, :sl.stop], chunk=q)
+        torch.testing.assert_close(states[:, k], upto, atol=PHASES_TOL, rtol=PHASES_TOL)
+    y, st = ref.ssd_chunked_phases_ref(*args, chunk=chunk)
+    want_y, want_s = ref.ssd_chunked_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y, want_y, atol=PHASES_TOL, rtol=PHASES_TOL)
+    torch.testing.assert_close(st, want_s, atol=PHASES_TOL, rtol=PHASES_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,p,n,chunk", [
     *[(*shape, 32) for shape in SHAPES],

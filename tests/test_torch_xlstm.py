@@ -414,6 +414,44 @@ def test_wide_route_refuses_what_it_cannot_hold():
                      torch.zeros(1, 1, 16, 8), 16, torch.empty(1, 1, 16, 1025))
 
 
+def test_aligned_values_give_the_same_prefill_and_decode(models, monkeypatch):
+    """The mixer's values with the normaliser column on rows padded to 16
+    bytes (``xlstm.values_ext``) equal ``cat([v, 1]) * i``, the layout the
+    mixer built before, bit for bit, and so do a prefill and a decode step
+    through either."""
+    _, _, cfg, params = models
+    p = params["group_0"][0]["b0"]["mixer"]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 21, cfg.d_model)).astype(np.float32))
+    v = torch.randn(2, 21, 4, 32, generator=torch.Generator().manual_seed(1))
+    i_gate = torch.rand(2, 21, 4, generator=torch.Generator().manual_seed(2))
+    ext = xlstm.values_ext(v, i_gate)
+    assert ssd_wide.is_aligned(ext) and ext.shape == (2, 21, 4, 33)
+    assert torch.equal(ext, torch.cat([v, torch.ones(2, 21, 4, 1)], dim=-1) * i_gate[..., None])
+    runs = []
+    for layout in ("aligned", "cat"):
+        if layout == "cat":
+            monkeypatch.setattr(xlstm, "values_ext", lambda v, i: torch.cat(
+                [v.float(), torch.ones(*v.shape[:3], 1)], dim=-1) * i[..., None])
+        y, state = xlstm.mlstm_mixer(x, p, cfg, return_state=True)
+        y1, state1 = xlstm.mlstm_mixer(x[:, :1], p, cfg, state=state)
+        runs.append((y, state, y1, state1))
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
+def test_aligned_copies_keep_values_and_put_rows_on_16_bytes():
+    """``wide.aligned`` returns a tensor whose rows start on 16 bytes as it
+    is, and copies any other into rows padded to a multiple of 4 floats."""
+    base = torch.arange(2 * 5 * 3 * 16, dtype=torch.float32).reshape(2, 5, 3, 16)
+    odd = torch.arange(2 * 5 * 3 * 7, dtype=torch.float32).reshape(2, 5, 3, 7)
+    for t, copied in [(base[..., :13], False), (base[..., :13].transpose(1, 2), False),
+                      (base[..., 1:14], True), (odd, True), (odd.transpose(1, 2), True)]:
+        out = ssd_wide.aligned(t)
+        assert ssd_wide.is_aligned(out) and torch.equal(out, t)
+        assert (out.data_ptr() != t.data_ptr()) == copied
+
+
 # --- on the card ---------------------------------------------------------------
 
 def _card():
@@ -421,31 +459,41 @@ def _card():
         pytest.skip("needs an NVIDIA GPU")
 
 
-# (B, H, S, P, N, chunk): the xLSTM's prefill wave, a ragged S, nine chunks
-WIDE_MLSTM_CASES = [(4, 4, 2048, 513, 512, 512), (4, 4, 1100, 513, 512, 512),
-                    (2, 4, 4608, 513, 512, 512)]
+# (B, H, S, P, N, chunk): the xLSTM's prefill wave (the traffic's longest
+# prompt, 1,819, and 2,048), a ragged S, nine chunks
+WIDE_MLSTM_CASES = [(4, 4, 1819, 513, 512, 512), (4, 4, 2048, 513, 512, 512),
+                    (4, 4, 1100, 513, 512, 512), (2, 4, 4608, 513, 512, 512)]
 # (BH, S, P, N, chunk): the reference's kernel test cases (tests/test_kernels.py)
 REF_CASES = [(2, 64, 16, 8, 32), (4, 128, 32, 16, 32), (1, 200, 64, 32, 32),
              (3, 96, 8, 64, 32)] + [(2, 128, 16, 8, q) for q in (16, 64, 128)]
 
 
-def _wide_vs_plain(xdt, loga, b, c, chunk):
-    """The wide route on the card (``wide.launch``, framed as ``ops._run``
-    frames it, so that shapes the first route holds go through it too) with
-    its chunk-state scratch NaN-filled, against the plain route on the same
-    tensors; returns the launches it counted."""
+def _wide_vs_plain(xdt, loga, b, c, chunk, y=None):
+    """The wide route on the card (``ops._run_wide``, so that shapes the
+    first route holds go through it too) with its chunk-state scratch
+    NaN-filled, against the plain route on the same tensors: y, the final
+    state and the state after each chunk (``ref.ssd_chunk_state_ref`` on B
+    and C expanded to every head). y is written into the given view, else
+    into one of a (B, S, H, P) tensor. Returns the launches it counted."""
     bsz, h, s, p = xdt.shape
+    g, n = b.shape[1], b.shape[-1]
     q = min(chunk, s)
-    y = torch.empty(bsz, s, h, p, device="cuda").transpose(1, 2)
-    states = torch.full((bsz, h, -(-s // q), b.shape[-1], p), float("nan"), device="cuda")
+    if y is None:
+        y = torch.empty(bsz, s, h, p, device="cuda").transpose(1, 2)
+    states = torch.full((bsz, h, -(-s // q), n, p), float("nan"), device="cuda")
     before = ssd_wide.LAUNCHES
-    args = (xdt, loga, b, c)
-    y, st = ssd_wide.launch(*args, q, y, *ssd_ops.frame(*args, q, y, states))
+    out, st = ssd_ops._run_wide(xdt, loga, b, c, q, y, states)
     torch.cuda.synchronize()
+    assert out is y
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     want_y, want_s = ssd_ops._plain(xdt, loga, b, c, chunk=chunk)
     torch.testing.assert_close(y, want_y, atol=KERNEL_TOL, rtol=KERNEL_TOL)
     torch.testing.assert_close(st, want_s, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    rep = lambda t: t.repeat_interleave(h // g, dim=1).reshape(bsz * h, s, n)
+    _, _, want = ssd_ref.ssd_chunk_state_ref(xdt.reshape(bsz * h, s, p),
+                                             loga.reshape(bsz * h, s), rep(b), rep(c), chunk)
+    torch.testing.assert_close(states.reshape(want.shape), want, atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
     return ssd_wide.LAUNCHES - before
 
 
@@ -478,6 +526,88 @@ def test_wide_route_matches_plain_version_at_reference_cases_on_the_card(bh, s, 
     loga = cuda(-np.logaddexp(0, rng.standard_normal((1, bh, s))))
     b, c = cuda(rng.standard_normal((1, bh, s, n))), cuda(rng.standard_normal((1, bh, s, n)))
     assert _wide_vs_plain(xdt, loga, b, c, chunk) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,h,g,s,p,n,chunk", [
+    (1, 2, 2, 700, 100, 36, 256),        # P and N not multiples of 8 or of the tile
+    (1, 1, 1, 600, 1024, 1024, 512),     # the largest P and N
+    (2, 8, 2, 600, 64, 128, 256),        # four heads a group: a Mamba2 shape (N 128)
+    (1, 2, 2, 300, 513, 512, 512)])      # S shorter than the chunk
+def test_wide_route_matches_plain_version_at_other_shapes_on_the_card(bsz, h, g, s, p, n,
+                                                                      chunk):
+    """The wide route at shapes it takes beside the mLSTM's, picked by
+    ``ops._run`` from the shape, with the mixer's decay and distinct B and C
+    per group, so that a kernel reading another head's group fails."""
+    _card()
+    from repro_torch.kernels.ssm_scan import bench
+
+    args = bench.heads_inputs(torch, bsz, h, g, s, p, n, seed=s + p)
+    assert _wide_vs_plain(*args, chunk) == 1
+    before = ssd_ops.LAUNCHES, ssd_wide.LAUNCHES
+    ssd_ops.ssd_scan_heads(*args, chunk=chunk)
+    assert (ssd_ops.LAUNCHES, ssd_wide.LAUNCHES) == (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_wide_route_copies_unaligned_rows_on_the_card():
+    """Rows that do not start on 16 bytes (xdt, b and c sliced one float in
+    from wider tensors, y a view of such rows) go through ``ops._run``'s
+    aligned copies; y is written into the view the caller gave."""
+    _card()
+    from repro_torch.kernels.ssm_scan import bench
+
+    bsz, h, g, s, p, n, chunk = 2, 3, 3, 300, 70, 68, 128
+    x, loga, b, c = bench.heads_inputs(torch, bsz, h, g, s, p + 1, n + 1, seed=5)
+    xdt, b, c = x[..., 1:], b[..., 1:], c[..., 1:]
+    y = torch.empty(bsz, s, h, p + 1, device="cuda").transpose(1, 2)[..., 1:]
+    assert not any(ssd_wide.is_aligned(t) for t in (xdt, b, c, y))
+    assert _wide_vs_plain(xdt, loga, b, c, chunk, y=y) == 1
+
+
+def _chunked_float64(xdt, loga, b, c, chunk):
+    """``ssd_chunked_ref``'s function in float64: (y, final state)."""
+    bh, s, p = xdt.shape
+    q = min(chunk, s)
+    pad = lambda t: torch.nn.functional.pad(t.double(), (0, 0) * (t.dim() - 2) + (0, (-s) % q))
+    x, la, bb, cc = pad(xdt), pad(loga), pad(b), pad(c)
+    state = torch.zeros(bh, b.shape[-1], p, dtype=torch.float64, device=xdt.device)
+    lower = torch.ones(q, q, dtype=torch.bool, device=xdt.device).tril()
+    ys = []
+    for k in range(x.shape[1] // q):
+        sl = slice(k * q, (k + 1) * q)
+        cum = torch.cumsum(la[:, sl], dim=-1)
+        decay = torch.where(lower, torch.exp(cum[:, :, None] - cum[:, None, :]),
+                            torch.zeros((), dtype=torch.float64, device=xdt.device))
+        ys.append(torch.einsum("zqk,zkp->zqp", torch.einsum("zqn,zkn->zqk", cc[:, sl], bb[:, sl])
+                               * decay, x[:, sl])
+                  + torch.einsum("zqn,znp->zqp", cc[:, sl] * torch.exp(cum)[..., None], state))
+        state = torch.exp(cum[:, -1])[:, None, None] * state + torch.einsum(
+            "zqn,zqp->znp", bb[:, sl] * torch.exp(cum[:, -1:, None] - cum[..., None]), x[:, sl])
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1819, 1850])
+def test_wide_route_holds_a_float64_reference_on_the_card(s):
+    """At the mLSTM's scan (the xLSTM's prefill wave, and that wave 31
+    tokens later, as a fresh prefill in the decode check sees it) the
+    route's final state is within 3e-6 and y within 1e-5 of a float64
+    reference, relative to each tensor's largest entry: cum near -400 is
+    summed in float64, so the decays carry no float32 rounding of cum (a
+    float32 cum put the state 1.5e-5 off, and the bf16 model's decode past
+    its bound from a fresh prefill)."""
+    _card()
+    from repro_torch.kernels.ssm_scan import bench
+
+    args = bench.mlstm_inputs(torch, 4, 4, s, 513, 512, seed=s)
+    y, st = ssd_ops.ssd_scan_heads(*args, chunk=512)
+    flat = lambda t: t.reshape(16, s, -1)
+    want_y, want_s = _chunked_float64(flat(args[0]), args[1].reshape(16, s), flat(args[2]),
+                                      flat(args[3]), 512)
+    rel = lambda got, want: ((got.double() - want).abs().max() / want.abs().max()).item()
+    assert rel(st.reshape(want_s.shape), want_s) <= 3e-6
+    assert rel(y.reshape(want_y.shape), want_y) <= 1e-5
 
 
 @pytest.mark.cuda
