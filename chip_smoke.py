@@ -12,7 +12,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    and the wide route, ``ssd_wide.cu``). Print the compiler's
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
-   (``flash_kernel_sm90``) issues wgmma (``HGMMA``) and TMA loads
+   (``flash_kernel_sm90`` up to head dim 128, and ``flash_kernel_sm90_wide``
+   at MLA's 288, one build with v read apart and one with v = k) issues
+   wgmma (``HGMMA``) and TMA loads
    (``UTMALDG``), and in the SSD libraries' that every product kernel runs
    on the tensor cores in TF32 (the first route's two kernels ``HGMMA``
    ... ``TF32``, its C B^T blocks ``HMMA`` ... ``TF32``; the wide route's
@@ -25,7 +27,11 @@ Phases (each failure raises and ends the run with a non-zero exit):
    ``q_offset`` and without the causal mask, and at both LM paths'
    prefill shapes (2e-3 in float32 against ``mha_reference``, through the
    SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
-   against ``mha_chunked`` printed beside); the SSD scan in the
+   against ``mha_chunked`` printed beside); at MLA's latent head dim 288
+   with one KV head and MLA's sm_scale, in both types: minicpm3-4b's
+   prefill shape with v a tensor of its own, the zero-padded latent and k
+   itself (whose first 256 columns must match the padded latent's), a
+   ragged Sq with q_offset > 0 and a non-causal case; the SSD scan in the
    reference's 3-D form at its test shapes and chunks and at zamba2's
    prefill shape with the model's decay, where the masked decay overflows
    above the diagonal, and in the mixer's form (strided views, B and C per
@@ -84,11 +90,21 @@ Phases (each failure raises and ends the run with a non-zero exit):
    prefill wall time, and the wide route's time at the prefill shape
    against its plain version, its bound and the 3xTF32 floor, with each of
    its kernels' device time.
+7. The MLA LM path: the same traffic served by minicpm3-4b at full width
+   and depth (62 layers of multi-head latent attention: d 2,560, 40 heads,
+   q_lora_rank 768, the KV latent 256 + rope 32; 4.07 B parameters, bf16,
+   seeded random weights). Flash attention must have launched 62 times per
+   prefill, on the latent (one KV head, D = 288, k passed as v); the
+   fresh-prefill check holds every layer's latent cache (ckv, krope) over
+   positions [0, plen + n), and the three cache faults must move it beyond
+   its bounds. Then time flash attention at minicpm3-4b's prefill shape
+   against its plain version, its bound and two SDPA calls (enable_gqa,
+   and k expanded to every head), each with the backend PyTorch picked.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers (flash
-attention's at qwen3-1.7b's prefill shape, and under ``by_shape`` at both
-models') and, last, the device line.
+attention's at qwen3-1.7b's prefill shape, and under ``by_shape`` at every
+model's) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -126,6 +142,12 @@ FLASH_CASES = [(1, 1, 1, 128, 128, 64, c, 0, "float32") for c in (True, False)] 
                (1, 2, 2, 128, 256, 64, True, 128, "bfloat16"),
                (1, 4, 2, 333, 333, 96, True, 0, "bfloat16"),
                (2, 4, 4, 200, 200, 112, False, 0, "bfloat16")]
+# K2 on MLA's latent: (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, v) at D =
+# 288 with MLA_SCALE, in both types; v a tensor of its own, the zero-padded
+# latent, or k itself. minicpm3-4b's prefill shape is added in main().
+MLA_SCALE = (64 + 32) ** -0.5      # minicpm3-4b: (qk_nope_dim + qk_rope_dim) ** -0.5
+MLA_FLASH_CASES = [(1, 4, 1, 77, 333, 288, True, 256, "k"), (2, 4, 1, 200, 512, 288, False, 0, "k"),
+                   (2, 8, 1, 333, 333, 288, True, 0, "own")]
 SSD_TOL = 3e-3
 # The reference's SSD kernel test cases (tests/test_kernels.py):
 # (BH, S, P, N, chunk).
@@ -141,6 +163,7 @@ WIDE_MLSTM_CASES = [(4, 4, 2048, 513, 512, 512), (4, 4, 1100, 513, 512, 512),
 LM_ARCH = "qwen3-1.7b"
 HYBRID_ARCH = "zamba2-7b"
 RECURRENT_ARCH = "xlstm-350m"
+MLA_ARCH = "minicpm3-4b"
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
@@ -167,12 +190,17 @@ KV_CHECK_STEPS = (1, 16, 31)
 # reference's, and the mixers' states match the reference's within 2e-4
 # through 31 bf16 decode steps (tests/test_torch_xlstm.py); in float32 the
 # port's decode equals a fresh prefill within 1.8e-4 after 1, 16 and 31
-# steps at full width on the card (the same file's card test).
+# steps at full width on the card (the same file's card test). minicpm3-4b
+# (the MLA latent cache, ckv and krope, compared over positions [0, plen +
+# n)): logits 0.0093, ckv 0.0157, krope 0.0160; faults: cache length -1 or
+# +1 ckv 0.988, the rope phase +1 krope 0.935 (ckv 0.032: the latent
+# carries no phase); in float32 its decode equals a fresh prefill within
+# 3.2e-6 (tests/test_torch_mla.py, on the card).
 BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
           "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3},
-          "xlstm-350m": {"logits": 0.2, "mlstm": 0.5, "c": 0.5, "n": 0.4, "h": 0.9}}
+          "xlstm-350m": {"logits": 0.2, "mlstm": 0.5, "c": 0.5, "n": 0.4, "h": 0.9},
+          "minicpm3-4b": {"logits": 5e-2, "ckv": 0.1, "krope": 0.1}}
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
-H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -507,30 +535,37 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
 
 # --- flash attention (K2) ---------------------------------------------------
 
-def flash_inputs(torch, b, hq, hkv, sq, skv, d, dtype, seed, device):
-    gen = torch.Generator().manual_seed(seed)
-    dt = getattr(torch, dtype)
-    return tuple(torch.randn(*s, generator=gen).to(device, dt)
-                 for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-
-
-def flash_check(torch, fa_ops, fa_ref, case, seed, device) -> tuple:
+def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own") -> tuple:
     """Kernel against ``mha_reference`` on the card; raises outside the
-    tolerance. Returns the max abs error against it and, in bfloat16,
-    against ``mha_chunked`` (which rounds P to bf16 for P.V, as the wgmma
-    kernel does), else None."""
+    tolerance. With ``v_mode`` "k" (MLA's call) the kernel's first 256
+    columns must also match ``mha_reference`` on the zero-padded latent
+    (the reference's v). Returns the max abs error against it and, in
+    bfloat16, against ``mha_chunked`` (which rounds P to bf16 for P.V, as
+    the wgmma kernel does), else None."""
+    from repro_torch.kernels.flash_attention import bench as fa_bench
+
     b, hq, hkv, sq, skv, d, causal, q_offset, dtype = case
-    q, k, v = flash_inputs(torch, b, hq, hkv, sq, skv, d, dtype, seed, device)
-    got = fa_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset).float()
-    want = fa_ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset).float()
+    q, k, v = fa_bench.inputs(torch, b, hq, hkv, sq, skv, d, seed, getattr(torch, dtype), v_mode)
+    kw = dict(causal=causal, q_offset=q_offset, sm_scale=sm_scale)
+    got = fa_ops.flash_attention(q, k, v, **kw).float()
+    want = fa_ref.mha_reference(q, k, v, **kw).float()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = FLASH_TOL[dtype]
     if not torch.allclose(got, want, atol=tol, rtol=tol):
         raise AssertionError(f"flash_attention {case}: differs by {err:.3e}")
+    if v_mode == "k":
+        rank = fa_bench.MLA_RANK
+        padded = torch.nn.functional.pad(k[..., :rank], (0, d - rank))
+        lat = fa_ref.mha_reference(q, k, padded, **kw)[..., :rank].float()
+        if not torch.allclose(got[..., :rank], lat, atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention {case} with v = k: the latent's columns "
+                                 f"differ by {(got[..., :rank] - lat).abs().max().item():.3e}")
+        err = max(err, (got[..., :rank] - lat).abs().max().item())
+        del padded, lat
     chunked = None
     if dtype == "bfloat16":
-        chunked = fa_ref.mha_chunked(q, k, v, causal=causal, q_offset=q_offset).float()
+        chunked = fa_ref.mha_chunked(q, k, v, **kw).float()
         chunked = (got - chunked).abs().max().item()
     return err, chunked
 
@@ -547,20 +582,27 @@ def sass_functions(lib) -> list:
 
 
 def sass_check(lib, head_dims) -> None:
-    """Every bf16 flash kernel in ``lib``'s SASS, one per head dim, must
-    issue wgmma (HGMMA) and TMA tile loads (UTMALDG); raises otherwise."""
-    found = 0
+    """Every bf16 flash kernel in ``lib``'s SASS must issue wgmma (HGMMA)
+    and TMA tile loads (UTMALDG); raises otherwise. Head dims up to 128 take
+    one ``flash_kernel_sm90`` each; 288 takes ``flash_kernel_sm90_wide`` (O's
+    columns split across the two consumer warpgroups), built twice: v read
+    apart, and v = k (one tile a stage)."""
+    found = {"flash_kernel_sm90": 0, "flash_kernel_sm90_wide": 0}
     for name, fn in sass_functions(lib):
         if "flash_kernel_sm90" not in name:
             continue
-        found += 1
+        route = "flash_kernel_sm90_wide" if "flash_kernel_sm90_wide" in name else "flash_kernel_sm90"
+        found[route] += 1
         hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
-        log(f"[check] {lib.name} SASS {name}: {hgmma} HGMMA, {utmaldg} UTMALDG")
+        log(f"[check] {lib.name} SASS {name} ({route}): {hgmma} HGMMA, {utmaldg} UTMALDG")
         if not (hgmma and utmaldg):
             raise AssertionError(f"{name} issues no HGMMA or no UTMALDG")
-    if found != len(head_dims):
-        raise AssertionError(f"{found} bf16 flash kernels in the SASS, expected "
-                             f"{len(head_dims)}")
+    wide = [d for d in head_dims if d > 128]
+    want = {"flash_kernel_sm90": len(head_dims) - len(wide), "flash_kernel_sm90_wide": 2 * len(wide)}
+    if found != want:
+        raise AssertionError(f"bf16 flash kernels in the SASS {found}, expected {want}")
+    log(f"[check] head dims {wide} take the bf16 tensor-core route flash_kernel_sm90_wide "
+        "(wgmma + TMA)")
 
 
 def ssd_sass_check(lib, wide_lib) -> None:
@@ -593,36 +635,44 @@ def ssd_sass_check(lib, wide_lib) -> None:
                                  f"expected {sorted(names)}")
 
 
-def flash_bound_ms(b, hq, hkv, s, d, elem_bytes) -> tuple:
-    """Least time for causal attention at q_offset 0 on an H100: the
-    products of the visible (query, key) pairs (q.k and p.v, 2 flops each
-    per dimension) over the dense bf16 tensor-core peak, against q, k, v
-    read once and o written once over the memory rate."""
-    visible = s * (s + 1) // 2
-    flops = 4 * b * hq * d * visible
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * elem_bytes
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def flash_times(torch, fa_ops, fa_ref, case, sm_scale=None, v_mode="own") -> dict:
+    """Kernel, plain and SDPA ms and the bound at a causal prefill case
+    (with ``v_mode`` "k", MLA's call: v is k). At a head dim above 128 SDPA
+    is also timed with k and v expanded to every query head; the log names
+    the backend PyTorch picked for each call, and ``library_ms`` is the
+    faster."""
+    from repro_torch.kernels.flash_attention import bench as fa_bench
 
-
-def flash_times(torch, fa_ops, fa_ref, case, device) -> dict:
-    """Kernel, plain and SDPA ms and the bound at a causal prefill case."""
     b, hq, hkv, s, _, d, _, _, dtype = case
-    q, k, v = flash_inputs(torch, b, hq, hkv, s, s, d, dtype, seed=7, device=device)
-    kernel_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v), 20)
-    plain_ms = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v), 5)
+    q, k, v = fa_bench.inputs(torch, b, hq, hkv, s, s, d, 7, getattr(torch, dtype), v_mode)
+    kernel_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, sm_scale=sm_scale), 20)
+    plain_ms = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v, sm_scale=sm_scale), 5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
-    bound, by = flash_bound_ms(b, hq, hkv, s, d, q.element_size())
+    calls = {"enable_gqa": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True, scale=sm_scale)}
+    if d > 128:
+        kx, vx = (t.expand(b, hq, s, d) for t in (k, v))
+        calls["expanded"] = lambda: sdpa(q, kx, vx, is_causal=True, scale=sm_scale)
+    library = {}
+    for name, call in calls.items():
+        backend = fa_bench.sdpa_backend(torch, call)
+        library[name] = {"backend": backend, "ms": time_ms(torch, call, 20)}
+    best = min(library, key=lambda name: library[name]["ms"])
+    bound, by = fa_bench.bound_ms(b, hq, hkv, s, d, q.element_size())
     log(f"[time] flash_attention at the prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
-        f"{dtype}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, "
-        f"bound {bound:.6f} ms ({by})")
+        f"{dtype}" + (f", sm_scale {sm_scale:.6f}, v {v_mode}" if sm_scale else "")
+        + f": kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        + ", ".join(f"sdpa {name} ({lib['backend']}) {lib['ms']:.4f} ms"
+                    for name, lib in library.items())
+        + f", bound {bound:.6f} ms ({by}), kernel {kernel_ms / bound:.2f}x the bound")
     shapes = {"q": list(q.shape), "kv": list(k.shape)}
-    del q, k, v
+    del q, k, v, calls
     torch.cuda.empty_cache()
-    return {**shapes, "dtype": dtype, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": sdpa_ms}
+    out = {**shapes, "dtype": dtype, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": library[best]["ms"]}
+    if d > 128:
+        out.update(sm_scale=sm_scale, v=v_mode, library=f"sdpa {best} ({library[best]['backend']})",
+                   library_ms_by_call={name: lib["ms"] for name, lib in library.items()})
+    return out
 
 
 # --- chunked SSD scan (K3) --------------------------------------------------
@@ -802,10 +852,17 @@ def block_kinds(cfg) -> list:
 
 
 def cache_leaves(entry) -> dict:
-    """One layer's cache by name: an attention layer's k and v, a Mamba2
-    layer's conv and ssm, an sLSTM layer's c, n and h, or an mLSTM layer's
-    matrix memory (one tensor) as "mlstm"."""
+    """One layer's cache by name: an attention layer's k and v (an MLA
+    layer's latent ckv and krope), a Mamba2 layer's conv and ssm, an sLSTM
+    layer's c, n and h, or an mLSTM layer's matrix memory (one tensor) as
+    "mlstm"."""
     return entry if isinstance(entry, dict) else {"mlstm": entry}
+
+
+# Position-indexed caches, by name: the axis of their positions. Decode
+# writes one position of these and leaves the rest; every other cache is a
+# recurrent state that decode overwrites.
+POSITION_AXIS = {"k": 2, "v": 2, "ckv": 1, "krope": 1}
 
 
 def recurrent_states(caches) -> dict:
@@ -813,7 +870,8 @@ def recurrent_states(caches) -> dict:
     layer."""
     return {(g, r, blk): {name: t.clone() for name, t in cache_leaves(entry).items()}
             for g, reps in caches.items() for r, rep in enumerate(reps)
-            for blk, entry in rep.items() if "k" not in cache_leaves(entry)}
+            for blk, entry in rep.items()
+            if not set(cache_leaves(entry)) & set(POSITION_AXIS)}
 
 
 def tap(torch, server, seconds):
@@ -849,7 +907,8 @@ def tap(torch, server, seconds):
 
 def cache_diff(served, fresh, rows: int, states=None) -> dict:
     """For each kind of cache entry ("kv": every attention layer's k and v
-    at positions [0, rows); "conv" and "ssm": every Mamba2 layer's state;
+    at positions [0, rows); "ckv" and "krope": every MLA layer's latent at
+    those positions; "conv" and "ssm": every Mamba2 layer's state;
     "mlstm": every mLSTM layer's matrix memory; "c", "n" and "h": every
     sLSTM layer's state; the recurrent ones from ``states`` when given,
     else from ``served``), the largest |served - fresh| over that tensor's
@@ -859,10 +918,10 @@ def cache_diff(served, fresh, rows: int, states=None) -> dict:
         for r, (rep_served, rep_fresh) in enumerate(zip(served[group], reps)):
             for block, entry in rep_fresh.items():
                 for name, want in cache_leaves(entry).items():
-                    if name in ("k", "v"):
-                        kind = "kv"
-                        want = want[:, :, :rows]
-                        got = rep_served[block][name][:, :, :rows]
+                    if name in POSITION_AXIS:
+                        kind = "kv" if name in ("k", "v") else name
+                        want = want.narrow(POSITION_AXIS[name], 0, rows)
+                        got = rep_served[block][name].narrow(POSITION_AXIS[name], 0, rows)
                     else:
                         kind = name
                         src = states[(group, r, block)] if states is not None \
@@ -884,9 +943,9 @@ def kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches, snapsh
     wave's left-padded prompts plus its first n generated tokens must give
     decode step n's last-token logits, within bounds["logits"] of the
     largest |logit|, and the served caches (every attention layer's k and
-    v at the first plen + n positions, every Mamba2 layer's conv and ssm
-    state after step n), each kind within bounds[kind] of its tensor's
-    largest entry. Returns
+    v, or MLA layer's ckv and krope, at the first plen + n positions; every
+    recurrent layer's state after step n), each kind within bounds[kind] of
+    its tensor's largest entry. Returns
     the worst logits ratio and the worst of each kind."""
     worst, worst_state = 0.0, {}
     per_wave = LM_NEW_TOKENS                    # one prefill + budget-1 decode steps
@@ -940,7 +999,9 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     by -1 or +1 (the new token's key and value land in the wrong slot, and
     its rope phase shifts with it), and the rope phase alone off by +1
     (decoded at +1, then its entries moved back to the right slot); each
-    must move the k/v cache beyond its bound. With Mamba2 layers: the conv
+    must move the k/v cache beyond its bound (with MLA layers: the length
+    faults the latent ckv, the phase fault the rope key krope, which alone
+    carries the phase). With Mamba2 layers: the conv
     window shifted back by one step before the decode (it sees
     x_{t-3}, x_{t-3}, x_{t-2}, x_t), which must move the conv state beyond
     its bound, and a decode step that skips the decay exp(loga), which
@@ -962,11 +1023,15 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     fresh = fresh.float()
     scale = fresh.abs().max().item()
 
+    latent = any(True for _ in _entries(fresh_caches, "ckv"))
+    names = ("ckv", "krope") if latent else ("k", "v")
+
     def shift_kv_back(caches):
-        for kv in _entries(caches, "k"):
-            for name in ("k", "v"):
-                kv[name][:, :, plen] = kv[name][:, :, plen + 1]
-                kv[name][:, :, plen + 1] = 0
+        for kv in _entries(caches, names[0]):
+            for name in names:
+                rows = kv[name].movedim(POSITION_AXIS[name], 0)
+                rows[plen] = rows[plen + 1]
+                rows[plen + 1] = 0
 
     def shift_conv(caches):
         for st in _entries(caches, "conv"):
@@ -984,9 +1049,10 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     # ssd_decode_step skips the decay)
     faults = []
     if "a" in kinds:
-        faults += [("cache length -1", "kv", -1, None, None, None),
-                   ("cache length +1", "kv", 1, None, None, None),
-                   ("rope phase +1", "kv", 1, None, shift_kv_back, None)]
+        slot, phase = ("ckv", "krope") if latent else ("kv", "kv")
+        faults += [("cache length -1", slot, -1, None, None, None),
+                   ("cache length +1", slot, 1, None, None, None),
+                   ("rope phase +1", phase, 1, None, shift_kv_back, None)]
     if "m" in kinds:
         faults += [("conv window shifted by one", "conv", 0, shift_conv, None, None),
                    ("decode skips the decay exp(loga)", "ssm", 0, None, None, mamba_mod)]
@@ -1069,10 +1135,13 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     t0 = time.perf_counter()
     params = zoo.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
+    heads = (f"MLA: {cfg.num_heads} heads on one latent KV head of {cfg.kv_lora_rank} + "
+             f"{cfg.qk_rope_dim}, q_lora_rank {cfg.q_lora_rank}, v_head {cfg.v_head_dim}"
+             if cfg.use_mla else
+             f"heads {cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}")
     log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({kinds.count('a')} attention, "
         f"{kinds.count('m')} Mamba2, {kinds.count('x')} mLSTM, {kinds.count('s')} sLSTM), "
-        f"d {cfg.d_model}, heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count()} parameters (seed 0) in "
         f"{time.perf_counter() - t0:.2f} s")
     server = Server(cfg, params, ServerConfig(batch_slots=LM_SLOTS, max_len=LM_MAX_LEN),
@@ -1171,7 +1240,8 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         for line in lib.build_log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line \
+                    or "C75" in line:
                 log(f"[build] {lib.name}: {line.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1192,20 +1262,35 @@ def main() -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg, hy_cfg, rec_cfg = (get_config(a) for a in (LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH))
+    lm_cfg, hy_cfg, rec_cfg, mla_cfg = (get_config(a) for a in (LM_ARCH, HYBRID_ARCH,
+                                                                RECURRENT_ARCH, MLA_ARCH))
     prompts = lm_prompts(np, lm_cfg.vocab_size)
     hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
     rec_prompts = lm_prompts(np, rec_cfg.vocab_size)
+    mla_prompts = lm_prompts(np, mla_cfg.vocab_size)
     s_prefill = max(len(p) for p in prompts)     # the longest padded prompt
     prefill_case = (LM_SLOTS, lm_cfg.num_heads, lm_cfg.num_kv_heads, s_prefill, s_prefill,
                     lm_cfg.resolved_head_dim, True, 0, "bfloat16")
     hy_prefill_case = (LM_SLOTS, hy_cfg.num_heads, hy_cfg.num_kv_heads, s_prefill, s_prefill,
                        hy_cfg.resolved_head_dim, True, 0, "bfloat16")
+    mla_d = mla_cfg.kv_lora_rank + mla_cfg.qk_rope_dim
+    if (mla_d, (mla_cfg.qk_nope_dim + mla_cfg.qk_rope_dim) ** -0.5) != (288, MLA_SCALE):
+        raise AssertionError(f"{MLA_ARCH}'s latent head dim or scale is not MLA_FLASH_CASES'")
+    mla_prefill_case = (LM_SLOTS, mla_cfg.num_heads, 1, s_prefill, s_prefill, mla_d, True, 0,
+                        "bfloat16")
+    mla_cases = [(*c[:8], dt, c[8]) for c in
+                 [(*mla_prefill_case[:8], v) for v in ("own", "padded", "k")] + MLA_FLASH_CASES
+                 for dt in ("float32", "bfloat16")]
     flash_err = 0.0
-    for i, case in enumerate([*FLASH_CASES, prefill_case, hy_prefill_case]):
-        err, chunked = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, device=dev)
+    checks = [(case, None, "own") for case in [*FLASH_CASES, prefill_case, hy_prefill_case]] + \
+        [(case[:9], MLA_SCALE, case[9]) for case in mla_cases]
+    for i, (case, scale, v_mode) in enumerate(checks):
+        err, chunked = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, sm_scale=scale,
+                                   v_mode=v_mode)
         flash_err = max(flash_err, err)
-        log(f"[check] flash_attention {case}: max abs err {err:.3e} against mha_reference"
+        log(f"[check] flash_attention {case}"
+            + (f" sm_scale {scale:.6f} v {v_mode}" if scale else "")
+            + f": max abs err {err:.3e} against mha_reference"
             + (f", {chunked:.3e} against mha_chunked" if chunked is not None else ""))
         torch.cuda.empty_cache()
 
@@ -1254,18 +1339,24 @@ def main() -> int:
     # 4. the dense LM path -------------------------------------------------------
     launches = {LM_ARCH: lm_path(torch, np, counters, lm_cfg, prompts)}
     torch.cuda.empty_cache()
-    flash_shapes = {LM_ARCH: flash_times(torch, fa_ops, fa_ref, prefill_case, dev)}
+    flash_shapes = {LM_ARCH: flash_times(torch, fa_ops, fa_ref, prefill_case)}
 
     # 5. the hybrid LM path --------------------------------------------------------
     launches[HYBRID_ARCH] = lm_path(torch, np, counters, hy_cfg, hy_prompts)
     torch.cuda.empty_cache()
-    flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case, dev)
+    flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case)
     ssd = ssd_times(torch, ssd_ops, ssd_main_case, dev)
 
     # 6. the recurrent LM path -------------------------------------------------------
     launches[RECURRENT_ARCH] = lm_path(torch, np, counters, rec_cfg, rec_prompts)
     torch.cuda.empty_cache()
     wide_t = wide_times(torch, ssd_ops, wide_main_case, dev)
+
+    # 7. the MLA LM path ----------------------------------------------------------------
+    launches[MLA_ARCH] = lm_path(torch, np, counters, mla_cfg, mla_prompts)
+    torch.cuda.empty_cache()
+    flash_shapes[MLA_ARCH] = flash_times(torch, fa_ops, fa_ref, mla_prefill_case,
+                                         sm_scale=MLA_SCALE, v_mode="k")
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"]
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "

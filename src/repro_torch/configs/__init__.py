@@ -3,9 +3,11 @@
 ``get_config(name)`` returns the full published config, ``get_reduced(name)``
 the CPU-test version (same family, tiny dims), with the JAX package's names
 and aliases. The port serves the dense decoder-only ``qwen3-1.7b``, the
-Mamba2 + attention hybrid ``zamba2-7b`` and the mLSTM + sLSTM recurrent
-``xlstm-350m`` so far; any other architecture of the reference raises and
-names the ROADMAP item that ports it. ``distger`` holds the embedding system's own presets.
+Mamba2 + attention hybrid ``zamba2-7b``, the mLSTM + sLSTM recurrent
+``xlstm-350m`` and the multi-head latent attention model ``minicpm3-4b``
+so far; any other architecture of the reference raises and names the
+ROADMAP item that ports it. ``distger`` holds the embedding system's own
+presets.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m"]
+ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m", "minicpm3_4b"]
 
 # canonical external ids (grid spelling) -> module names, as in the reference
 ALIASES: Dict[str, str] = {
@@ -41,7 +43,7 @@ def get_config(name: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet: the port runs {ARCH_IDS}; "
-            "the rest of the LM harness is ROADMAP.md item 12")
+            "the rest of the LM harness is in ROADMAP.md's queue 1 (items 4-6)")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
 
 

@@ -1,6 +1,7 @@
 """Time flash attention (K2) on the card, against
 ``scaled_dot_product_attention`` and the bound, at the LM paths' prefill
-shapes, and against other builds of the kernel.
+shapes (minicpm3-4b's: MLA's latent, D = 288, one KV head, v is k), and
+against other builds of the kernel.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.flash_attention.bench [DIR ...]
 
@@ -12,8 +13,11 @@ build, then every build again in reverse order), so that versions are
 compared within one run on one card. Prints each build's ptxas report for
 the bf16 kernels (registers, spills, wgmma serialization remarks), the
 card's name and power limit, the port's kernel checked against
-``mha_reference`` in bfloat16 (tolerance 2e-2; the variants are timed, not
-checked), and one line per shape. Needs a CUDA device.
+``mha_reference`` in bfloat16 (tolerance 2e-2), and at D = 288 with MLA's
+``sm_scale`` also in float32 (2e-3), with v its own tensor, the
+zero-padded latent or k itself (the variants are timed, not checked),
+and one line per shape with the SDPA backend PyTorch picked. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from pathlib import Path
 
 BF16_TOL = 2e-2
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores, SXM, 700 W
+H100_BYTES_PER_S = 3.35e12
 # (B, Hq, Hkv, Sq, Skv, D, causal, q_offset): every head dim, GQA, ragged
 # lengths, q_offset, non-causal, and both prefill shapes.
 CHECKS = [(1, 1, 1, 128, 128, 64, True, 0), (1, 1, 1, 128, 128, 128, False, 0),
@@ -32,10 +37,22 @@ CHECKS = [(1, 1, 1, 128, 128, 64, True, 0), (1, 1, 1, 128, 128, 128, False, 0),
           (1, 4, 2, 333, 333, 96, True, 0), (1, 16, 8, 1000, 1000, 128, True, 0),
           (2, 4, 4, 200, 200, 112, False, 0), (1, 2, 2, 70, 70, 128, True, 0),
           (4, 16, 8, 1819, 1819, 128, True, 0), (4, 32, 32, 1819, 1819, 112, True, 0)]
-# (B, Hq, Hkv, S, D), causal: qwen3-1.7b's and zamba2-7b's prefill waves,
-# and 2,048 heads of one 128-key tile each (a CTA's fixed cost).
-SHAPES = [(4, 16, 8, 1819, 128), (4, 32, 32, 1819, 112), (4, 16, 8, 985, 128),
-          (1, 2048, 2048, 128, 128)]
+F32_TOL = 2e-3
+MLA_D, MLA_RANK = 288, 256            # minicpm3-4b: kv_lora_rank 256 + qk_rope_dim 32
+MLA_SCALE = (64 + 32) ** -0.5         # (qk_nope_dim + qk_rope_dim) ** -0.5, not D ** -0.5
+# MLA's latent attention (B, Hq, Sq, Skv, causal, q_offset, v), Hkv = 1,
+# D = 288: v "own" (a tensor of its own), "padded" (k's first 256 columns,
+# zero-padded, as the reference builds it) or "k" (k itself, as the port's
+# MLA passes it); the prefill shape, a ragged Sq with q_offset, non-causal.
+MLA_CHECKS = [(4, 40, 1819, 1819, True, 0, v) for v in ("own", "padded", "k")] + \
+             [(2, 8, 333, 333, True, 0, "k"), (1, 4, 77, 333, True, 256, "k"),
+              (1, 4, 100, 611, True, 511, "padded"), (2, 4, 200, 512, False, 0, "k"),
+              (1, 3, 300, 256, False, 0, "own")]
+# (B, Hq, Hkv, S, D), causal: qwen3-1.7b's, zamba2-7b's and minicpm3-4b's
+# prefill waves, and 2,048 heads of one 128-key tile each (a CTA's fixed
+# cost).
+SHAPES = [(4, 16, 8, 1819, 128), (4, 32, 32, 1819, 112), (4, 40, 1, 1819, MLA_D),
+          (4, 16, 8, 985, 128), (1, 2048, 2048, 128, 128)]
 
 
 def _time_ms(torch, fn, reps: int = 20) -> float:
@@ -53,23 +70,67 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _inputs(torch, b, hq, hkv, sq, skv, d, seed):
+def inputs(torch, b, hq, hkv, sq, skv, d, seed, dtype=None, v_mode="own"):
+    """q, k, v ~ N(0, 1) in bf16 (or ``dtype``) on the card; v as MLA_CHECKS
+    says ("own", "padded", or "k": v is k)."""
     gen = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
-                 for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    dt = dtype or torch.bfloat16
+    q, k, v = (torch.randn(*s, generator=gen).to("cuda", dt)
+               for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    if v_mode == "k":
+        v = k
+    elif v_mode == "padded":
+        v = torch.nn.functional.pad(k[..., :MLA_RANK], (0, d - MLA_RANK))
+    return q, k, v
+
+
+def bound_ms(b, hq, hkv, s, d, elem_bytes=2) -> tuple:
+    """Least time for causal attention at q_offset 0 on an H100: the
+    products of the visible (query, key) pairs (q.k and p.v, 2 flops each
+    per dimension) over the dense bf16 tensor-core peak, against q, k, v
+    read once and o written once over the memory rate (v counted apart
+    from k). Returns (ms, "operations" | "bytes")."""
+    flops = 4 * b * hq * d * (s * (s + 1) // 2)
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * elem_bytes
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_backend(torch, call) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for ``call``: the
+    first in PyTorch's priority order that runs it (each tried alone)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    members = {int(b): b for name, b in SDPBackend.__members__.items()
+               if name not in ("ERROR", "OVERRIDEABLE")}
+    order = getattr(torch._C, "_get_sdp_priority_order", lambda: [1, 2, 0, 3])()
+    for i in order:
+        if i not in members:
+            continue
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(members[i]):
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+            return members[i].name
+        except RuntimeError:
+            continue
+    return "none"
 
 
 def _ptxas_report(name: str, log: str) -> None:
     keep = False
     for line in log.splitlines():
         if "Compiling entry" in line:
-            keep = "flash_kernel_sm90" in line
+            keep = "flash_kernel" in line
             if keep:
-                print(f"[ptxas {name}] {line.split('flash_kernel_sm90')[1][:10]}", flush=True)
+                print(f"[ptxas {name}] {line.split('flash_kernel')[1][:24]}", flush=True)
         elif keep and ("registers" in line or "spill" in line):
             print(f"[ptxas {name}]   {line.strip()}", flush=True)
         if "C75" in line or "error" in line:
-            print(f"[ptxas {name}] {line.strip()[:160]}", flush=True)
+            print(f"[ptxas {name}] {line.strip()[:400]}", flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -92,37 +153,64 @@ def main(argv: list[str]) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
-    for i, (b, hq, hkv, sq, skv, d, causal, q_offset) in enumerate(CHECKS):
-        q, k, v = _inputs(torch, b, hq, hkv, sq, skv, d, seed=100 + i)
-        got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset).float()
-        want = ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset).float()
-        chunked = ref.mha_chunked(q, k, v, causal=causal, q_offset=q_offset).float()
+    checks = [(case, None, "own", torch.bfloat16) for case in CHECKS] + \
+        [((b, hq, 1, sq, skv, MLA_D, causal, q_offset), MLA_SCALE, v, dt)
+         for b, hq, sq, skv, causal, q_offset, v in MLA_CHECKS
+         for dt in (torch.bfloat16, torch.float32)]
+    for i, (case, scale, v_mode, dt) in enumerate(checks):
+        b, hq, hkv, sq, skv, d, causal, q_offset = case
+        q, k, v = inputs(torch, b, hq, hkv, sq, skv, d, seed=100 + i, dtype=dt, v_mode=v_mode)
+        kw = dict(causal=causal, q_offset=q_offset, sm_scale=scale)
+        before = ops.LAUNCHES
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.mha_reference(q, k, v, **kw).float()
+        chunked = ref.mha_chunked(q, k, v, **kw).float()
         torch.cuda.synchronize()
+        if ops.LAUNCHES != before + 1:
+            raise AssertionError("flash_attention did not count its launch")
         err, err_c = (got - want).abs().max().item(), (got - chunked).abs().max().item()
-        print(f"[check] {(b, hq, hkv, sq, skv, d, causal, q_offset)}: max abs err {err:.3e} "
-              f"against mha_reference, {err_c:.3e} against mha_chunked", flush=True)
-        if not torch.allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL):
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        print(f"[check] {case} {str(dt)[6:]}" + (f" sm_scale {scale:.6f} v {v_mode}" if scale else "")
+              + f": max abs err {err:.3e} against mha_reference, {err_c:.3e} against "
+              "mha_chunked", flush=True)
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
             raise AssertionError(f"flash_attention differs by {err:.3e}")
+        del q, k, v, got, want, chunked
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     port = ops.LIBRARY
     for b, hq, hkv, s, d in SHAPES:
-        q, k, v = _inputs(torch, b, hq, hkv, s, s, d, seed=7)
+        mla = d == MLA_D
+        q, k, v = inputs(torch, b, hq, hkv, s, s, d, seed=7, v_mode="k" if mla else "own")
+        scale = MLA_SCALE if mla else None
         flops = 4 * b * hq * d * s * (s + 1) // 2      # the visible (query, key) pairs
         times = {}
         try:
             for name in [*builds, *reversed(builds)]:
                 ops.LIBRARY = builds[name]
-                times.setdefault(name, []).append(_time_ms(torch, lambda: ops.flash_attention(q, k, v)))
+                times.setdefault(name, []).append(_time_ms(
+                    torch, lambda: ops.flash_attention(q, k, v, sm_scale=scale)))
         finally:
             ops.LIBRARY = port
-        sdpa_ms = _time_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        extra = ""
+        if mla:     # the kernel with v a tensor of its own (two tiles a stage)
+            v_own = k.clone()
+            extra = f"; v not k {_time_ms(torch, lambda: ops.flash_attention(q, k, v_own, sm_scale=scale)):.4f} ms"
+            del v_own
+        calls = {"": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True, scale=scale)}
+        if mla:     # PyTorch's flash backend stops at head dim 256: also k, v expanded
+            kx, vx = (t.expand(b, hq, s, d) for t in (k, v))
+            calls[" expanded"] = lambda: sdpa(q, kx, vx, is_causal=True, scale=scale)
+        sdpa_txt = ", ".join(f"sdpa{name} ({sdpa_backend(torch, call)}) "
+                             f"{_time_ms(torch, call):.4f} ms" for name, call in calls.items())
+        bound, by = bound_ms(b, hq, hkv, s, d)
         print(f"[time] q {(b, hq, s, d)} kv {(b, hkv, s, d)}: " + ", ".join(
             f"{name} {t[0]:.4f} / {t[1]:.4f} ms ({flops / min(t) / 1e9:.1f} TFLOP/s)"
             for name, t in times.items())
-              + f"; sdpa {sdpa_ms:.4f} ms; bound {flops / H100_BF16_FLOPS * 1e3:.6f} ms",
-              flush=True)
+              + f"{extra}; {sdpa_txt}; bound {bound:.6f} ms ({by})", flush=True)
+        del calls
         del q, k, v
+        torch.cuda.empty_cache()
     return 0
 
 

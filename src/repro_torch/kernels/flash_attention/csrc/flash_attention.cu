@@ -14,12 +14,17 @@
 // heaviest first under the causal mask.
 //
 // What bounds it: at the serving prefill shapes (B = 4, S = 1,819, causal;
-// qwen3-1.7b Hq = 16, Hkv = 8, D = 128; zamba2-7b Hq = Hkv = 32, D = 112)
-// the products of the visible (query, key) pairs are 54 / 95 GFLOP against
-// 45 / 60 MB of q, k, v and o, so the bf16 tensor cores bound it: 0.055 /
-// 0.096 ms at 989 TFLOP/s, against 0.013 / 0.018 ms of memory traffic.
+// qwen3-1.7b Hq = 16, Hkv = 8, D = 128; zamba2-7b Hq = Hkv = 32, D = 112;
+// minicpm3-4b's MLA latent, Hq = 40, Hkv = 1, D = 288) the products of the
+// visible (query, key) pairs are 54 / 95 / 305 GFLOP against 45 / 60 / 344
+// MB of q, k, v and o, so the bf16 tensor cores bound it: 0.055 / 0.096 /
+// 0.309 ms at 989 TFLOP/s, against 0.013 / 0.018 / 0.103 ms of memory
+// traffic.
 //
-// The type picks the kernel; neither gives way to the other.
+// The type picks the kernel; neither gives way to the other. Head dims up
+// to 128 take flash_kernel_sm90 in bfloat16; D = 288 (MLA's latent: one KV
+// head, the caller's sm_scale, and v = k when the caller passes k twice)
+// takes flash_kernel_sm90_wide, set out where it is defined.
 //
 // bfloat16, the serving path: flash_kernel_sm90. One CTA per (b * Hq + h,
 // tile of 128 queries): two consumer warpgroups of 64 query rows each (the
@@ -124,6 +129,9 @@ struct Layout {
   static constexpr int NV = D / (4 * TPR);              // 16-byte pieces per thread
   static constexpr int GROUPS = kThreads / TPR;         // row groups per CTA
   static constexpr int BQ = GROUPS * kRows;             // query rows per CTA
+  // Keys per shared-memory tile: K and V tiles stay within the 48 KB of
+  // static shared memory (36 KB at D = 288).
+  static constexpr int BK = D <= 128 ? kBlockK : kBlockK / 2;
   static_assert(D % (4 * TPR) == 0, "D must be a multiple of 16");
 };
 
@@ -133,11 +141,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              T* __restrict__ o, int Hq, int Hkv, int Sq, int Skv, int causal,
              int q_offset, float sm_scale) {
   using L = Layout<D>;
-  constexpr int TPR = L::TPR, NV = L::NV, GROUPS = L::GROUPS, BQ = L::BQ;
+  constexpr int TPR = L::TPR, NV = L::NV, GROUPS = L::GROUPS, BQ = L::BQ, BK = L::BK;
   constexpr int DV = D / 4;     // 16-byte pieces per row
 
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+  __shared__ __align__(16) float ks[BK][D];
+  __shared__ __align__(16) float vs[BK][D];
 
   const int tid = threadIdx.x;
   const int part = tid % TPR;
@@ -179,9 +187,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   int kv_end = Skv;
   if (causal) kv_end = min(Skv, q_lo + BQ + q_offset);
 
-  for (int kt = 0; kt < kv_end; kt += kBlockK) {
+  for (int kt = 0; kt < kv_end; kt += BK) {
     __syncthreads();                         // the previous tile is consumed
-    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
+    for (int idx = tid; idx < BK * DV; idx += kThreads) {
       const int r = idx / DV, d0 = (idx % DV) * 4;
       const int key = kt + r;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
@@ -193,7 +201,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       *reinterpret_cast<float4*>(&vs[r][d0]) = vx;
     }
     __syncthreads();
-    const int n_keys = min(kBlockK, kv_end - kt);
+    const int n_keys = min(BK, kv_end - kt);
 
     for (int kc = 0; kc < n_keys; kc += kChunk) {
       float s[kRows][kChunk];
@@ -300,6 +308,7 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
     case 96: return launch_typed<T, 96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 112: return launch_typed<T, 112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 128: return launch_typed<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 288: return launch_typed<T, 288>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -342,14 +351,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Issue S = Q K^T for one warpgroup's 64 query rows and kBK keys (k16
 // steps up to D: the zero columns past D are skipped). Q and K are
 // K-major; a k16 step moves 32 bytes inside a 128-byte row, four steps a
-// 64-column block.
-template <int D>
+// 64-column block (QBLK bytes apart in the Q tile).
+template <int D, uint32_t QBLK = kQBlockBytes>
 __device__ __forceinline__ void issue_qk(float (&sc)[kSN], uint32_t q_rows, uint32_t k_s) {
   sm90::fence_operands(sc);
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t dq = sm90::desc_sw128(q_rows + (kk / 4) * kQBlockBytes + (kk % 4) * 32, 16, 1024);
+    const uint64_t dq = sm90::desc_sw128(q_rows + (kk / 4) * QBLK + (kk % 4) * 32, 16, 1024);
     const uint64_t dk = sm90::desc_sw128(k_s + (kk / 4) * kKVBlockBytes + (kk % 4) * 32, 16, 1024);
     sm90::wgmma_m64n64k16_ss(sc, dq, dk, kk > 0);
   }
@@ -568,6 +577,276 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
 }
 
+// --- bfloat16 at head dims above 128: O's columns split across the warpgroups --
+
+// MLA's latent attention (D = 288, one KV head). A 64-row O accumulator of
+// 320 padded columns is 160 floats a thread, above what a 288-thread CTA
+// may hold beside S and P (168 registers), and a 128-row Q tile with a
+// K/V ring does not fit in shared memory. So a CTA takes 64 query rows,
+// and its two consumer warpgroups split O's columns: warpgroup 0 forms S
+// = Q K^T and the online softmax, keeps P in registers for its own O
+// columns [0, 128) and publishes P (bf16) and the rows' rescale factors
+// through shared memory; warpgroup 1 accumulates columns [128, 320) from
+// that P, by wgmma with both operands in shared memory. P goes through
+// two buffers, handed over by mbarriers (ready: warpgroup 0's 128 threads
+// arrive, warpgroup 1 waits; freed: the other way round; a lost handover
+// traps instead of hanging), so warpgroup 0's S of tile j + 1 runs while
+// warpgroup 1's P V of tile j does. The Q tile is 40 KB; the ring 160 KB,
+// as four stages of K when v is k (MLA passes its latent [c_kv | k_rope]
+// as both) or two of K and V. The tiles are padded to 320 columns, TMA
+// zero-filling past D, so P V runs 320 columns of which 288 are stored.
+// Its time against its bound: PERF.md.
+constexpr int kBQW = 64;                          // query rows per CTA
+constexpr uint32_t kQWBlockBytes = kBQW * 128;    // one 64-column block of the Q tile
+constexpr int kSplitN = 128;                      // warpgroup 0's O columns
+constexpr int kWarpgroup = 128;
+
+template <int D, bool SAME_KV>
+struct WideTile {
+  static constexpr int DP = (D + 63) / 64 * 64;             // padded head dim
+  static constexpr int kBlocks = DP / 64;
+  static constexpr int N1 = DP - kSplitN;                    // warpgroup 1's O columns
+  static_assert(N1 == 192, "warpgroup 1 runs wgmma m64n192: 256 < D <= 320");
+  static constexpr uint32_t kQBytes = kBlocks * kQWBlockBytes;
+  static constexpr uint32_t kTileBytes = kBlocks * kKVBlockBytes;   // one K or V tile
+  // When v is k one tile feeds both products: four stages of K; else two
+  // stages of K and V. Either way 160 KB of ring.
+  static constexpr int kStages = SAME_KV ? 4 : 2;
+  static constexpr uint32_t kStageBytes = (SAME_KV ? 1 : 2) * kTileBytes;
+  static constexpr uint32_t kPBytes = kBQW * kBK * 2;        // P of one tile, bf16
+  // 1 KB of alignment slack, Q, the ring, two P tiles, two rows of rescale
+  // factors and the rows' 1 / l, the barriers (Q's, a full and an empty
+  // one per stage, a ready and a freed one per P tile, the final 1 / l's).
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 2 * kPBytes
+                               + 3 * kBQW * 4 + 8 * (1 + 2 * kStages + 5);
+};
+
+// Issue O += P V for warpgroup 1: P (64 x kBK keys) K-major in shared
+// memory (128-byte swizzled rows of 64 keys), V's columns [128, 320)
+// MN-major, 16 keys per k16 step.
+__device__ __forceinline__ void issue_pv_ss(float (&acc)[96], uint32_t p_s, uint32_t v_s) {
+  sm90::fence_operands(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t dp = sm90::desc_sw128(p_s + kk * 32, 16, 1024);
+    const uint64_t dv = sm90::desc_sw128(v_s + kk * 16 * 128, kKVBlockBytes, 1024);
+    sm90::wgmma_m64n192k16_ss(acc, dp, dv, 1);
+  }
+  sm90::wgmma_commit();
+  sm90::fence_operands(acc);
+}
+
+template <int D, bool SAME_KV>
+__global__ void __launch_bounds__(kThreadsSm90, 1)
+flash_kernel_sm90_wide(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       int Hq, int Hkv, int Sq, int Skv, int nq, int causal, int q_offset,
+                       float scale_log2) {
+  using T = WideTile<D, SAME_KV>;
+  constexpr int STAGES = T::kStages;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;
+  const uint32_t s_kv = s_q + T::kQBytes;                  // stage s: K (then V)
+  const uint32_t s_p = s_kv + STAGES * T::kStageBytes;     // P of tiles j % 2
+  const uint32_t s_f = s_p + 2 * T::kPBytes;               // rescale[2][64], 1 / l[64]
+  const uint32_t bar_q = s_f + 3 * kBQW * 4;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_ready = bar_empty + 8 * STAGES;   // per P tile: published
+  const uint32_t bar_freed = bar_ready + 16;           // per P tile: read by warpgroup 1
+  const uint32_t bar_final = bar_freed + 16;           // the rows' 1 / l are out
+  uint8_t* const p_gen = smem_raw + (s_p - raw);
+  float* const f_gen = reinterpret_cast<float*>(smem_raw + (s_f - raw));
+  auto k_tile = [&](int j) { return s_kv + (j % STAGES) * T::kStageBytes; };
+  auto v_tile = [&](int j) { return k_tile(j) + (SAME_KV ? 0 : T::kTileBytes); };
+  auto full = [&](int j) { return bar_full + 8 * (j % STAGES); };
+  auto empty = [&](int j) { return bar_empty + 8 * (j % STAGES); };
+
+  const int tid = threadIdx.x;
+  int bh, iq;
+  cta_tile(blockIdx.x, (int)gridDim.x / nq, nq, causal, bh, iq);
+  const int b = bh / Hq, h = bh % Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q_lo = iq * kBQW;
+  const int kv_end = causal ? min(Skv, q_lo + kBQW + q_offset) : Skv;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(bar_full + 8 * s, 1);
+      sm90::mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(bar_ready + 8 * i, kWarpgroup);
+      sm90::mbar_init(bar_freed + 8 * i, kWarpgroup);
+    }
+    sm90::mbar_init(bar_final, kWarpgroup);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      sm90::tma_prefetch_map(&tq);
+      sm90::tma_prefetch_map(&tk);
+      if (!SAME_KV) sm90::tma_prefetch_map(&tv);
+      sm90::mbar_expect_tx(bar_q, T::kQBytes);
+#pragma unroll
+      for (int blk = 0; blk < T::kBlocks; ++blk)
+        sm90::tma_load_3d(s_q + blk * kQWBlockBytes, &tq, bar_q, blk * 64, q_lo, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= STAGES) sm90::mbar_wait(empty(j), (j / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(full(j), T::kStageBytes);
+#pragma unroll
+        for (int blk = 0; blk < T::kBlocks; ++blk) {
+          sm90::tma_load_3d(k_tile(j) + blk * kKVBlockBytes, &tk, full(j), blk * 64, j * kBK, bkv);
+          if (!SAME_KV)
+            sm90::tma_load_3d(v_tile(j) + blk * kKVBlockBytes, &tv, full(j), blk * 64, j * kBK,
+                              bkv);
+        }
+      }
+    }
+    return;
+  }
+
+  // Both consumer warpgroups hold the same rows of the accumulators: this
+  // thread's r and r + 8 of the tile, columns c0, c0 + 1 of each group of 8.
+  // P tile j % 2 carries tile j: its handovers complete phase j / 2.
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  __nv_bfloat16* const obase = o + (size_t)bh * Sq * D;
+  float* const rescale = f_gen;               // [2][kBQW]
+  float* const inv_l = f_gen + 2 * kBQW;      // [kBQW]
+
+  if (wg == 0) {
+    const SoftmaxTile softmax{Skv, causal, q_offset, q_lo, q_lo + r, c0, scale_log2};
+    float acc[kSplitN / 2];
+#pragma unroll
+    for (int i = 0; i < kSplitN / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+    float sc[kSN];
+    uint32_t pa[kBK / 16][4];
+
+    // Hand tile j's P and rescale factors to warpgroup 1. A fragment
+    // pa[kk][x] holds row r + 8 (x & 1), keys 16 kk + 8 (x >> 1) + c0, + 1;
+    // the P tile is stored as TMA would store it (128-byte swizzle).
+    auto publish = [&](int j) {
+      uint8_t* const pt = p_gen + (j % 2) * T::kPBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int row = r + 8 * (x & 1);
+          const int chunk = (2 * kk + (x >> 1)) ^ (row & 7);
+          *reinterpret_cast<uint32_t*>(pt + row * 128 + chunk * 16 + c0 * 2) = pa[kk][x];
+        }
+      if (lane % 4 == 0) {
+        rescale[(j % 2) * kBQW + r] = corr[0];
+        rescale[(j % 2) * kBQW + r + 8] = corr[1];
+      }
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(bar_ready + 8 * (j % 2));
+    };
+
+    sm90::mbar_wait(bar_q, 0);
+    sm90::mbar_wait(full(0), 0);
+    issue_qk<D, kQWBlockBytes>(sc, s_q, k_tile(0));
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sc);
+    softmax(sc, 0, m, l, corr);
+    to_bf16(sc, pa);
+    publish(0);
+    for (int j = 1; j < n_tiles; ++j) {
+      sm90::mbar_wait(full(j), (j / STAGES) & 1);
+      issue_qk<D, kQWBlockBytes>(sc, s_q, k_tile(j));
+      issue_pv(acc, pa, v_tile(j - 1));
+      sm90::wgmma_wait<1>();
+      sm90::fence_operands(sc);
+      softmax(sc, j * kBK, m, l, corr);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+      sm90::mbar_arrive(empty(j - 1));
+#pragma unroll
+      for (int i = 0; i < kSplitN / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      to_bf16(sc, pa);
+      if (j >= 2) sm90::mbar_wait(bar_freed + 8 * (j % 2), ((j - 2) / 2) & 1);  // tile j - 2's P is read
+      publish(j);
+    }
+    issue_pv(acc, pa, v_tile(n_tiles - 1));
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    sm90::mbar_arrive(empty(n_tiles - 1));
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+    }
+    if (lane % 4 == 0) {
+      inv_l[r] = inv[0];
+      inv_l[r + 8] = inv[1];
+    }
+    sm90::mbar_arrive(bar_final);
+#pragma unroll
+    for (int i = 0; i < kSplitN / 8; ++i) {
+      if (8 * i >= D) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = q_lo + r + 8 * e;
+        if (row < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)row * D + 8 * i + c0) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv[e], acc[4 * i + 2 * e + 1] * inv[e]);
+      }
+    }
+  } else {
+    float acc[T::N1 / 2];
+#pragma unroll
+    for (int i = 0; i < T::N1 / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+      sm90::mbar_wait(bar_ready + 8 * (j % 2), (j / 2) & 1);   // P_j and its rescale are out
+      sm90::mbar_wait(full(j), (j / STAGES) & 1);
+      const float f0 = rescale[(j % 2) * kBQW + r], f1 = rescale[(j % 2) * kBQW + r + 8];
+      sm90::wgmma_wait<0>();                 // tile j - 1's P V (none before tile 0)
+      sm90::fence_operands(acc);
+      if (j > 0) {
+        sm90::mbar_arrive(bar_freed + 8 * ((j - 1) % 2));
+        sm90::mbar_arrive(empty(j - 1));
+      }
+#pragma unroll
+      for (int i = 0; i < T::N1 / 2; ++i) acc[i] *= ((i >> 1) & 1) ? f1 : f0;
+      issue_pv_ss(acc, s_p + (j % 2) * T::kPBytes, v_tile(j) + (kSplitN / 64) * kKVBlockBytes);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    sm90::mbar_arrive(empty(n_tiles - 1));
+
+    sm90::mbar_wait(bar_final, 0);
+    const float inv[2] = {inv_l[r], inv_l[r + 8]};
+#pragma unroll
+    for (int i = 0; i < T::N1 / 8; ++i) {
+      const int col = kSplitN + 8 * i;
+      if (col >= D) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = q_lo + r + 8 * e;
+        if (row < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)row * D + col + c0) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv[e], acc[4 * i + 2 * e + 1] * inv[e]);
+      }
+    }
+  }
+}
+
 // Codes past the runtime's own: the tensor map could not be made.
 constexpr int kErrNoEncode = 20000;         // the driver has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 10000;           // + the CUresult of cuTensorMapEncodeTiled
@@ -631,6 +910,43 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// D above 128 (MLA's latent): flash_kernel_sm90_wide, with one tile a
+// stage for both products when v is k (the same memory), else two.
+template <int D, bool SAME_KV>
+int launch_wide_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                       void* o, int B, int Hq, int Hkv, int Sq, int Skv, int nq, int causal,
+                       int q_offset, float sm_scale, cudaStream_t stream) {
+  constexpr int smem = WideTile<D, SAME_KV>::kSmem;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_sm90_wide<D, SAME_KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_kernel_sm90_wide<D, SAME_KV><<<B * Hq * nq, kThreadsSm90, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, nq, causal, q_offset,
+      sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_sm90_wide(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                     int Hkv, int Sq, int Skv, int causal, int q_offset, float sm_scale,
+                     cudaStream_t stream) {
+  if (Skv == 0)
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Hq * Sq * D * 2, stream);
+  const int nq = (Sq + kBQW - 1) / kBQW;
+  if ((long long)B * Hq * nq > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncode;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(encode, &tq, q, D, Sq, B * Hq, kBQW);
+  if (!err) err = make_map(encode, &tk, k, D, Skv, B * Hkv, kBK);
+  if (!err) err = make_map(encode, &tv, v, D, Skv, B * Hkv, kBK);
+  if (err) return err;
+  return k == v ? launch_wide_kernel<D, true>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, nq, causal,
+                                              q_offset, sm_scale, stream)
+                : launch_wide_kernel<D, false>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, nq, causal,
+                                               q_offset, sm_scale, stream);
+}
+
 int launch_sm90_dim(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
                     int Hkv, int Sq, int Skv, int causal, int q_offset, float sm_scale,
                     cudaStream_t stream) {
@@ -641,6 +957,7 @@ int launch_sm90_dim(int D, const void* q, const void* k, const void* v, void* o,
     case 96: return launch_sm90<96>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 112: return launch_sm90<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 128: return launch_sm90<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 288: return launch_sm90_wide<288>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

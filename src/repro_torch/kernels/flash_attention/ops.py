@@ -4,7 +4,11 @@
 Tensors on the CPU go to the plain version (``ref.mha_reference``);
 tensors on the card go to the CUDA library (``csrc/flash_attention.cu``),
 which picks the kernel by type: bfloat16 to wgmma tiles fed by TMA,
-float32 to the SIMT kernel on the FMA units. A launch that fails raises —
+float32 to the SIMT kernel on the FMA units. Head dims up to 128 take
+one kernel per dim; 288 (MLA's latent, ``kv_lora_rank + qk_rope_dim`` of
+minicpm3-4b) takes a bf16 kernel that splits O's columns between its
+warpgroups and, when ``v is k``, loads one tile for both products. A
+launch that fails raises —
 there is no fallback from one kernel to the other or to the plain
 version. The kernels read ragged lengths with bounds checks (SIMT) or
 TMA's zero fill (wgmma), so the wrapper pads nothing; it still refuses what the reference's wrapper
@@ -27,7 +31,7 @@ from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = 0
 REF_BLOCK_K = 256                 # the reference wrapper's default key tile
-HEAD_DIMS = (16, 32, 64, 96, 112, 128)  # head dimensions the kernel is built for
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 288)  # head dimensions the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -93,7 +97,9 @@ def _launch(q, k, v, causal: bool, sm_scale: float, q_offset: int) -> torch.Tens
         raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid's 65,535 rows")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got {q_offset}")
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    same = v is k           # one tile feeds both products (MLA passes its latent twice)
+    q, k = _aligned(q), _aligned(k)
+    v = k if same else _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -2,15 +2,16 @@
 and decode.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-blocks (kind ``"a"``) without MLA or MoE, Mamba2 blocks (kind ``"m"``) and
-the xLSTM's mLSTM and sLSTM blocks (kinds ``"x"`` and ``"s"``).
-``cfg.block_cycle`` repeats to
+blocks (kind ``"a"``: GQA, or MLA when ``cfg.use_mla``; no MoE), Mamba2
+blocks (kind ``"m"``) and the xLSTM's mLSTM and sLSTM blocks (kinds
+``"x"`` and ``"s"``). ``cfg.block_cycle`` repeats to
 cover ``num_layers`` as in the reference (``_groups``), but the layers of
 a group are a list of per-repetition dicts run by an ordinary loop, not a
 stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
-Caches mirror the same structure: {k, v} for an attention block, {conv,
-ssm} for a Mamba2 block, the (B, H, N, P + 1) matrix memory for an mLSTM
-block and {c, n, h} for an sLSTM block, all updated in place.
+Caches mirror the same structure: {k, v} for an attention block ({ckv,
+krope}, the latent, for an MLA block), {conv, ssm} for a Mamba2 block, the
+(B, H, N, P + 1) matrix memory for an mLSTM block and {c, n, h} for an
+sLSTM block, all updated in place.
 ``repro_torch.convert.lm_params_from_reference`` unstacks a reference tree
 into this layout.
 """
@@ -24,6 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -35,17 +37,15 @@ Params = Dict[str, Any]
 
 def _check(cfg: ModelConfig) -> None:
     """Refuse what this slice does not run, naming where it is planned."""
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP.md item 12)")
     if cfg.moe:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md item 12)")
+        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md queue 1, item 4)")
     if cfg.encdec or cfg.frontend != "none":
         raise NotImplementedError("encoder-decoder models and frontends are not "
-                                  "ported yet (ROADMAP.md item 12)")
+                                  "ported yet (ROADMAP.md queue 1, item 6)")
     kinds = set(cfg.block_cycle) - {"a", "m", "x", "s"}
     if kinds:
         raise NotImplementedError(f"block kinds {sorted(kinds)} are not ported yet "
-                                  "(ROADMAP.md item 12)")
+                                  "(ROADMAP.md queue 1)")
 
 
 def _groups(cfg: ModelConfig):
@@ -79,7 +79,8 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, device) -> Params:
                 "mixer": xlstm_mod.init_slstm(gen, cfg, dtype, device)}
     return {
         "ln1": init_rmsnorm(d, dtype, device),
-        "attn": attn_mod.init_attention(gen, cfg, dtype, device),
+        "attn": (mla_mod.init_mla(gen, cfg, dtype, device) if cfg.use_mla
+                 else attn_mod.init_attention(gen, cfg, dtype, device)),
         "ln2": init_rmsnorm(d, dtype, device),
         "ffn": init_mlp(gen, d, cfg.d_ff, dtype, device),
     }
@@ -92,12 +93,15 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtyp
         return xlstm_mod.init_mlstm_state(cfg, batch, device)
     if kind == "s":
         return xlstm_mod.init_slstm_state(cfg, batch, device)
+    if cfg.use_mla:
+        return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
     return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
 
 
 def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=None,
                 cache_len=None, causal: bool = True):
-    """Kind "a": pre-norm attention, then pre-norm SwiGLU. Kinds "m", "x"
+    """Kind "a": pre-norm attention (MLA, always causal, when
+    ``cfg.use_mla``), then pre-norm SwiGLU. Kinds "m", "x"
     and "s": the pre-norm Mamba2, mLSTM or sLSTM mixer (an mLSTM block with
     ``d_ff`` adds a pre-norm SwiGLU). With ``cache`` and no ``cache_len``
     (prefill) a recurrent block writes its final state into the cache;
@@ -129,8 +133,12 @@ def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=N
             cache["ssm"].copy_(new_state["ssm"])
         return x + y
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=causal,
-                               cache=cache, cache_len=cache_len)
+    if cfg.use_mla:
+        x = x + mla_mod.mla_attention(h, p["attn"], cfg, positions, cache=cache,
+                                      cache_len=cache_len)
+    else:
+        x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=causal,
+                                   cache=cache, cache_len=cache_len)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + mlp(h, p["ffn"])
 
@@ -186,7 +194,7 @@ def _run_groups(params: Params, x, cfg: ModelConfig, positions, *,
 
 def forward_loss(params, cfg, tokens, labels):
     raise NotImplementedError("training (forward_loss, K2's backward, the optimizer "
-                              "and Trainer) is not ported yet (ROADMAP.md item 12)")
+                              "and Trainer) is not ported yet (ROADMAP.md queue 1, item 5)")
 
 
 @torch.no_grad()

@@ -2,7 +2,7 @@
 ``models/zoo.py``.
 
 Batch convention: {"tokens": (B, S) int64}. Encoder-decoder models (their
-"frames" batches) are not ported yet (ROADMAP.md item 12).
+"frames" batches) are not ported yet (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from repro_torch.models.config import ModelConfig
 def model_module(cfg: ModelConfig):
     if cfg.encdec:
         raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP.md item 12)")
+                                  "(ROADMAP.md queue 1, item 6)")
     return transformer_mod
 
 
@@ -48,8 +48,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Scale a decoder-only config down to CPU-smoke size with the
     reference's rules (its ``reduce_config``): d 64, 2 layers for a dense
-    model, two repetitions of the block cycle for a hybrid, and 4 SSD
-    heads of state 16 for an SSM family; ``overrides`` last."""
+    model, two repetitions of the block cycle for a hybrid, MLA's latent
+    ranks cut (q_lora_rank 32 when it has one, kv_lora_rank 16, qk_nope 16,
+    qk_rope 8, v_head 16), and 4 SSD heads of state 16 for an SSM family;
+    ``overrides`` last."""
     small: Dict[str, Any] = dict(
         num_layers=max(2, min(4, len(cfg.block_cycle))),
         d_model=64,
@@ -62,6 +64,10 @@ def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         remat="none",
         fsdp=False,
     )
+    if cfg.use_mla:
+        small.update(q_lora_rank=32 if cfg.q_lora_rank else 0,
+                     kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
+                     v_head_dim=16)
     if cfg.ssm_state:
         small.update(ssm_state=16, ssm_heads=4, ssm_head_dim=0)
     if len(cfg.block_cycle) > 1:

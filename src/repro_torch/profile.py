@@ -6,9 +6,10 @@ as ``embed_graph(PAPER_EMBED, num_shards=2)`` runs them on the yt-sim
 R-MAT preset (two replicas, a hotness sync at the step-50 boundary; the
 MPGP partition steers nothing on the dense walk engine, so it is skipped) —
 and the LM serving paths' two each — one prefill of 4 prompts of 2,048
-tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b and then
-xlstm-350m at full width over a 4,096-position cache, as ``chip_smoke.py``'s server
-runs them — each first timed plainly and then under ``torch.profiler``.
+tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b, xlstm-350m
+and then minicpm3-4b at full width over a 4,096-position cache, as
+``chip_smoke.py``'s server runs them — each first timed plainly and then
+under ``torch.profiler``.
 The training window runs the pipeline's path on the card: two chunks of
 50 steps, each one CUDA graph replay, after a warm-up call that captures
 the graph; each prefill window comes after an untimed prefill, which
@@ -18,14 +19,16 @@ time per step (the sum of the kernels' times in the trace, which records
 the kernels a graph replays), their ratio, the kernel launches per step,
 the kernels that take the most device time and the share of the port's
 own kernels (K1 ``sgns_lifetime`` and its write-back: its keys, the
-library's radix sort and the short and long row segments; K2 ``flash``; K3
+library's radix sort and the short and long row segments; K2 ``flash``,
+with MLA's ``flash_kernel_sm90_wide`` at D = 288 also shown apart; K3
 ``ssd_chunk_state`` and ``ssd_chunk_out``, and its wide route's
 ``wide_cum``, ``wide_cb_state``, ``wide_chain`` and ``wide_out``) in the
 device time.
 
-    PYTHONPATH=src python3 -m repro_torch.profile [embed]
+    PYTHONPATH=src python3 -m repro_torch.profile [embed | ARCH ...]
 
-With ``embed`` it profiles the embedding path only.
+With ``embed`` it profiles the embedding path only; with architecture
+names (of ``LM_ARCHS``) only those models' LM windows.
 
 It needs a CUDA device.
 """
@@ -39,14 +42,16 @@ import time
 PRESET = "yt-sim"
 SUPERSTEPS = 40
 STEPS = 100
-LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m")
+LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m", "minicpm3-4b")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
-# Substrings of the port's kernel names: "flash_kernel" matches both of
-# K2's, flash_kernel (float32) and flash_kernel_sm90 (bfloat16); K3 is two
+# Substrings of the port's kernel names: "flash_kernel" matches all of
+# K2's, flash_kernel (float32), flash_kernel_sm90 (bfloat16) and
+# flash_kernel_sm90_wide (bfloat16 at MLA's D = 288, also shown apart); K3 is two
 # launches, its states (with C B^T) and its output, and its wide route four:
 # cum, C B^T with the chunks' local states, their chain, and the output.
 OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "sgns_wb_segments_kernel", "sgns_wb_long_kernel", "flash_kernel",
+               "flash_kernel_sm90_wide",
                "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
                "wide_cb_state_kernel", "wide_chain_kernel", "wide_out_kernel")
 SHARDS = 2
@@ -116,6 +121,12 @@ def main(argv: list) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    archs = [a for a in argv if a in LM_ARCHS]
+    if archs:
+        for arch in archs:
+            lm_windows(torch, torch.device("cuda"), arch)
+            torch.cuda.empty_cache()
+        return 0
     preset = GRAPH_PRESETS[PRESET]
     dev = torch.device("cuda")
     graph = rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev)

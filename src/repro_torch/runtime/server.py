@@ -6,10 +6,11 @@ wave's prompts are left-padded with token 0 to the longest, with no pad
 mask, and prefilled in one call; then every slot decodes greedily (argmax)
 up to the wave's largest ``max_new_tokens``, and each request keeps its
 own first ``max_new_tokens`` tokens. On the card a prefill runs the flash
-kernel in every attention layer, the chunked SSD scan in every Mamba2
-layer and its wide route in every mLSTM layer; an sLSTM layer steps its
-recurrence token by token. The recurrent states run over the pad tokens,
-as in the reference.
+kernel in every attention layer (in an MLA layer on the latent: one KV
+head of dim kv_lora_rank + qk_rope_dim), the chunked SSD scan in every
+Mamba2 layer and its wide route in every mLSTM layer; an sLSTM layer
+steps its recurrence token by token. The recurrent states run over the
+pad tokens, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ class Server:
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig, device="cuda"):
         if cfg.encdec:
             raise NotImplementedError("encoder-decoder serving is not ported yet "
-                                      "(ROADMAP.md item 12)")
+                                      "(ROADMAP.md queue 1, item 6)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
