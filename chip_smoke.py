@@ -12,8 +12,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    and the wide route, ``ssd_wide.cu``). Print the compiler's
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
-   (``flash_kernel_sm90`` up to head dim 128, and ``flash_kernel_sm90_wide``
-   at MLA's 288, one build with v read apart and one with v = k) issues
+   (``flash_kernel_sm90`` up to head dim 128, ``flash_kernel_sm90_wide``
+   at MLA's 288 and ``flash_kernel_sm90_split3`` at 576, each of the last
+   two built once with v read apart and once with v = k) issues
    wgmma (``HGMMA``) and TMA loads
    (``UTMALDG``), and in the SSD libraries' that every product kernel runs
    on the tensor cores in TF32 (the first route's two kernels ``HGMMA``
@@ -24,14 +25,18 @@ Phases (each failure raises and ends the run with a non-zero exit):
    (the TPU kernel's buffer interface) at the paper width and three
    ragged shapes, one of W + K = 16 columns (5e-4); flash attention at the
    reference's test shapes, at every head dim, with GQA, ragged lengths,
-   ``q_offset`` and without the causal mask, and at both LM paths'
-   prefill shapes (2e-3 in float32 against ``mha_reference``, through the
+   ``q_offset`` and without the causal mask, and at the prefill shapes of
+   qwen3-1.7b, zamba2-7b and qwen2-moe-a2.7b (2e-3 in float32 against ``mha_reference``, through the
    SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
    against ``mha_chunked`` printed beside); at MLA's latent head dim 288
    with one KV head and MLA's sm_scale, in both types: minicpm3-4b's
    prefill shape with v a tensor of its own, the zero-padded latent and k
    itself (whose first 256 columns must match the padded latent's), a
-   ragged Sq with q_offset > 0 and a non-causal case; the SSD scan in the
+   ragged Sq with q_offset > 0 and a non-causal case; the same at
+   deepseek-v2-lite-16b's latent head dim 576 (512 + 64, sm_scale
+   192^-0.5; its prefill shape 4 x 16 x 1,819, its first 512 columns
+   against the padded latent's, a ragged Sq with q_offset 256, a
+   non-causal case at 512 keys); the SSD scan in the
    reference's 3-D form at its test shapes and chunks and at zamba2's
    prefill shape with the model's decay, where the masked decay overflows
    above the diagonal, and in the mixer's form (strided views, B and C per
@@ -100,6 +105,38 @@ Phases (each failure raises and ends the run with a non-zero exit):
    its bounds. Then time flash attention at minicpm3-4b's prefill shape
    against its plain version, its bound and two SDPA calls (enable_gqa,
    and k expanded to every head), each with the backend PyTorch picked.
+8. The MoE + MLA LM path: the same traffic served by deepseek-v2-lite-16b
+   at full width and depth (27 layers, every one MLA on the 512 + 64 latent
+   and a mixture of 64 routed experts, top-6, and 2 shared; the reference
+   gives every layer the MoE, so 16,210,324,992 parameters, 30.20 GiB in
+   bf16, seeded random weights) at its published capacity_factor 1.25.
+   Flash attention must have launched 27 times per prefill at D = 576 and
+   nothing else (the timed serve runs bare; the dropped (token, slot) pairs
+   of each prefill wave and decode step are printed from the same serve run
+   again, untimed, with its routings kept). A decode step's capacity is per call (1 for 4
+   slots), so the cached decode drops other pairs than a fresh prefill and
+   computes something else by design (the reference's too). The
+   consistency check therefore serves the same waves again at the no-drop
+   capacity_factor E / top_k, where an expert's capacity is the call's
+   token count (only inside this check): no pair may drop, and each fresh
+   prefill is routed as the served run was, since bf16 rounding decides
+   the router's near-ties and the routed experts' large output carries
+   each flip through the later layers (how many choices a fresh prefill
+   would make otherwise is printed, and so is a fresh prefill of wave 0
+   that routes itself). The first MoE layer's router sees no earlier
+   routing, so there the decode and a fresh prefill must pick alike for
+   all but FIRST_LAYER_FLIPS of the decoded tokens. Decode step n's logits
+   and latent cache must then match the fresh prefill (n = 1, 16, 31);
+   phase 7's three cache faults
+   and two MoE faults in one decode step (gate weights left unnormalised,
+   the shared expert skipped) must fail that check. Then time flash
+   attention at deepseek's prefill shape.
+9. The plain MoE path: the same traffic, serves and checks for
+   qwen2-moe-a2.7b (24 layers, MHA 16/16 at D = 128, 60 routed experts in
+   64 slots, top-4, one shared MLP of 5,632; 15,146,059,776 parameters,
+   28.22 GiB): flash attention 24 times per prefill at D = 128; the k/v
+   cache faults of phase 4 and the MoE faults of phase 8. Each model is
+   freed before the next is loaded.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints one JSON line with the kernels' numbers (flash
@@ -109,6 +146,7 @@ model's) and, last, the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -143,11 +181,15 @@ FLASH_CASES = [(1, 1, 1, 128, 128, 64, c, 0, "float32") for c in (True, False)] 
                (1, 4, 2, 333, 333, 96, True, 0, "bfloat16"),
                (2, 4, 4, 200, 200, 112, False, 0, "bfloat16")]
 # K2 on MLA's latent: (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, v) at D =
-# 288 with MLA_SCALE, in both types; v a tensor of its own, the zero-padded
-# latent, or k itself. minicpm3-4b's prefill shape is added in main().
+# 288 with MLA_SCALE and at D = 576 with DEEPSEEK_SCALE, in both types; v a
+# tensor of its own, the zero-padded latent, or k itself. minicpm3-4b's and
+# deepseek-v2-lite-16b's prefill shapes are added in main().
 MLA_SCALE = (64 + 32) ** -0.5      # minicpm3-4b: (qk_nope_dim + qk_rope_dim) ** -0.5
+DEEPSEEK_SCALE = (128 + 64) ** -0.5    # deepseek-v2-lite-16b, at D = 576
 MLA_FLASH_CASES = [(1, 4, 1, 77, 333, 288, True, 256, "k"), (2, 4, 1, 200, 512, 288, False, 0, "k"),
-                   (2, 8, 1, 333, 333, 288, True, 0, "own")]
+                   (2, 8, 1, 333, 333, 288, True, 0, "own"),
+                   (1, 4, 1, 77, 333, 576, True, 256, "k"), (2, 4, 1, 200, 512, 576, False, 0, "k"),
+                   (2, 8, 1, 333, 333, 576, True, 0, "own")]
 SSD_TOL = 3e-3
 # The reference's SSD kernel test cases (tests/test_kernels.py):
 # (BH, S, P, N, chunk).
@@ -164,9 +206,17 @@ LM_ARCH = "qwen3-1.7b"
 HYBRID_ARCH = "zamba2-7b"
 RECURRENT_ARCH = "xlstm-350m"
 MLA_ARCH = "minicpm3-4b"
+MOE_MLA_ARCH = "deepseek-v2-lite-16b"
+MOE_ARCH = "qwen2-moe-a2.7b"
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
+# An MoE model at the no-drop capacity factor: the share of decoded tokens
+# (every wave at KV_CHECK_STEPS) whose picks in the first MoE layer may
+# differ from a fresh prefill's. Measured 0 of 12 in wave 0 on both MoE
+# models (H100, PERF.md); flips start at the second to seventh layer,
+# where the earlier layers' rounding has reached the router's input.
+FIRST_LAYER_FLIPS = 0.125
 # Decode against a fresh prefill: the logits, of the largest |logit|, and
 # the served caches, of each tensor's largest entry, per layer (attention
 # k and v; Mamba2's conv window and ssm state). Each bound sits well above
@@ -195,11 +245,26 @@ KV_CHECK_STEPS = (1, 16, 31)
 # n)): logits 0.0093, ckv 0.0157, krope 0.0160; faults: cache length -1 or
 # +1 ckv 0.988, the rope phase +1 krope 0.935 (ckv 0.032: the latent
 # carries no phase); in float32 its decode equals a fresh prefill within
-# 3.2e-6 (tests/test_torch_mla.py, on the card).
+# 3.2e-6 (tests/test_torch_mla.py, on the card). The MoE models, at the
+# no-drop capacity factor with each fresh prefill routed as the served run
+# was (moe_consistency): deepseek-v2-lite-16b logits 0.141, ckv 0.115,
+# krope 0.097; qwen2-moe-a2.7b logits 0.109, k/v 0.127 (the routed
+# experts' output, ~100x the attention's at the reference's init, carries
+# bf16 rounding far; left to route itself a fresh prefill differs in most
+# picks of the last layers and by 0.73-1.20 of the largest logit); faults:
+# deepseek cache length -1 / +1 ckv 1.282 / 0.988, rope phase +1 krope
+# 0.920, gate weights unnormalised logits 1.213 and ckv 1.122, shared
+# expert skipped logits 0.772, ckv 0.598, krope 0.534; qwen2-moe k/v
+# 1.206 / 0.902 / 1.060, unnormalised logits 1.401, shared skipped logits
+# 1.126 and k/v 0.791. In float32 at full width (4 layers) deepseek's
+# decode equals a fresh prefill within 1e-3 (tests/test_torch_moe.py, on
+# the card).
 BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
           "zamba2-7b": {"logits": 6e-2, "kv": 0.3, "conv": 0.3, "ssm": 0.3},
           "xlstm-350m": {"logits": 0.2, "mlstm": 0.5, "c": 0.5, "n": 0.4, "h": 0.9},
-          "minicpm3-4b": {"logits": 5e-2, "ckv": 0.1, "krope": 0.1}}
+          "minicpm3-4b": {"logits": 5e-2, "ckv": 0.1, "krope": 0.1},
+          "deepseek-v2-lite-16b": {"logits": 0.35, "ckv": 0.3, "krope": 0.3},
+          "qwen2-moe-a2.7b": {"logits": 0.35, "kv": 0.35}}
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
@@ -555,7 +620,7 @@ def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own") 
     if not torch.allclose(got, want, atol=tol, rtol=tol):
         raise AssertionError(f"flash_attention {case}: differs by {err:.3e}")
     if v_mode == "k":
-        rank = fa_bench.MLA_RANK
+        rank = fa_bench.LATENTS[d][0]
         padded = torch.nn.functional.pad(k[..., :rank], (0, d - rank))
         lat = fa_ref.mha_reference(q, k, padded, **kw)[..., :rank].float()
         if not torch.allclose(got[..., :rank], lat, atol=tol, rtol=tol):
@@ -581,28 +646,35 @@ def sass_functions(lib) -> list:
     return [(fn.split("\n", 1)[0].strip(), fn) for fn in sass.split("Function : ")[1:]]
 
 
+# The bf16 flash kernels by route: (SASS name, head dims, builds per dim).
+# Head dims up to 128 take one ``flash_kernel_sm90`` each; 288 takes
+# ``flash_kernel_sm90_wide`` (O's columns split across two consumer
+# warpgroups) and 576 ``flash_kernel_sm90_split3`` (across three), each
+# built twice: v read apart, and v = k (one tile for both products).
+FLASH_ROUTES = (("flash_kernel_sm90_split3", (576,), 2), ("flash_kernel_sm90_wide", (288,), 2),
+                ("flash_kernel_sm90", (16, 32, 64, 96, 112, 128), 1))
+
+
 def sass_check(lib, head_dims) -> None:
     """Every bf16 flash kernel in ``lib``'s SASS must issue wgmma (HGMMA)
-    and TMA tile loads (UTMALDG); raises otherwise. Head dims up to 128 take
-    one ``flash_kernel_sm90`` each; 288 takes ``flash_kernel_sm90_wide`` (O's
-    columns split across the two consumer warpgroups), built twice: v read
-    apart, and v = k (one tile a stage)."""
-    found = {"flash_kernel_sm90": 0, "flash_kernel_sm90_wide": 0}
+    and TMA tile loads (UTMALDG), and each route of ``FLASH_ROUTES`` must
+    hold one build per head dim (two above 128); raises otherwise."""
+    found = {route: 0 for route, _, _ in FLASH_ROUTES}
     for name, fn in sass_functions(lib):
-        if "flash_kernel_sm90" not in name:
+        route = next((r for r, _, _ in FLASH_ROUTES if r in name), None)
+        if route is None:
             continue
-        route = "flash_kernel_sm90_wide" if "flash_kernel_sm90_wide" in name else "flash_kernel_sm90"
         found[route] += 1
         hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
         log(f"[check] {lib.name} SASS {name} ({route}): {hgmma} HGMMA, {utmaldg} UTMALDG")
         if not (hgmma and utmaldg):
             raise AssertionError(f"{name} issues no HGMMA or no UTMALDG")
-    wide = [d for d in head_dims if d > 128]
-    want = {"flash_kernel_sm90": len(head_dims) - len(wide), "flash_kernel_sm90_wide": 2 * len(wide)}
-    if found != want:
+    want = {route: builds * len(dims) for route, dims, builds in FLASH_ROUTES}
+    if found != want or sorted(d for _, dims, _ in FLASH_ROUTES for d in dims) != \
+            sorted(head_dims):
         raise AssertionError(f"bf16 flash kernels in the SASS {found}, expected {want}")
-    log(f"[check] head dims {wide} take the bf16 tensor-core route flash_kernel_sm90_wide "
-        "(wgmma + TMA)")
+    log("[check] " + "; ".join(f"head dims {list(dims)} take {route} (wgmma + TMA)"
+                               for route, dims, _ in FLASH_ROUTES))
 
 
 def ssd_sass_check(lib, wide_lib) -> None:
@@ -845,6 +917,15 @@ def lm_prompts(np, vocab: int):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
+def leaves(tree):
+    """The tensors of a nested dict / list of parameters."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for sub in tree for t in leaves(sub)]
+    return [tree]
+
+
 def block_kinds(cfg) -> list:
     """The kind of each of cfg's layers, in order."""
     cyc, n, rem = cfg.layer_cycles
@@ -993,9 +1074,11 @@ def _entries(caches, name):
                     yield entry
 
 
-def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> None:
+def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds,
+                   fresh_prefill=None, first_picks=None) -> None:
     """The power of ``kv_cache_check``: decode step 1 of ``wave`` with a
-    cache fault must fail it. With attention layers: the cache length off
+    fault must fail it, against a fresh prefill (by ``fresh_prefill`` when
+    given: an MoE model's, routed as the served run was). With attention layers: the cache length off
     by -1 or +1 (the new token's key and value land in the wrong slot, and
     its rope phase shifts with it), and the rope phase alone off by +1
     (decoded at +1, then its entries moved back to the right slot); each
@@ -1008,9 +1091,15 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
     must move the ssm state beyond its bound. With mLSTM layers: a decode
     step that skips the decay, which must move the mLSTM state beyond its
     bound; with sLSTM layers: its state (c, n, h) reset to the initial one
-    before the decode step, which must move c beyond its bound. The
-    logits' difference is printed beside each."""
+    before the decode step, which must move c beyond its bound. With MoE
+    layers: the gate weights left unnormalised (the top-k probabilities
+    as they come), and the shared expert skipped, each of which must move
+    the logits or a cache beyond its bound. The logits' difference is
+    printed beside each, and with ``first_picks`` (the fresh prefill's own
+    picks in the first MoE layer at the decoded token) the decoded tokens
+    whose picks there differ from them."""
     from repro_torch.models import mamba2 as mamba_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import xlstm as xlstm_mod
 
     plen = max(len(r.prompt) for r in wave)
@@ -1019,7 +1108,7 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
         toks[i, plen - len(r.prompt):plen] = r.prompt
         toks[i, plen] = r.output[0]
     toks = torch.as_tensor(toks, device=server.device)
-    fresh, fresh_caches = prefill(server.params, {"tokens": toks})
+    fresh, fresh_caches = (fresh_prefill or prefill)(server.params, {"tokens": toks})
     fresh = fresh.float()
     scale = fresh.abs().max().item()
 
@@ -1045,8 +1134,14 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
 
     orig_step = mamba_mod.ssd_decode_step
     no_decay = lambda state, xdt, loga, b, c: orig_step(state, xdt, torch.zeros_like(loga), b, c)
-    # (name, kind that must fail, cache_len shift, before, after, module whose
-    # ssd_decode_step skips the decay)
+    pick = moe_mod.pick
+
+    def unnormalised(xt, p, cfg):
+        _, gate_e, probs = pick(xt, p, cfg)
+        return probs.gather(1, gate_e), gate_e, probs
+
+    # (name, kind that must fail ("any": the logits or any cache), cache_len
+    # shift, before, after, (module, attribute, stand-in) for the decode step)
     faults = []
     if "a" in kinds:
         slot, phase = ("ckv", "krope") if latent else ("kv", "kv")
@@ -1055,34 +1150,49 @@ def cache_mutation(torch, np, server, prefill, decode, wave, kinds, bounds) -> N
                    ("rope phase +1", phase, 1, None, shift_kv_back, None)]
     if "m" in kinds:
         faults += [("conv window shifted by one", "conv", 0, shift_conv, None, None),
-                   ("decode skips the decay exp(loga)", "ssm", 0, None, None, mamba_mod)]
+                   ("decode skips the decay exp(loga)", "ssm", 0, None, None,
+                    (mamba_mod, "ssd_decode_step", no_decay))]
     if "x" in kinds:
         faults += [("mLSTM decode skips the decay exp(log f)", "mlstm", 0, None, None,
-                    xlstm_mod)]
+                    (xlstm_mod, "ssd_decode_step", no_decay))]
     if "s" in kinds:
         faults += [("sLSTM state reset before the decode step", "c", 0, reset_slstm, None,
                     None)]
-    for fault, kind, shift, before, after, patched in faults:
+    if server.cfg.moe:
+        faults += [("MoE gate weights left unnormalised", "any", 0, None, None,
+                    (moe_mod, "pick", unnormalised)),
+                   ("MoE shared expert skipped", "any", 0, None, None,
+                    (moe_mod, "mlp", lambda x, p: torch.zeros_like(x)))]
+    for fault, kind, shift, before, after, patch in faults:
         _, caches = prefill(server.params, {"tokens": toks[:, :plen]})
         if before:
             before(caches)
-        if patched:
-            patched.ssd_decode_step = no_decay
+        if patch:
+            mod, name, stand_in = patch
+            orig = getattr(mod, name)
+            setattr(mod, name, stand_in)
         try:
-            step, caches = decode(server.params, caches, toks[:, plen:], plen + shift)
+            with RouteTap() as routes:
+                step, caches = decode(server.params, caches, toks[:, plen:], plen + shift)
         finally:
-            for mod in (mamba_mod, xlstm_mod):
-                mod.ssd_decode_step = orig_step
+            if patch:
+                setattr(mod, name, orig)
         if after:
             after(caches)
         state = cache_diff(caches, fresh_caches, plen + 1)
         logit = (step.float() - fresh).abs().max().item() / scale
+        over = [k for k, v in {**state, "logits": logit}.items() if v > bounds[k]]
+        moved = ""
+        if first_picks is not None:
+            same = (routes.calls[0].gate_e[:, :, None] == first_picks[:, None, :]).any(-1)
+            moved = (f"; the first MoE layer's picks differ for "
+                     f"{int((same.sum(-1) < first_picks.shape[1]).sum())} of {len(wave)} tokens")
         log(f"[lm] mutation {fault}: cache differs by, of the largest entry: "
             f"{fmt_diff(state, bounds)}; logits by {logit:.5f} of the largest "
-            f"(bound {bounds['logits']})")
-        if not state[kind] > bounds[kind]:
-            raise AssertionError(f"the cache check misses a fault ({fault}): {kind} "
-                                 f"{state[kind]} <= {bounds[kind]}")
+            f"(bound {bounds['logits']}){moved}")
+        if not (over if kind == "any" else kind in over):
+            raise AssertionError(f"the cache check misses a fault ({fault}): "
+                                 f"{ {**state, 'logits': logit} } within {bounds}")
         del caches
     del fresh_caches
 
@@ -1122,12 +1232,203 @@ def slstm_share(torch, np, prefill, params, waves, device) -> list:
     return rows
 
 
+class RouteTap:
+    """While on, keeps every ``moe.plan`` call's plan (its device tensors:
+    no copy, no sync) in ``calls``, one per MoE layer of each model call."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.calls = moe_mod, []
+
+    def __enter__(self):
+        plan = self.orig = self.mod.plan
+
+        def recorded(*args):
+            r = plan(*args)
+            self.calls.append(r)
+            return r
+        self.mod.plan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.plan = self.orig
+
+
+def moe_drops(torch, cfg, routes, layers: int, prefills: int) -> None:
+    """Log the dropped (token, slot) pairs of each model call of a served
+    run (``routes``: its ``RouteTap`` calls, ``layers`` per model call,
+    each wave's prefill then its decode steps), summed over the layers."""
+    per_call = torch.stack([(~r.keep).sum() for r in routes]).view(-1, layers).sum(1).tolist()
+    pairs = [routes[c * layers].keep.numel() * layers for c in range(len(per_call))]
+    caps = [routes[c * layers].capacity for c in range(len(per_call))]
+    per_wave = len(per_call) // prefills
+    pre = [per_call[w * per_wave] for w in range(prefills)]
+    dec = [d for c, d in enumerate(per_call) if c % per_wave]
+    dec_caps = sorted({caps[c] for c in range(len(caps)) if c % per_wave})
+    log(f"[lm] {cfg.name} at capacity_factor {cfg.capacity_factor}: dropped (token, slot) pairs "
+        f"summed over {layers} MoE layers: prefill " + ", ".join(
+            f"wave {w} {pre[w]} of {pairs[w * per_wave]} (capacity {caps[w * per_wave]})"
+            for w in range(prefills))
+        + f"; decode steps (capacity {dec_caps}) min {min(dec)}, median "
+        f"{sorted(dec)[len(dec) // 2]}, max {max(dec)} of {pairs[1]} a step, {sum(dec)} in all")
+
+
+class PinnedRoutes:
+    """While on, ``moe.pick`` takes its experts from ``picks`` (one (T, k)
+    tensor per MoE layer, in call order), their gate weights gathered from
+    the call's own probabilities and renormalised, and keeps in ``own`` the
+    experts the router would have picked itself."""
+
+    def __init__(self, picks):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.picks, self.own = moe_mod, iter(picks), []
+
+    def __enter__(self):
+        pick = self.orig = self.mod.pick
+
+        def pinned(xt, p, cfg):
+            _, own, probs = pick(xt, p, cfg)
+            self.own.append(own)
+            gate_e = next(self.picks)
+            gate_w = probs.gather(1, gate_e)
+            return gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), gate_e, probs
+        self.mod.pick = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pick = self.orig
+
+
+def moe_consistency(torch, np, cfg, params, prompts, device) -> None:
+    """An MoE model's cached decode does not compute what a fresh prefill of
+    the same tokens computes: its capacity is per call (1 for 4 decode
+    slots), so it drops other pairs. So the check serves the same waves
+    again at the no-drop capacity_factor E / top_k, where every expert's
+    capacity is the call's token count, and no pair may drop. Even so the
+    router's discrete choices amplify bf16 rounding: at the reference's
+    init the routed experts' output is ~100x the attention's, a near-tie
+    decided the other way moves the next layers' router inputs, and over
+    the layers most choices go their own way (PERF.md). So each fresh
+    prefill is routed as the served run was (the served prefill's picks for
+    the prompt, decode step i's for position plen + i - 1; the gate weights
+    from the fresh prefill's own probabilities): decode step n must match
+    it (``kv_cache_check``: the logits and the caches), the choices the
+    fresh prefill would make differently at the decoded tokens are
+    counted, and the cache and MoE faults must fail the check
+    (``cache_mutation``). In the first MoE layer no earlier routing reaches
+    the router's input, so the fresh prefill's own picks there are those of
+    a fresh prefill that routes itself, and they must differ from the
+    decode's for no more than FIRST_LAYER_FLIPS of the decoded tokens.
+    Fresh prefills of wave 0 that route themselves are compared too, and
+    printed. The served configuration keeps
+    its published factor: this override lives only here."""
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_routed_experts / cfg.top_k)
+    layers, k = block_kinds(cfg).count("a"), cfg.top_k
+    log(f"[lm] {cfg.name} consistency check at the no-drop capacity_factor "
+        f"{nd.capacity_factor:.6f} (E / top_k, only inside this check; the served "
+        f"configuration keeps {cfg.capacity_factor})")
+    server = Server(nd, params, ServerConfig(batch_slots=LM_SLOTS, max_len=LM_MAX_LEN),
+                    device=device)
+    prefill, decode = server._prefill, server._decode
+    calls, wave_caches, snapshots = tap(torch, server, {"prefill": 0.0, "decode": 0.0})
+    with RouteTap() as served:
+        done = server.serve([Request(i, p, LM_NEW_TOKENS) for i, p in enumerate(prompts)])
+    waves = [done[i:i + LM_SLOTS] for i in range(0, len(done), LM_SLOTS)]
+    plen = [max(len(r.prompt) for r in wave) for wave in waves]
+    dropped = int(torch.stack([(~r.keep).sum() for r in served.calls]).sum())
+    if dropped:
+        raise AssertionError(f"{cfg.name}: {dropped} pairs dropped at the no-drop factor")
+
+    def plan(w, n, layer):
+        """The served run's picks of decode step n's layer (B, k)."""
+        return served.calls[(w * LM_NEW_TOKENS + n) * layers + layer].gate_e
+
+    def picks(w, n):
+        """Per layer, the served picks of wave w's prompt and first n tokens."""
+        b = len(waves[w])
+        return [torch.cat([plan(w, i, layer).view(b, -1, k) for i in range(n + 1)], 1)
+                .reshape(-1, k) for layer in range(layers)]
+
+    def differ(w, n, own):
+        """Per layer, the decoded tokens whose picks the fresh prefill's
+        router (``own``, per layer) would not make."""
+        b = len(waves[w])
+        out = []
+        for layer in range(layers):
+            ref = own[layer].view(b, plen[w] + n, k)[:, -1]
+            same = (plan(w, n, layer)[:, :, None] == ref[:, None, :]).any(-1).sum(-1)
+            out.append(int((same < k).sum()))
+        return out
+
+    for n in KV_CHECK_STEPS:        # wave 0, routing itself: printed
+        toks = np.zeros((len(waves[0]), plen[0] + n), np.int64)
+        for i, r in enumerate(waves[0]):
+            toks[i, plen[0] - len(r.prompt):plen[0]] = r.prompt
+            toks[i, plen[0]:] = r.output[:n]
+        with RouteTap() as own:
+            fresh, _ = prefill(params, {"tokens": torch.as_tensor(toks, device=device)})
+        step = calls[n].float()
+        by_layer = differ(0, n, [r.gate_e for r in own.calls])
+        log(f"[lm] {cfg.name} no-drop, wave 0 step {n}, a fresh prefill routing itself: logits "
+            f"differ by {(fresh.float() - step).abs().max().item() / step.abs().max().item():.5f}"
+            f" of the largest; decoded tokens whose picks differ, by layer: {by_layer}")
+        del own, fresh
+
+    order = iter([(w, n) for w in range(len(waves)) for n in KV_CHECK_STEPS])
+    flips, first = [], {}
+
+    def pinned_prefill(p, batch):
+        w, n = next(order)
+        with PinnedRoutes(picks(w, n)) as pin:
+            out = prefill(p, batch)
+        flips.append((len(waves[w]), differ(w, n, pin.own)))
+        if (w, n) == (0, 1):
+            first["picks"] = pin.own[0].view(len(waves[0]), plen[0] + 1, k)[:, -1]
+        return out
+
+    bounds = BOUNDS[cfg.name]
+    worst, worst_state = kv_cache_check(torch, np, server, pinned_prefill, waves, calls,
+                                        wave_caches, snapshots, bounds)
+    tokens = sum(b for b, _ in flips)
+    log(f"[lm] {cfg.name} no-drop: {len(served.calls)} routings served, no pair dropped; routed "
+        f"as served, the fresh prefills' own routers would pick otherwise for "
+        f"{sum(sum(f) for _, f in flips)} of {tokens * layers} (decoded token, layer) pairs "
+        f"({[sum(f) for _, f in flips]} by wave and step; by layer "
+        f"{[sum(f[i] for _, f in flips) for i in range(layers)]})")
+    # The first MoE layer's router input comes before any routing, so its
+    # own picks in the pinned prefills are those of a fresh prefill that
+    # routes itself: they must agree with the decode's but for a rare tie.
+    first_layer = sum(f[0] for _, f in flips)
+    log(f"[lm] {cfg.name} no-drop: the first MoE layer's picks differ between the decode and a "
+        f"fresh prefill for {first_layer} of {tokens} decoded tokens (bound "
+        f"{FIRST_LAYER_FLIPS * tokens:g})")
+    if first_layer > FIRST_LAYER_FLIPS * tokens:
+        raise AssertionError(f"{cfg.name}: the first MoE layer's router picks otherwise in the "
+                             f"decode than in a fresh prefill for {first_layer} of {tokens} tokens")
+    log(f"[lm] {cfg.name} cache consistency (no-drop, routed as served): worst |diff| / max "
+        f"|logit| {worst:.5f} (bound {bounds['logits']}); worst cache |diff| / max |entry|: "
+        f"{fmt_diff(worst_state, bounds)}")
+    del wave_caches, calls, snapshots
+
+    def fresh_prefill(p, batch):
+        with PinnedRoutes(picks(0, 1)):
+            return prefill(p, batch)
+    cache_mutation(torch, np, server, prefill, decode, waves[0], set(block_kinds(cfg)), bounds,
+                   fresh_prefill, first["picks"])
+
+
 def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     """Serve ``cfg`` at full width to ``prompts`` with every launch count set
     to 0 just before, check the launches (K2 once per attention layer, K3
     once per Mamba2 layer and its wide route once per mLSTM layer in each
-    prefill, nothing else), the outputs and the caches; returns the launch
-    counts read just after serving."""
+    prefill, nothing else), the outputs and the caches (an MoE model's at
+    the no-drop factor: ``moe_consistency``); returns the launch counts read
+    just after serving."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import zoo
     from repro_torch.runtime.server import Request, Server, ServerConfig, throughput_stats
 
@@ -1135,15 +1436,20 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     t0 = time.perf_counter()
     params = zoo.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
     heads = (f"MLA: {cfg.num_heads} heads on one latent KV head of {cfg.kv_lora_rank} + "
              f"{cfg.qk_rope_dim}, q_lora_rank {cfg.q_lora_rank}, v_head {cfg.v_head_dim}"
              if cfg.use_mla else
              f"heads {cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}")
+    ffn = (f"MoE in every attention layer: {cfg.n_routed_experts} routed experts in "
+           f"{moe_mod.padded_experts(cfg)} slots, top-{cfg.top_k}, width {cfg.moe_d_ff}, shared "
+           f"width {cfg.n_shared_experts * cfg.moe_d_ff}, capacity_factor {cfg.capacity_factor}"
+           if cfg.moe else f"d_ff {cfg.d_ff}")
     log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({kinds.count('a')} attention, "
         f"{kinds.count('m')} Mamba2, {kinds.count('x')} mLSTM, {kinds.count('s')} sLSTM), "
-        f"d {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}: {cfg.param_count()} parameters (seed 0) in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"d {cfg.d_model}, {heads}, {ffn}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters (seed 0; the config's "
+        f"param_count() {cfg.param_count()}) in {time.perf_counter() - t0:.2f} s")
     server = Server(cfg, params, ServerConfig(batch_slots=LM_SLOTS, max_len=LM_MAX_LEN),
                     device=device)
     prefill, decode = server._prefill, server._decode
@@ -1189,6 +1495,19 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     if not all(torch.isfinite(c.float()).all() for c in calls):
         raise AssertionError("non-finite logits")
     log(f"[lm] first request's tokens {done[0].output.tolist()}")
+    if cfg.moe:
+        # The drops, from the same serve again, untimed, with its plans kept.
+        del wave_caches, calls, snapshots
+        server._prefill, server._decode = prefill, decode
+        with RouteTap() as routes:
+            again = server.serve([Request(i, p, LM_NEW_TOKENS) for i, p in enumerate(prompts)])
+        same = all(np.array_equal(a.output, b.output) for a, b in zip(done, again))
+        log(f"[lm] {cfg.name} served again with its routings kept (untimed): the same tokens "
+            f"as the timed serve: {same}")
+        moe_drops(torch, cfg, routes.calls, kinds.count("a"), prefills)
+        del routes
+        moe_consistency(torch, np, cfg, server.params, prompts, device)
+        return launches
     bounds = BOUNDS[cfg.name]
     worst, worst_state = kv_cache_check(torch, np, server, prefill, waves, calls, wave_caches,
                                         snapshots, bounds)
@@ -1221,6 +1540,7 @@ def main() -> int:
     from repro_torch.configs.distger import GRAPH_PRESETS
     from repro_torch.graph.generators import rmat_graph
     from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.flash_attention import bench as fa_bench
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.sgns import ops, ref
@@ -1262,28 +1582,37 @@ def main() -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg, hy_cfg, rec_cfg, mla_cfg = (get_config(a) for a in (LM_ARCH, HYBRID_ARCH,
-                                                                RECURRENT_ARCH, MLA_ARCH))
+    lm_cfg, hy_cfg, rec_cfg, mla_cfg, ds_cfg, moe_cfg = (get_config(a) for a in (
+        LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH, MLA_ARCH, MOE_MLA_ARCH, MOE_ARCH))
     prompts = lm_prompts(np, lm_cfg.vocab_size)
     hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
     rec_prompts = lm_prompts(np, rec_cfg.vocab_size)
     mla_prompts = lm_prompts(np, mla_cfg.vocab_size)
+    ds_prompts = lm_prompts(np, ds_cfg.vocab_size)
+    moe_prompts = lm_prompts(np, moe_cfg.vocab_size)
     s_prefill = max(len(p) for p in prompts)     # the longest padded prompt
     prefill_case = (LM_SLOTS, lm_cfg.num_heads, lm_cfg.num_kv_heads, s_prefill, s_prefill,
                     lm_cfg.resolved_head_dim, True, 0, "bfloat16")
     hy_prefill_case = (LM_SLOTS, hy_cfg.num_heads, hy_cfg.num_kv_heads, s_prefill, s_prefill,
                        hy_cfg.resolved_head_dim, True, 0, "bfloat16")
-    mla_d = mla_cfg.kv_lora_rank + mla_cfg.qk_rope_dim
-    if (mla_d, (mla_cfg.qk_nope_dim + mla_cfg.qk_rope_dim) ** -0.5) != (288, MLA_SCALE):
-        raise AssertionError(f"{MLA_ARCH}'s latent head dim or scale is not MLA_FLASH_CASES'")
-    mla_prefill_case = (LM_SLOTS, mla_cfg.num_heads, 1, s_prefill, s_prefill, mla_d, True, 0,
-                        "bfloat16")
+    latent = {}          # MLA model -> its prefill case on the latent (one KV head, v = k)
+    for cfg, scale in ((mla_cfg, MLA_SCALE), (ds_cfg, DEEPSEEK_SCALE)):
+        d = cfg.kv_lora_rank + cfg.qk_rope_dim
+        if (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5 != scale or \
+                fa_bench.LATENTS[d] != (cfg.kv_lora_rank, scale):
+            raise AssertionError(f"{cfg.name}'s latent head dim or scale is not MLA_FLASH_CASES'")
+        latent[cfg.name] = (LM_SLOTS, cfg.num_heads, 1, s_prefill, s_prefill, d, True, 0,
+                            "bfloat16")
+    mla_prefill_case, ds_prefill_case = latent[MLA_ARCH], latent[MOE_MLA_ARCH]
+    moe_prefill_case = (LM_SLOTS, moe_cfg.num_heads, moe_cfg.num_kv_heads, s_prefill, s_prefill,
+                        moe_cfg.resolved_head_dim, True, 0, "bfloat16")
     mla_cases = [(*c[:8], dt, c[8]) for c in
-                 [(*mla_prefill_case[:8], v) for v in ("own", "padded", "k")] + MLA_FLASH_CASES
-                 for dt in ("float32", "bfloat16")]
+                 [(*case[:8], v) for case in latent.values() for v in ("own", "padded", "k")]
+                 + MLA_FLASH_CASES for dt in ("float32", "bfloat16")]
     flash_err = 0.0
-    checks = [(case, None, "own") for case in [*FLASH_CASES, prefill_case, hy_prefill_case]] + \
-        [(case[:9], MLA_SCALE, case[9]) for case in mla_cases]
+    checks = [(case, None, "own") for case in [*FLASH_CASES, prefill_case, hy_prefill_case,
+                                                moe_prefill_case]] + \
+        [(case[:9], fa_bench.LATENTS[case[5]][1], case[9]) for case in mla_cases]
     for i, (case, scale, v_mode) in enumerate(checks):
         err, chunked = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, sm_scale=scale,
                                    v_mode=v_mode)
@@ -1357,6 +1686,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_shapes[MLA_ARCH] = flash_times(torch, fa_ops, fa_ref, mla_prefill_case,
                                          sm_scale=MLA_SCALE, v_mode="k")
+
+    # 8. the MoE + MLA LM path ----------------------------------------------------------
+    launches[MOE_MLA_ARCH] = lm_path(torch, np, counters, ds_cfg, ds_prompts)
+    torch.cuda.empty_cache()
+    flash_shapes[MOE_MLA_ARCH] = flash_times(torch, fa_ops, fa_ref, ds_prefill_case,
+                                             sm_scale=DEEPSEEK_SCALE, v_mode="k")
+
+    # 9. the plain MoE LM path ----------------------------------------------------------
+    launches[MOE_ARCH] = lm_path(torch, np, counters, moe_cfg, moe_prompts)
+    torch.cuda.empty_cache()
+    flash_shapes[MOE_ARCH] = flash_times(torch, fa_ops, fa_ref, moe_prefill_case)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"]
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "

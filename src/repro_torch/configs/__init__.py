@@ -2,12 +2,13 @@
 
 ``get_config(name)`` returns the full published config, ``get_reduced(name)``
 the CPU-test version (same family, tiny dims), with the JAX package's names
-and aliases. The port serves the dense decoder-only ``qwen3-1.7b``, the
-Mamba2 + attention hybrid ``zamba2-7b``, the mLSTM + sLSTM recurrent
-``xlstm-350m`` and the multi-head latent attention model ``minicpm3-4b``
-so far; any other architecture of the reference raises and names the
-ROADMAP item that ports it. ``distger`` holds the embedding system's own
-presets.
+and aliases. The port serves the dense decoder-only ``qwen3-1.7b`` and
+``yi-6b``, the Mamba2 + attention hybrid ``zamba2-7b``, the mLSTM + sLSTM
+recurrent ``xlstm-350m``, the multi-head latent attention model
+``minicpm3-4b`` and the mixtures of experts ``qwen2-moe-a2.7b`` and
+``deepseek-v2-lite-16b`` (MLA + MoE) so far; any other architecture of
+the reference raises and names the ROADMAP item that ports it.
+``distger`` holds the embedding system's own presets.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m", "minicpm3_4b"]
+ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m", "minicpm3_4b",
+                       "deepseek_v2_lite_16b", "qwen2_moe_a2_7b", "yi_6b"]
 
 # canonical external ids (grid spelling) -> module names, as in the reference
 ALIASES: Dict[str, str] = {
@@ -43,7 +45,7 @@ def get_config(name: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet: the port runs {ARCH_IDS}; "
-            "the rest of the LM harness is in ROADMAP.md's queue 1 (items 4-6)")
+            "the rest of the LM harness is in ROADMAP.md's queue 1 (item 6)")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
 
 

@@ -1,7 +1,7 @@
 """Time flash attention (K2) on the card, against
 ``scaled_dot_product_attention`` and the bound, at the LM paths' prefill
-shapes (minicpm3-4b's: MLA's latent, D = 288, one KV head, v is k), and
-against other builds of the kernel.
+shapes (minicpm3-4b's and deepseek-v2-lite-16b's: MLA's latent, D = 288
+and 576, one KV head, v is k), and against other builds of the kernel.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.flash_attention.bench [DIR ...]
 
@@ -13,8 +13,8 @@ build, then every build again in reverse order), so that versions are
 compared within one run on one card. Prints each build's ptxas report for
 the bf16 kernels (registers, spills, wgmma serialization remarks), the
 card's name and power limit, the port's kernel checked against
-``mha_reference`` in bfloat16 (tolerance 2e-2), and at D = 288 with MLA's
-``sm_scale`` also in float32 (2e-3), with v its own tensor, the
+``mha_reference`` in bfloat16 (tolerance 2e-2), and at D = 288 and 576
+with MLA's ``sm_scale`` also in float32 (2e-3), with v its own tensor, the
 zero-padded latent or k itself (the variants are timed, not checked),
 and one line per shape with the SDPA backend PyTorch picked. Needs a CUDA
 device.
@@ -38,21 +38,27 @@ CHECKS = [(1, 1, 1, 128, 128, 64, True, 0), (1, 1, 1, 128, 128, 128, False, 0),
           (2, 4, 4, 200, 200, 112, False, 0), (1, 2, 2, 70, 70, 128, True, 0),
           (4, 16, 8, 1819, 1819, 128, True, 0), (4, 32, 32, 1819, 1819, 112, True, 0)]
 F32_TOL = 2e-3
-MLA_D, MLA_RANK = 288, 256            # minicpm3-4b: kv_lora_rank 256 + qk_rope_dim 32
-MLA_SCALE = (64 + 32) ** -0.5         # (qk_nope_dim + qk_rope_dim) ** -0.5, not D ** -0.5
-# MLA's latent attention (B, Hq, Sq, Skv, causal, q_offset, v), Hkv = 1,
-# D = 288: v "own" (a tensor of its own), "padded" (k's first 256 columns,
+# MLA's latent head dims: D -> (kv_lora_rank, sm_scale = (qk_nope_dim +
+# qk_rope_dim) ** -0.5, not D ** -0.5): minicpm3-4b's 256 + 32 and
+# deepseek-v2-lite-16b's 512 + 64.
+LATENTS = {288: (256, (64 + 32) ** -0.5), 576: (512, (128 + 64) ** -0.5)}
+# MLA's latent attention (B, Hq, Sq, Skv, causal, q_offset, v, D), Hkv = 1:
+# v "own" (a tensor of its own), "padded" (k's first kv_lora_rank columns,
 # zero-padded, as the reference builds it) or "k" (k itself, as the port's
-# MLA passes it); the prefill shape, a ragged Sq with q_offset, non-causal.
-MLA_CHECKS = [(4, 40, 1819, 1819, True, 0, v) for v in ("own", "padded", "k")] + \
-             [(2, 8, 333, 333, True, 0, "k"), (1, 4, 77, 333, True, 256, "k"),
-              (1, 4, 100, 611, True, 511, "padded"), (2, 4, 200, 512, False, 0, "k"),
-              (1, 3, 300, 256, False, 0, "own")]
-# (B, Hq, Hkv, S, D), causal: qwen3-1.7b's, zamba2-7b's and minicpm3-4b's
-# prefill waves, and 2,048 heads of one 128-key tile each (a CTA's fixed
-# cost).
-SHAPES = [(4, 16, 8, 1819, 128), (4, 32, 32, 1819, 112), (4, 40, 1, 1819, MLA_D),
-          (4, 16, 8, 985, 128), (1, 2048, 2048, 128, 128)]
+# MLA passes it); each model's prefill shape, a ragged Sq with q_offset,
+# non-causal.
+MLA_CHECKS = [(4, 40, 1819, 1819, True, 0, v, 288) for v in ("own", "padded", "k")] + \
+             [(2, 8, 333, 333, True, 0, "k", 288), (1, 4, 77, 333, True, 256, "k", 288),
+              (1, 4, 100, 611, True, 511, "padded", 288), (2, 4, 200, 512, False, 0, "k", 288),
+              (1, 3, 300, 256, False, 0, "own", 288)] + \
+             [(4, 16, 1819, 1819, True, 0, v, 576) for v in ("own", "padded", "k")] + \
+             [(1, 4, 77, 333, True, 256, "k", 576), (1, 4, 100, 611, True, 511, "padded", 576),
+              (2, 4, 200, 512, False, 0, "k", 576), (1, 3, 300, 256, False, 0, "own", 576)]
+# (B, Hq, Hkv, S, D), causal: qwen3-1.7b's, zamba2-7b's, minicpm3-4b's and
+# deepseek-v2-lite-16b's prefill waves, and 2,048 heads of one 128-key tile
+# each (a CTA's fixed cost).
+SHAPES = [(4, 16, 8, 1819, 128), (4, 32, 32, 1819, 112), (4, 40, 1, 1819, 288),
+          (4, 16, 1, 1819, 576), (4, 16, 8, 985, 128), (1, 2048, 2048, 128, 128)]
 
 
 def _time_ms(torch, fn, reps: int = 20) -> float:
@@ -80,7 +86,8 @@ def inputs(torch, b, hq, hkv, sq, skv, d, seed, dtype=None, v_mode="own"):
     if v_mode == "k":
         v = k
     elif v_mode == "padded":
-        v = torch.nn.functional.pad(k[..., :MLA_RANK], (0, d - MLA_RANK))
+        rank = LATENTS[d][0]
+        v = torch.nn.functional.pad(k[..., :rank], (0, d - rank))
     return q, k, v
 
 
@@ -154,8 +161,8 @@ def main(argv: list[str]) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
     checks = [(case, None, "own", torch.bfloat16) for case in CHECKS] + \
-        [((b, hq, 1, sq, skv, MLA_D, causal, q_offset), MLA_SCALE, v, dt)
-         for b, hq, sq, skv, causal, q_offset, v in MLA_CHECKS
+        [((b, hq, 1, sq, skv, d, causal, q_offset), LATENTS[d][1], v, dt)
+         for b, hq, sq, skv, causal, q_offset, v, d in MLA_CHECKS
          for dt in (torch.bfloat16, torch.float32)]
     for i, (case, scale, v_mode, dt) in enumerate(checks):
         b, hq, hkv, sq, skv, d, causal, q_offset = case
@@ -180,9 +187,9 @@ def main(argv: list[str]) -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     port = ops.LIBRARY
     for b, hq, hkv, s, d in SHAPES:
-        mla = d == MLA_D
+        mla = d in LATENTS
         q, k, v = inputs(torch, b, hq, hkv, s, s, d, seed=7, v_mode="k" if mla else "own")
-        scale = MLA_SCALE if mla else None
+        scale = LATENTS[d][1] if mla else None
         flops = 4 * b * hq * d * s * (s + 1) // 2      # the visible (query, key) pairs
         times = {}
         try:

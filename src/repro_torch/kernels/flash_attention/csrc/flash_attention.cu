@@ -15,16 +15,18 @@
 //
 // What bounds it: at the serving prefill shapes (B = 4, S = 1,819, causal;
 // qwen3-1.7b Hq = 16, Hkv = 8, D = 128; zamba2-7b Hq = Hkv = 32, D = 112;
-// minicpm3-4b's MLA latent, Hq = 40, Hkv = 1, D = 288) the products of the
-// visible (query, key) pairs are 54 / 95 / 305 GFLOP against 45 / 60 / 344
-// MB of q, k, v and o, so the bf16 tensor cores bound it: 0.055 / 0.096 /
-// 0.309 ms at 989 TFLOP/s, against 0.013 / 0.018 / 0.103 ms of memory
+// minicpm3-4b's MLA latent, Hq = 40, Hkv = 1, D = 288; deepseek-v2-lite-16b's,
+// Hq = 16, Hkv = 1, D = 576) the products of the visible (query, key) pairs
+// are 54 / 95 / 305 / 244 GFLOP against 45 / 60 / 344 / 285 MB of q, k, v
+// and o, so the bf16 tensor cores bound it: 0.055 / 0.096 / 0.309 / 0.247
+// ms at 989 TFLOP/s, against 0.013 / 0.018 / 0.103 / 0.085 ms of memory
 // traffic.
 //
 // The type picks the kernel; neither gives way to the other. Head dims up
-// to 128 take flash_kernel_sm90 in bfloat16; D = 288 (MLA's latent: one KV
-// head, the caller's sm_scale, and v = k when the caller passes k twice)
-// takes flash_kernel_sm90_wide, set out where it is defined.
+// to 128 take flash_kernel_sm90 in bfloat16; D = 288 and D = 576 (MLA's
+// latent: one KV head, the caller's sm_scale, and v = k when the caller
+// passes k twice) take flash_kernel_sm90_wide and flash_kernel_sm90_split3,
+// set out where they are defined.
 //
 // bfloat16, the serving path: flash_kernel_sm90. One CTA per (b * Hq + h,
 // tile of 128 queries): two consumer warpgroups of 64 query rows each (the
@@ -87,8 +89,9 @@
 // three decimal digits, which would put the float32 tolerance (2e-3) and
 // the float32 decode-vs-prefill check (1e-3) in doubt, so float32 stays on
 // the FMA units: one CTA of 128 threads per (b * Hq + h, tile of BQ
-// queries), looping over tiles of 32 keys staged in shared memory. TPR
-// threads (8, or 4 at D = 16 and 112) share one query row: each holds D/TPR
+// queries), looping over tiles of 32 keys (16 at D = 288, 8 at 576) staged
+// in shared memory. TPR threads (8; 4 at D = 16 and 112, 16 at 576) share
+// one query row: each holds D/TPR
 // of its dimensions (interleaved in 16-byte pieces, so the loads of one
 // row hit distinct banks) for two query rows, scores 8 keys at a time,
 // sums the partial dots with warp shuffles, and applies one online-softmax
@@ -121,18 +124,25 @@ __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 
 template <int D>
 struct Layout {
-  // Threads per query row: the largest power of two up to 8 that divides
-  // the row's D/4 16-byte pieces (4 at D = 16 and D = 112, else 8), so the
-  // partial dots of one row sum over aligned lanes by xor shuffles.
-  static constexpr int TPR =
-      (D / 4) % 8 == 0 ? 8 : (D / 4) % 4 == 0 ? 4 : (D / 4) % 2 == 0 ? 2 : 1;
+  // Threads per query row: the largest power of two up to 8 (16 above D =
+  // 288, so a thread holds at most 36 of a row's dimensions) that divides
+  // the row's D/4 16-byte pieces (4 at D = 16 and D = 112, 16 at 576, else
+  // 8), so the partial dots of one row sum over aligned lanes by xor
+  // shuffles.
+  static constexpr int TPR_MAX = D > 288 ? 16 : 8;
+  static constexpr int TPR = (D / 4) % TPR_MAX == 0 ? TPR_MAX
+                             : (D / 4) % 8 == 0     ? 8
+                             : (D / 4) % 4 == 0     ? 4
+                             : (D / 4) % 2 == 0     ? 2
+                                                    : 1;
   static constexpr int NV = D / (4 * TPR);              // 16-byte pieces per thread
   static constexpr int GROUPS = kThreads / TPR;         // row groups per CTA
   static constexpr int BQ = GROUPS * kRows;             // query rows per CTA
   // Keys per shared-memory tile: K and V tiles stay within the 48 KB of
-  // static shared memory (36 KB at D = 288).
-  static constexpr int BK = D <= 128 ? kBlockK : kBlockK / 2;
+  // static shared memory (36 KB at D = 288 and at D = 576).
+  static constexpr int BK = D <= 128 ? kBlockK : D <= 288 ? kBlockK / 2 : kBlockK / 4;
   static_assert(D % (4 * TPR) == 0, "D must be a multiple of 16");
+  static_assert(BK % kChunk == 0, "a key tile holds whole chunks");
 };
 
 template <typename T, int D>
@@ -309,6 +319,7 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
     case 112: return launch_typed<T, 112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 128: return launch_typed<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 288: return launch_typed<T, 288>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 576: return launch_typed<T, 576>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -847,6 +858,239 @@ flash_kernel_sm90_wide(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// --- bfloat16 at head dim 576: O's columns split across three warpgroups -------
+
+// deepseek-v2-lite-16b's latent attention (D = 576: kv_lora_rank 512 +
+// qk_rope_dim 64, one KV head). A 64-row Q tile and a 64-key K tile are 72
+// KB each, so Q and a ring of two K stages (v = k) or one K + V stage take
+// 216 KB of the 227; one P tile of 8 KB fits beside them, two do not. A
+// 64-row O of 576 columns is 288 f32 registers a thread for one warpgroup:
+// it is split across three, 192 columns (96 registers) each. A producer
+// warp beside 384 consumer threads would put four warps on an SM
+// sub-partition and cap every thread at 128 registers; without it three
+// warps share one, and ptxas may give 168. So the CTA is the three
+// consumer warpgroups alone, and one thread of warpgroup 0 issues the TMA
+// loads. Warpgroup 0 forms S = Q K^T (wgmma m64n64k16, both operands in
+// shared memory) and the online softmax, and publishes P (bf16, stored as
+// TMA would store it) and the rows' rescale factors; every warpgroup then
+// rescales its O columns and accumulates them by wgmma m64n192k16 with P
+// and V in shared memory. One mbarrier says P_j is out (warpgroup 0's 128
+// threads arrive), one that every warpgroup is done with P_j and with tile
+// j's stage (all 384 arrive; it also frees the stage for the next load).
+// Warpgroup 0's S of tile j + 1 runs while the others' P V of tile j does;
+// with v apart (one stage) the next tile loads only after P V. Its time
+// against its bound: PERF.md.
+constexpr int kSplit3N = 192;                      // O columns per warpgroup
+constexpr int kSplit3Threads = 3 * kWarpgroup;     // three consumer warpgroups
+
+template <int D, bool SAME_KV>
+struct Split3Tile {
+  static_assert(D == 3 * kSplit3N, "three warpgroups of 192 columns");
+  static constexpr int kBlocks = D / 64;
+  static constexpr uint32_t kQBytes = kBlocks * kQWBlockBytes;
+  static constexpr uint32_t kTileBytes = kBlocks * kKVBlockBytes;   // one K or V tile
+  static constexpr int kStages = SAME_KV ? 2 : 1;
+  static constexpr uint32_t kStageBytes = (SAME_KV ? 1 : 2) * kTileBytes;
+  static constexpr uint32_t kPBytes = kBQW * kBK * 2;        // P of one tile, bf16
+  // 1 KB of alignment slack, Q, the ring, the P tile, the rows' rescale
+  // factors and 1 / l, the barriers (Q's, a full one per stage, ready,
+  // freed, final).
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + kPBytes
+                               + 2 * kBQW * 4 + 8 * (1 + kStages + 3);
+  static_assert(kSmem <= 232448, "above the 227 KB a block may use");
+};
+
+template <int D, bool SAME_KV>
+__global__ void __launch_bounds__(kSplit3Threads, 1)
+flash_kernel_sm90_split3(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                         int Hq, int Hkv, int Sq, int Skv, int nq, int causal, int q_offset,
+                         float scale_log2) {
+  using T = Split3Tile<D, SAME_KV>;
+  constexpr int STAGES = T::kStages;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;
+  const uint32_t s_kv = s_q + T::kQBytes;                  // stage s: K (then V)
+  const uint32_t s_p = s_kv + STAGES * T::kStageBytes;     // P of the current tile
+  const uint32_t s_f = s_p + T::kPBytes;                   // rescale[64], 1 / l[64]
+  const uint32_t bar_q = s_f + 2 * kBQW * 4;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_ready = bar_full + 8 * STAGES;        // P_j and its rescale are out
+  const uint32_t bar_freed = bar_ready + 8;                // P_j and tile j's stage are read
+  const uint32_t bar_final = bar_freed + 8;                // the rows' 1 / l are out
+  uint8_t* const p_gen = smem_raw + (s_p - raw);
+  float* const rescale = reinterpret_cast<float*>(smem_raw + (s_f - raw));
+  float* const inv_l = rescale + kBQW;
+  auto k_tile = [&](int j) { return s_kv + (j % STAGES) * T::kStageBytes; };
+  auto v_tile = [&](int j) { return k_tile(j) + (SAME_KV ? 0 : T::kTileBytes); };
+  auto full = [&](int j) { return bar_full + 8 * (j % STAGES); };
+
+  const int tid = threadIdx.x;
+  int bh, iq;
+  cta_tile(blockIdx.x, (int)gridDim.x / nq, nq, causal, bh, iq);
+  const int b = bh / Hq, h = bh % Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q_lo = iq * kBQW;
+  const int kv_end = causal ? min(Skv, q_lo + kBQW + q_offset) : Skv;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  // Tile j (K, and V when apart) into its stage, landing on full(j).
+  auto load = [&](int j) {
+    sm90::mbar_expect_tx(full(j), T::kStageBytes);
+#pragma unroll
+    for (int blk = 0; blk < T::kBlocks; ++blk) {
+      sm90::tma_load_3d(k_tile(j) + blk * kKVBlockBytes, &tk, full(j), blk * 64, j * kBK, bkv);
+      if (!SAME_KV)
+        sm90::tma_load_3d(v_tile(j) + blk * kKVBlockBytes, &tv, full(j), blk * 64, j * kBK, bkv);
+    }
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) sm90::mbar_init(bar_full + 8 * s, 1);
+    sm90::mbar_init(bar_ready, kWarpgroup);
+    sm90::mbar_init(bar_freed, kSplit3Threads);
+    sm90::mbar_init(bar_final, kWarpgroup);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::tma_prefetch_map(&tq);
+    sm90::tma_prefetch_map(&tk);
+    if (!SAME_KV) sm90::tma_prefetch_map(&tv);
+    sm90::mbar_expect_tx(bar_q, T::kQBytes);
+#pragma unroll
+    for (int blk = 0; blk < T::kBlocks; ++blk)
+      sm90::tma_load_3d(s_q + blk * kQWBlockBytes, &tq, bar_q, blk * 64, q_lo, bh);
+    for (int j = 0; j < STAGES && j < n_tiles; ++j) load(j);
+  }
+
+  // Every warpgroup holds the same rows of the accumulators: this thread's
+  // r and r + 8 of the tile, columns c0, c0 + 1 of each group of 8. The
+  // ready and freed barriers complete phase j for tile j.
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int col0 = kSplit3N * wg;             // this warpgroup's O columns
+  float acc[kSplit3N / 2];
+#pragma unroll
+  for (int i = 0; i < kSplit3N / 2; ++i) acc[i] = 0.f;
+  float inv0, inv1;                           // the rows' 1 / l
+
+  if (wg == 0) {
+    const SoftmaxTile softmax{Skv, causal, q_offset, q_lo, q_lo + r, c0, scale_log2};
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+    float sc[kSN];
+
+    // P_j in bf16 into the P tile, stored as TMA would store it (128-byte
+    // swizzle): sc[8 kk + 2 x], + 1 hold row r + 8 (x & 1), keys 16 kk +
+    // 8 (x >> 1) + c0, + 1. Then the rows' rescale factors; then arrive.
+    auto publish = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int row = r + 8 * (x & 1);
+          const int chunk = (2 * kk + (x >> 1)) ^ (row & 7);
+          *reinterpret_cast<uint32_t*>(p_gen + row * 128 + chunk * 16 + c0 * 2) =
+              pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+        }
+      if (lane % 4 == 0) {
+        rescale[r] = corr[0];
+        rescale[r + 8] = corr[1];
+      }
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(bar_ready);
+    };
+    // Once every warpgroup is done with tile j - 1 (its P and its stage),
+    // refill that stage with tile j - 1 + STAGES (tile j when one stage).
+    auto refill = [&](int j) {
+      sm90::mbar_wait(bar_freed, (j - 1) & 1);
+      if (tid == 0 && j - 1 + STAGES < n_tiles) load(j - 1 + STAGES);
+    };
+
+    // Tile j: S_j (behind P_{j-1} V_{j-1} on the tensor cores), the softmax,
+    // P_j out once every warpgroup is done with P_{j-1}, then P_j V_j. ptxas
+    // serializes this warpgroup's wgmma (remark C7515); issuing S_j with no
+    // product in flight removes the remark but ran 8% slower (PERF.md).
+    sm90::mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      if constexpr (STAGES == 1) {     // tile j loads where tile j - 1 was
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(acc);
+        if (j > 0) {
+          sm90::mbar_arrive(bar_freed);
+          refill(j);
+        }
+      }
+      sm90::mbar_wait(full(j), (j / STAGES) & 1);
+      issue_qk<D, kQWBlockBytes>(sc, s_q, k_tile(j));
+      sm90::wgmma_wait<0>();           // S_j, and P_{j-1} V_{j-1}
+      sm90::fence_operands(sc);
+      sm90::fence_operands(acc);
+      if (STAGES > 1 && j > 0) sm90::mbar_arrive(bar_freed);
+      softmax(sc, j * kBK, m, l, corr);
+      if (STAGES > 1 && j > 0) refill(j);
+      publish();
+      sm90::mbar_wait(bar_ready, j & 1);
+#pragma unroll
+      for (int i = 0; i < kSplit3N / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      issue_pv_ss(acc, s_p, v_tile(j));
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    inv0 = 1.f / fmaxf(l[0], 1e-30f);
+    inv1 = 1.f / fmaxf(l[1], 1e-30f);
+    if (lane % 4 == 0) {
+      inv_l[r] = inv0;
+      inv_l[r + 8] = inv1;
+    }
+    sm90::mbar_arrive(bar_final);
+  } else {
+    for (int j = 0; j < n_tiles; ++j) {
+      sm90::wgmma_wait<0>();           // P_{j-1} V_{j-1} (none before tile 0)
+      sm90::fence_operands(acc);
+      if (j > 0) sm90::mbar_arrive(bar_freed);
+      sm90::mbar_wait(bar_ready, j & 1);
+      sm90::mbar_wait(full(j), (j / STAGES) & 1);
+      const float f0 = rescale[r], f1 = rescale[r + 8];
+#pragma unroll
+      for (int i = 0; i < kSplit3N / 2; ++i) acc[i] *= ((i >> 1) & 1) ? f1 : f0;
+      issue_pv_ss(acc, s_p, v_tile(j) + (col0 / 64) * kKVBlockBytes);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+    sm90::mbar_wait(bar_final, 0);
+    inv0 = inv_l[r];
+    inv1 = inv_l[r + 8];
+  }
+
+  // o = acc / max(l, 1e-30): this warpgroup's 192 columns of the rows below Sq.
+  __nv_bfloat16* const obase = o + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < kSplit3N / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q_lo + r + 8 * e;
+      const float inv = e ? inv1 : inv0;
+      if (row < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)row * D + col0 + 8 * i + c0) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv, acc[4 * i + 2 * e + 1] * inv);
+    }
+  }
+}
+
 // Codes past the runtime's own: the tensor map could not be made.
 constexpr int kErrNoEncode = 20000;         // the driver has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 10000;           // + the CUresult of cuTensorMapEncodeTiled
@@ -947,6 +1191,43 @@ int launch_sm90_wide(const void* q, const void* k, const void* v, void* o, int B
                                                q_offset, sm_scale, stream);
 }
 
+// D = 576: flash_kernel_sm90_split3, one tile a stage for both products
+// when v is k (the same memory), else K and V.
+template <int D, bool SAME_KV>
+int launch_split3_kernel(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         void* o, int B, int Hq, int Hkv, int Sq, int Skv, int nq, int causal,
+                         int q_offset, float sm_scale, cudaStream_t stream) {
+  constexpr int smem = Split3Tile<D, SAME_KV>::kSmem;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_sm90_split3<D, SAME_KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  flash_kernel_sm90_split3<D, SAME_KV><<<B * Hq * nq, kSplit3Threads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, nq, causal, q_offset,
+      sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_sm90_split3(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                       int Hkv, int Sq, int Skv, int causal, int q_offset, float sm_scale,
+                       cudaStream_t stream) {
+  if (Skv == 0)
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Hq * Sq * D * 2, stream);
+  const int nq = (Sq + kBQW - 1) / kBQW;
+  if ((long long)B * Hq * nq > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncode;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(encode, &tq, q, D, Sq, B * Hq, kBQW);
+  if (!err) err = make_map(encode, &tk, k, D, Skv, B * Hkv, kBK);
+  if (!err) err = make_map(encode, &tv, v, D, Skv, B * Hkv, kBK);
+  if (err) return err;
+  return k == v ? launch_split3_kernel<D, true>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, nq, causal,
+                                                q_offset, sm_scale, stream)
+                : launch_split3_kernel<D, false>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, nq, causal,
+                                                 q_offset, sm_scale, stream);
+}
+
 int launch_sm90_dim(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
                     int Hkv, int Sq, int Skv, int causal, int q_offset, float sm_scale,
                     cudaStream_t stream) {
@@ -958,6 +1239,7 @@ int launch_sm90_dim(int D, const void* q, const void* k, const void* v, void* o,
     case 112: return launch_sm90<112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 128: return launch_sm90<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     case 288: return launch_sm90_wide<288>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
+    case 576: return launch_sm90_split3<576>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, q_offset, sm_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,9 +5,10 @@ Tensors on the CPU go to the plain version (``ref.mha_reference``);
 tensors on the card go to the CUDA library (``csrc/flash_attention.cu``),
 which picks the kernel by type: bfloat16 to wgmma tiles fed by TMA,
 float32 to the SIMT kernel on the FMA units. Head dims up to 128 take
-one kernel per dim; 288 (MLA's latent, ``kv_lora_rank + qk_rope_dim`` of
-minicpm3-4b) takes a bf16 kernel that splits O's columns between its
-warpgroups and, when ``v is k``, loads one tile for both products. A
+one kernel per dim; 288 and 576 (MLA's latent, ``kv_lora_rank +
+qk_rope_dim`` of minicpm3-4b and of deepseek-v2-lite-16b) take bf16
+kernels that split O's columns between their warpgroups (two at 288,
+three at 576) and, when ``v is k``, load one tile for both products. A
 launch that fails raises —
 there is no fallback from one kernel to the other or to the plain
 version. The kernels read ragged lengths with bounds checks (SIMT) or
@@ -31,7 +32,7 @@ from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = 0
 REF_BLOCK_K = 256                 # the reference wrapper's default key tile
-HEAD_DIMS = (16, 32, 64, 96, 112, 128, 288)  # head dimensions the kernel is built for
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 288, 576)  # head dimensions the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

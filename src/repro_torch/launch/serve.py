@@ -6,6 +6,8 @@
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+      --reduced --device cpu
 
 The flags and defaults of the JAX package's ``launch/serve.py``, plus
 ``--device`` (the card by default; ``--device cpu`` with ``--reduced`` runs

@@ -2,9 +2,12 @@
 and decode.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-blocks (kind ``"a"``: GQA, or MLA when ``cfg.use_mla``; no MoE), Mamba2
-blocks (kind ``"m"``) and the xLSTM's mLSTM and sLSTM blocks (kinds
-``"x"`` and ``"s"``). ``cfg.block_cycle`` repeats to
+blocks (kind ``"a"``: GQA, or MLA when ``cfg.use_mla``; the FFN a dense
+SwiGLU, or with ``cfg.moe`` the mixture of experts of ``models/moe.py`` in
+every "a" block, as the reference builds it: ``first_dense_layers`` enters
+only the parameter count), Mamba2 blocks (kind ``"m"``) and the xLSTM's
+mLSTM and sLSTM blocks (kinds ``"x"`` and ``"s"``; an mLSTM block's FFN
+stays dense). ``cfg.block_cycle`` repeats to
 cover ``num_layers`` as in the reference (``_groups``), but the layers of
 a group are a list of per-repetition dicts run by an ordinary loop, not a
 stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
@@ -26,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -37,8 +41,6 @@ Params = Dict[str, Any]
 
 def _check(cfg: ModelConfig) -> None:
     """Refuse what this slice does not run, naming where it is planned."""
-    if cfg.moe:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP.md queue 1, item 4)")
     if cfg.encdec or cfg.frontend != "none":
         raise NotImplementedError("encoder-decoder models and frontends are not "
                                   "ported yet (ROADMAP.md queue 1, item 6)")
@@ -82,7 +84,8 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, device) -> Params:
         "attn": (mla_mod.init_mla(gen, cfg, dtype, device) if cfg.use_mla
                  else attn_mod.init_attention(gen, cfg, dtype, device)),
         "ln2": init_rmsnorm(d, dtype, device),
-        "ffn": init_mlp(gen, d, cfg.d_ff, dtype, device),
+        "ffn": (moe_mod.init_moe(gen, cfg, dtype, device) if cfg.moe
+                else init_mlp(gen, d, cfg.d_ff, dtype, device)),
     }
 
 
@@ -101,7 +104,9 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtyp
 def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=None,
                 cache_len=None, causal: bool = True):
     """Kind "a": pre-norm attention (MLA, always causal, when
-    ``cfg.use_mla``), then pre-norm SwiGLU. Kinds "m", "x"
+    ``cfg.use_mla``), then the pre-norm SwiGLU or, with ``cfg.moe``, the
+    mixture of experts (its aux loss is dropped, as the reference's
+    serving drops it). Kinds "m", "x"
     and "s": the pre-norm Mamba2, mLSTM or sLSTM mixer (an mLSTM block with
     ``d_ff`` adds a pre-norm SwiGLU). With ``cache`` and no ``cache_len``
     (prefill) a recurrent block writes its final state into the cache;
@@ -140,6 +145,8 @@ def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=N
         x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=causal,
                                    cache=cache, cache_len=cache_len)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe:
+        return x + moe_mod.moe_ffn(h, p["ffn"], cfg)[0]
     return x + mlp(h, p["ffn"])
 
 

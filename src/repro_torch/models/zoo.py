@@ -50,8 +50,9 @@ def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     reference's rules (its ``reduce_config``): d 64, 2 layers for a dense
     model, two repetitions of the block cycle for a hybrid, MLA's latent
     ranks cut (q_lora_rank 32 when it has one, kv_lora_rank 16, qk_nope 16,
-    qk_rope 8, v_head 16), and 4 SSD heads of state 16 for an SSM family;
-    ``overrides`` last."""
+    qk_rope 8, v_head 16), MoE cut to 4 routed experts of width 32 (top_k
+    and the shared and dense-layer counts at most 2, 1 and 1), and 4 SSD
+    heads of state 16 for an SSM family; ``overrides`` last."""
     small: Dict[str, Any] = dict(
         num_layers=max(2, min(4, len(cfg.block_cycle))),
         d_model=64,
@@ -68,6 +69,11 @@ def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         small.update(q_lora_rank=32 if cfg.q_lora_rank else 0,
                      kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
                      v_head_dim=16)
+    if cfg.moe:
+        small.update(n_routed_experts=4, top_k=min(2, cfg.top_k),
+                     moe_d_ff=32,
+                     n_shared_experts=min(1, cfg.n_shared_experts),
+                     first_dense_layers=min(1, cfg.first_dense_layers))
     if cfg.ssm_state:
         small.update(ssm_state=16, ssm_heads=4, ssm_head_dim=0)
     if len(cfg.block_cycle) > 1:

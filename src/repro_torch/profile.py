@@ -6,8 +6,9 @@ as ``embed_graph(PAPER_EMBED, num_shards=2)`` runs them on the yt-sim
 R-MAT preset (two replicas, a hotness sync at the step-50 boundary; the
 MPGP partition steers nothing on the dense walk engine, so it is skipped) —
 and the LM serving paths' two each — one prefill of 4 prompts of 2,048
-tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b, xlstm-350m
-and then minicpm3-4b at full width over a 4,096-position cache, as
+tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b, xlstm-350m,
+minicpm3-4b and then deepseek-v2-lite-16b (MLA + MoE at its published
+capacity factor) at full width over a 4,096-position cache, as
 ``chip_smoke.py``'s server runs them — each first timed plainly and then
 under ``torch.profiler``.
 The training window runs the pipeline's path on the card: two chunks of
@@ -20,7 +21,8 @@ the kernels a graph replays), their ratio, the kernel launches per step,
 the kernels that take the most device time and the share of the port's
 own kernels (K1 ``sgns_lifetime`` and its write-back: its keys, the
 library's radix sort and the short and long row segments; K2 ``flash``,
-with MLA's ``flash_kernel_sm90_wide`` at D = 288 also shown apart; K3
+with MLA's ``flash_kernel_sm90_wide`` at D = 288 and
+``flash_kernel_sm90_split3`` at D = 576 also shown apart; K3
 ``ssd_chunk_state`` and ``ssd_chunk_out``, and its wide route's
 ``wide_cum``, ``wide_cb_state``, ``wide_chain`` and ``wide_out``) in the
 device time.
@@ -42,16 +44,17 @@ import time
 PRESET = "yt-sim"
 SUPERSTEPS = 40
 STEPS = 100
-LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m", "minicpm3-4b")
+LM_ARCHS = ("qwen3-1.7b", "zamba2-7b", "xlstm-350m", "minicpm3-4b", "deepseek-v2-lite-16b")
 LM_SLOTS, LM_PROMPT, LM_MAX_LEN, LM_DECODE_STEPS = 4, 2048, 4096, 10
 # Substrings of the port's kernel names: "flash_kernel" matches all of
 # K2's, flash_kernel (float32), flash_kernel_sm90 (bfloat16) and
-# flash_kernel_sm90_wide (bfloat16 at MLA's D = 288, also shown apart); K3 is two
+# flash_kernel_sm90_wide and flash_kernel_sm90_split3 (bfloat16 at MLA's D =
+# 288 and 576, also shown apart); K3 is two
 # launches, its states (with C B^T) and its output, and its wide route four:
 # cum, C B^T with the chunks' local states, their chain, and the output.
 OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "sgns_wb_segments_kernel", "sgns_wb_long_kernel", "flash_kernel",
-               "flash_kernel_sm90_wide",
+               "flash_kernel_sm90_wide", "flash_kernel_sm90_split3",
                "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
                "wide_cb_state_kernel", "wide_chain_kernel", "wide_out_kernel")
 SHARDS = 2

@@ -10,7 +10,8 @@ kernel in every attention layer (in an MLA layer on the latent: one KV
 head of dim kv_lora_rank + qk_rope_dim), the chunked SSD scan in every
 Mamba2 layer and its wide route in every mLSTM layer; an sLSTM layer
 steps its recurrence token by token. The recurrent states run over the
-pad tokens, as in the reference.
+pad tokens, and an MoE layer routes them (they take expert capacity in
+token order), as in the reference.
 """
 
 from __future__ import annotations

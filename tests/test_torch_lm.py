@@ -71,7 +71,7 @@ def test_reduced_config_and_params_match_reference(models):
     assert shapes(own) == shapes(params)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "chameleon-34b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)

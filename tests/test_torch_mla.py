@@ -139,21 +139,27 @@ def test_mla_attention_matches_reference(q_lora, attn_impl):
             assert _rel(cache[name], jcache[name]) <= CACHE_TOL, (t0, name)
 
 
-@pytest.mark.parametrize("d", [24, 288])
+# Latent head dim -> (kv_lora_rank, MLA's sm_scale): the reduced configs',
+# minicpm3-4b's and deepseek-v2-lite-16b's ((qk_nope + qk_rope) ** -0.5).
+LATENTS = {24: (16, (16 + 8) ** -0.5), 288: (256, (64 + 32) ** -0.5),
+           576: (512, (128 + 64) ** -0.5)}
+
+
+@pytest.mark.parametrize("d", [24, 288, 576])
 def test_flash_plain_version_at_latent_head_dims(d):
     """K2's plain version with one KV head and MLA's explicit sm_scale,
-    at the reduced (16 + 8) and minicpm3-4b's (256 + 32) latent head dims:
-    against the reference's ``flash_attention`` (its Pallas kernel in
-    interpret mode) and ``mha_reference`` within 2e-3. With k passed as v
-    the first kv_lora_rank columns equal those of the zero-padded latent
-    that the reference passes."""
+    at the reduced (16 + 8), minicpm3-4b's (256 + 32) and
+    deepseek-v2-lite-16b's (512 + 64) latent head dims: against the
+    reference's ``flash_attention`` (its Pallas kernel in interpret mode)
+    and ``mha_reference`` within 2e-3. With k passed as v the first
+    kv_lora_rank columns equal those of the zero-padded latent that the
+    reference passes."""
     import jax.numpy as jnp
 
     from repro.kernels.flash_attention import ops as jax_ops
     from repro.kernels.flash_attention import ref as jax_ref
 
-    rank = d - (8 if d == 24 else 32)
-    scale = (16 + 8) ** -0.5 if d == 24 else (64 + 32) ** -0.5
+    rank, scale = LATENTS[d]
     rng = np.random.default_rng(d)
     q = rng.standard_normal((2, 4, 96, d)).astype(np.float32)
     k = rng.standard_normal((2, 1, 96, d)).astype(np.float32)
@@ -177,10 +183,10 @@ def test_flash_plain_version_at_latent_head_dims(d):
                                    atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("d", [48, 256, 320, 576])
+@pytest.mark.parametrize("d", [48, 256, 320, 640])
 def test_unbuilt_head_dims_are_refused_before_any_launch(d):
     """The wrapper's CUDA route refuses a head dim it has no kernel for
-    (deepseek-v2-lite-16b's 576 among them) before it loads the library:
+    before it loads the library:
     the check runs on any tensors, so it is held here on the CPU."""
     q, k = torch.zeros(1, 2, 8, d), torch.zeros(1, 1, 8, d)
     with pytest.raises(ValueError, match="head dim"):
@@ -363,7 +369,7 @@ def test_kernel_at_latent_head_dim_matches_plain_version_on_the_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [48, 256, 320, 576])
+@pytest.mark.parametrize("d", [48, 256, 320, 640])
 def test_unbuilt_head_dims_raise_on_the_card(d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

@@ -252,7 +252,7 @@ def test_flash_plain_version_at_head_dim_112():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("feature", [{"moe": True}, {"frontend": "vision"}])
+@pytest.mark.parametrize("feature", [{"encdec": True}, {"frontend": "vision"}])
 def test_unported_block_features_raise(feature):
     cfg = dataclasses.replace(get_reduced(ARCH), **feature)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
