@@ -49,8 +49,12 @@ Phases (each failure raises and ends the run with a non-zero exit):
    it (3e-3, its chunk-state scratch NaN-filled, y and the state finite).
 3. The embedding path: ``embed_graph`` with ``PAPER_EMBED`` on the
    ``yt-sim`` R-MAT preset (1,138,499 nodes), first at ``num_shards=2`` (the
-   paper's regime: the MPGP partition, two replicas, the hotness-block
-   sync), then at ``num_shards=1``. In each run K1 and its write-back must
+   paper's regime: the MPGP partition, the walks on the partition-sharded
+   engine, two replicas, the hotness-block sync), then at ``num_shards=1``
+   (the dense walk engine). Every walk batch of the k = 2 run must have run
+   on the sharded engine, and its InCoM messages (printed) must measure
+   the analytic bytes exactly, 80 bytes each (to 1e-5, float32 sums). In
+   each run K1 and its write-back must
    have launched once per training step, every step inside a CUDA graph
    replay (replays = chunks), with one hotness sync per 50-step boundary
    crossed at k = 2; phi must be finite and the link-prediction AUC (of the
@@ -65,7 +69,14 @@ Phases (each failure raises and ends the run with a non-zero exit):
    same two chunks from a clone of the same state through a new graph must
    give bit-equal phi (the write-back adds in a fixed order); K1's times at
    S = 2 and S = 1, and the write-back's and the step's against their
-   bounds.
+   bounds. Then ``[walk]``: one round of walks (the k = 2 run's round-0
+   keys) on the dense engine and on the sharded engine, replicated at k =
+   2 and partition-local at k = 2 and 4 under MPGP and at k = 4 under the
+   hash partition. Each must draw the dense walks bit for bit and count a
+   hand-off for every cross-owner hop of its paths (counted on the host),
+   at the analytic bytes; each prints its wall time, supersteps, host
+   reads, exchange rounds, pool, lane occupancy, CSR bytes per shard and
+   peak memory, and MPGP's hand-offs are printed against hash's at k = 4.
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -543,7 +554,7 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
     link-prediction AUC of the replica mean above 0.75. Returns the run's
     phi, corpus and counts."""
     from repro_torch.configs.distger import PAPER_EMBED
-    from repro_torch.core import dsgl
+    from repro_torch.core import dsgl, incom, shard_engine
     from repro_torch.core.api import embed_graph
     from repro_torch.eval import link_prediction_auc
     from repro_torch.kernels.sgns import ops
@@ -554,6 +565,7 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
         counters[name].LAUNCHES = 0
     ops.WRITEBACKS = 0
     dsgl.GRAPH_REPLAYS = 0
+    shard_engine.BATCHES = 0
     t0 = time.perf_counter()
     phi_in, phi_out, corpus, stats = embed_graph(
         graph, PAPER_EMBED, num_shards=shards, return_corpus=True, return_stats=True,
@@ -577,7 +589,19 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
     log(f"{tag} mean walk length {ws['mean_len']:.4f} supersteps {ws['supersteps']} "
         f"per batch {ws['batch_supersteps']} accepts {ws['accepts']} rejects {ws['rejects']}")
     log(f"{tag} D history {ws['d_history']}")
+    count, sent, analytic = ws["msg_count"], ws["msg_bytes"], ws["msg_bytes_analytic"]
+    log(f"{tag} walk batches on the sharded engine {shard_engine.BATCHES}; InCoM messages "
+        f"{count}, bytes measured {sent!r}, analytic {analytic!r} "
+        f"({sent / max(count, 1):.6f} bytes a message)")
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batches = len(ws["batch_supersteps"])
+    if shard_engine.BATCHES != (batches if shards > 1 else 0):
+        raise AssertionError(f"{shard_engine.BATCHES} walk batches on the sharded engine of "
+                             f"{batches} at k = {shards}")
+    if sent != analytic or abs(sent - incom.MSG_BYTES * count) > 1e-5 * incom.MSG_BYTES * count \
+            or (shards == 1 and count):
+        raise AssertionError(f"messages {count}: {sent!r} bytes measured, {analytic!r} "
+                             "analytic")
     if launches != stats["steps"] or writebacks != stats["steps"] \
             or replays != stats["chunks"]:
         raise AssertionError(f"K1 launches {launches} and write-backs {writebacks} for "
@@ -596,6 +620,109 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
         raise AssertionError(f"AUC {auc} <= 0.75")
     return {"phi_in": phi_in, "phi_out": phi_out, "corpus": corpus, "launches": launches,
             "writebacks": writebacks, "replays": replays}
+
+
+WALK_RUNS = (("replicated", 2, "mpgp"), ("local", 2, "mpgp"), ("local", 4, "mpgp"),
+             ("local", 4, "hash"))
+
+
+def walk_hops(np, paths, part) -> int:
+    """Consecutive path entries whose owners differ: the hand-offs the
+    returned walks imply, counted on the host."""
+    hops = 0
+    for lo in range(0, paths.shape[0], 1 << 18):
+        p = paths[lo:lo + (1 << 18)]
+        a, b = p[:, :-1], p[:, 1:]
+        hops += int(((a >= 0) & (b >= 0) & (part[np.maximum(a, 0)]
+                                            != part[np.maximum(b, 0)])).sum())
+    return hops
+
+
+def walk_phase(torch, np, graph, dev) -> None:
+    """One round of walks on the graph, ``PAPER_EMBED``'s spec and the k = 2
+    pipeline's round-0 keys, five times: the dense engine, then the sharded
+    engine replicated at k = 2 (MPGP), partition-local at k = 2 and 4
+    (MPGP) and at k = 4 under the hash partition. Each sharded run must
+    draw the dense run's walks bit for bit (paths, lengths, accepts,
+    rejects), count a hand-off for every cross-owner hop of its paths (on
+    the host) and measure the bytes the closed form gives. Prints each
+    run's wall time, supersteps, host reads, exchange and spill rounds,
+    pool, lane occupancy, CSR bytes per shard and peak memory, and MPGP's
+    hand-offs against the hash partition's at k = 4."""
+    from repro_torch import prng
+    from repro_torch.configs.distger import PAPER_EMBED
+    from repro_torch.core import incom, mpgp
+    from repro_torch.core.api import make_walk_plan
+    from repro_torch.core.shard_engine import run_walk_sharded
+    from repro_torch.core.walker import LaneKeys, run_walk_batch
+
+    t0 = time.perf_counter()
+    graph = graph.with_edge_cm()
+    policy, spec, _ = make_walk_plan(PAPER_EMBED)
+    n = graph.num_nodes
+    key_walk = prng.split(prng.PRNGKey(PAPER_EMBED.seed), 2 + 2)[0]
+    keys = lambda: LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, n, dev)
+    sources = torch.arange(n, device=dev)
+    parts = {}
+    for k, name in sorted({(k, name) for _, k, name in WALK_RUNS}):
+        t1 = time.perf_counter()
+        fn = mpgp.mpgp_partition if name == "mpgp" else mpgp.hash_partition
+        parts[k, name] = fn(graph, k).assignment
+        log(f"[walk] {name} k={k}: partition {time.perf_counter() - t1:.2f} s, nodes per "
+            f"part {np.bincount(parts[k, name], minlength=k).tolist()}")
+    log(f"[walk] set-up (Cm, partitions) {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dense = run_walk_batch(graph, sources, keys(), policy, spec)
+    torch.cuda.synchronize()
+    log(f"[walk] dense: wall {time.perf_counter() - t1:.3f} s, supersteps {dense.supersteps}, "
+        f"host reads {dense.supersteps + 1}, accepts {int(dense.accepts)}, rejects "
+        f"{int(dense.rejects)}, mean length {float(dense.info.L.mean()):.4f}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    handoffs = {}
+    for engine, k, name in WALK_RUNS:
+        part = parts[k, name]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, stats = run_walk_sharded(graph, sources, keys(), policy, spec, part, k,
+                                     engine=engine, with_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tag = f"[walk] {engine} k={k} {name}"
+        same = (torch.equal(st.path, dense.path) and torch.equal(st.info.L, dense.info.L)
+                and (st.supersteps, int(st.accepts), int(st.rejects))
+                == (dense.supersteps, int(dense.accepts), int(dense.rejects)))
+        count, sent, analytic = int(st.msg_count), float(st.msg_bytes), \
+            float(st.msg_bytes_analytic)
+        hops = walk_hops(np, st.path.cpu().numpy(), part)
+        handoffs[k, name] = count
+        log(f"{tag}: wall {wall:.3f} s, supersteps {st.supersteps}, host reads "
+            f"{stats['host_reads']}, exchange rounds {stats.get('exchange_rounds', '-')} "
+            f"(spill {stats.get('spill_rounds', 0)}), pool {stats.get('pool_slots', '-')} slots "
+            f"cap {stats.get('exchange_cap', '-')} retries {stats.get('pool_retries', 0)}, peak "
+            f"lane occupancy {stats.get('peak_lane_occupancy', '-')}, CSR bytes per shard "
+            f"{stats.get('csr_bytes_per_shard', '-')}, peak device memory {peak:.3f} GiB")
+        log(f"{tag}: walks equal the dense engine's {same}; hand-offs {count} "
+            f"(per shard {stats['msg_count']}), cross-owner hops on the host {hops}; bytes "
+            f"measured {sent!r}, analytic {analytic!r}")
+        if not same:
+            raise AssertionError(f"{tag}: the walks differ from the dense engine's")
+        if count != hops or sent != analytic or \
+                abs(sent - incom.MSG_BYTES * count) > 1e-5 * incom.MSG_BYTES * count:
+            raise AssertionError(f"{tag}: {count} hand-offs for {hops} hops, {sent!r} bytes "
+                                 f"for {analytic!r}")
+        del st
+    m, h = handoffs[4, "mpgp"], handoffs[4, "hash"]
+    log(f"[walk] k=4 hand-offs: MPGP {m} against hash {h} "
+        f"({(1 - m / max(h, 1)) * 100:.4f}% fewer, {m * incom.MSG_BYTES} against "
+        f"{h * incom.MSG_BYTES} bytes)")
+    log(f"[walk] phase {time.perf_counter() - t0:.2f} s")
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -1662,7 +1789,10 @@ def main() -> int:
     phi_out = torch.stack([emb[2].pop("phi_out"), emb[1].pop("phi_out")])
     sgns = sgns_main_path(torch, np, phi_in, phi_out, emb[2].pop("corpus"), dev)
     sgns_err = max(sgns_err, sgns["max_abs_err"])
-    del phi_in, phi_out, emb[1]["corpus"], graph
+    del phi_in, phi_out, emb[1]["corpus"]
+    torch.cuda.empty_cache()
+    walk_phase(torch, np, graph, dev)
+    del graph
     torch.cuda.empty_cache()
 
     # 4. the dense LM path -------------------------------------------------------

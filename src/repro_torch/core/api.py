@@ -9,7 +9,7 @@ termination (R^2 < mu walk length + Delta D <= delta walk count).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -61,12 +61,14 @@ def make_walk_plan(cfg: EmbedConfig) -> Tuple[object, WalkSpec, Dict]:
     return policy, spec, rounds
 
 
-def sample_corpus(graph, cfg: EmbedConfig, *, device="cuda") -> Corpus:
-    """Rounds of walks until the ΔD gate stops them, as a host ``Corpus``
-    (the dense engine; the reference's sharded engine draws the same walks)."""
+def sample_corpus(graph, cfg: EmbedConfig, part: Optional[np.ndarray] = None, *,
+                  device="cuda") -> Corpus:
+    """Rounds of walks until the ΔD gate stops them, as a host ``Corpus``:
+    on the dense engine, or with a partition ``part`` on the
+    partition-sharded engine (the same walks, with their messages counted)."""
     policy, spec, rounds = make_walk_plan(cfg)
     return generate_corpus(graph.to(device), policy=policy, spec=spec,
-                           seed=cfg.seed, **rounds)
+                           seed=cfg.seed, part=part, **rounds)
 
 
 def embed_graph(
@@ -81,8 +83,11 @@ def embed_graph(
 ):
     """partition -> info-oriented walks -> DSGL -> embeddings, on ``device``.
 
-    With ``num_shards`` > 1 the graph is partitioned by MPGP first and DSGL
-    trains that many replicas under the hotness-block sync. The default path
+    With ``num_shards`` > 1 the graph is partitioned by MPGP first, the
+    walks run on the partition-sharded engine over that many shards
+    (``core.shard_engine``, which measures the InCoM messages between
+    them), and DSGL trains that many replicas under the hotness-block sync.
+    The default path
     is the streaming pipeline (``runtime.trainer.StreamingEmbedPipeline``):
     finished walk rounds append into a device-resident corpus ring and DSGL
     training consumes ring slots directly. Each round walks from every node
@@ -93,7 +98,8 @@ def embed_graph(
     Returns (phi_in, phi_out) as tensors on ``device`` in node-id space
     (replica-averaged), plus the host ``Corpus`` if ``return_corpus`` and,
     on the streaming path, the run's summary if ``return_stats``: rounds,
-    steps, chunks, syncs and their bytes, walk statistics, the Cm and
+    steps, chunks, syncs and their bytes, walk statistics (with the
+    messages' count and bytes, measured and analytic, at k > 1), the Cm and
     partition seconds (``cm_s``, ``part_s``), the partition's locality,
     balance and per-part node counts."""
     import time
@@ -129,7 +135,7 @@ def embed_graph(
     if not streaming:
         if return_stats:
             raise ValueError("return_stats needs the streaming pipeline")
-        corpus = sample_corpus(graph, cfg, device=dev)
+        corpus = sample_corpus(graph, cfg, part, device=dev)
         order = FrequencyOrder.from_ocn(corpus.ocn)
         phi_in, phi_out = train_dsgl(corpus, order, dsgl_cfg, num_shards=num_shards,
                                      device=dev)

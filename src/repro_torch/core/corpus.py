@@ -13,7 +13,7 @@ integers: they are known without reading the device back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,9 +122,12 @@ def generate_corpus(
     max_rounds: int = 20,
     window: int = 1,
     seed: int = 0,
+    part: Optional[np.ndarray] = None,
 ) -> Corpus:
     """Rounds of walks from every node until Delta D_r <= delta, as a host
-    ``Corpus`` (the reference's sampler, on the dense engine)."""
+    ``Corpus`` (the reference's sampler). With a partition ``part`` (node ->
+    shard) the walks run on the partition-sharded engine, which draws the
+    same walks and measures their cross-shard messages."""
     if policy.needs_edge_cm and graph.edge_cm is None:
         graph = graph.with_edge_cm()
     n, dev = graph.num_nodes, graph.device
@@ -134,7 +137,9 @@ def generate_corpus(
                                      max_rounds=max_rounds, window=window)
     key = prng.PRNGKey(seed)
     ring = CorpusRing.create(max_rounds * n, spec.max_len, n, dev)
-    agg = {"supersteps": 0, "accepts": 0, "rejects": 0}
+    num_shards = None if part is None else int(np.max(part)) + 1
+    agg = {"supersteps": 0, "accepts": 0, "rejects": 0, "msg_count": 0, "msg_bytes": 0.0,
+           "msg_bytes_analytic": 0.0}
     keep_walking = True
     while keep_walking:
         key, round_key = prng.split(key)
@@ -149,7 +154,7 @@ def generate_corpus(
             chunk = sources[start:start + MAX_LANES]
             keys = LaneKeys.of(chunk_keys[start // REF_CHUNK:(start + MAX_LANES) // REF_CHUNK],
                                REF_CHUNK, len(chunk), dev)
-            st = run_walk_batch(graph, chunk, keys, policy, spec)
+            st = run_walk_batch(graph, chunk, keys, policy, spec, part, num_shards=num_shards)
             ring_append(ring, st.path, st.info.L)
             s = batch_stats(st)
             for field in agg:

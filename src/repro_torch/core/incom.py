@@ -8,6 +8,10 @@ module keeps the seven that evolve, batched over walkers:
   cross-moment erratum fix documented in ``repro_torch.core.info``),
 * Eq. 12 — R(H, L) from the running expectations.
 
+The ten scalars are also the constant-size message a walker carries
+across shards (``MSG_FIELDS``: 80 bytes at 8 bytes a field, Example 1);
+the HuGE-D baseline ships its whole walk instead (24 + 8L bytes).
+
 ``n(v)`` is a masked count over the walker's fixed-length path buffer.
 The arithmetic is the reference's, op for op; only ``log2`` differs in
 its last bits between torch and XLA.
@@ -19,6 +23,19 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+# Message layout of the constant-size InCoM cross-shard message.
+MSG_FIELDS = (
+    "walker_id", "steps", "node_id", "H", "L",
+    "EH", "EL", "EHL", "EH2", "EL2",
+)
+MSG_WIDTH = len(MSG_FIELDS)          # 10 fields
+MSG_BYTES = 8 * MSG_WIDTH            # 80 bytes (Example 1)
+
+
+def fullpath_msg_bytes(walk_len):
+    """HuGE-D message size: 24 + 8L bytes (Example 1)."""
+    return 24 + 8 * walk_len
 
 
 @dataclasses.dataclass
@@ -92,6 +109,31 @@ def r_squared(s: InfoState, eps: float = 1e-12) -> torch.Tensor:
     vl = torch.clamp_min(s.EL2 - s.EL * s.EL, 0.0)
     denom = vh * vl
     return torch.where(denom > eps, (cov * cov) / torch.clamp_min(denom, eps), 0.0)
+
+
+def windowed_r_squared(hring: torch.Tensor, L: torch.Tensor, window: int,
+                       eps: float = 1e-12) -> torch.Tensor:
+    """R^2(H, L) over the last ``window`` series points, from a ring buffer:
+    ``hring`` is (B, K) and slot (s - 1) mod K holds H(W^s). Constant-size
+    messages of 80 + 8K bytes (the ring rides along)."""
+    k = hring.shape[1]
+    offs = torch.arange(k, dtype=torch.float32, device=hring.device)[None, :]
+    l_pts = L[:, None] - offs                                  # L, L-1, ...
+    valid = (l_pts >= 1.0) & (offs < float(window))
+    slot = torch.remainder(l_pts.to(torch.int32) - 1, k)
+    h_pts = torch.gather(hring, 1, slot.clamp(0, k - 1).to(torch.int64))
+    w = valid.to(torch.float32)
+    cnt = torch.clamp_min(w.sum(-1), 1.0)
+    eh = (h_pts * w).sum(-1) / cnt
+    el = (l_pts * w).sum(-1) / cnt
+    ehl = (h_pts * l_pts * w).sum(-1) / cnt
+    eh2 = (h_pts * h_pts * w).sum(-1) / cnt
+    el2 = (l_pts * l_pts * w).sum(-1) / cnt
+    cov = ehl - eh * el
+    vh = torch.clamp_min(eh2 - eh * eh, 0.0)
+    vl = torch.clamp_min(el2 - el * el, 0.0)
+    denom = vh * vl
+    return torch.where(denom > eps, cov * cov / torch.clamp_min(denom, eps), 0.0)
 
 
 def count_in_path(path: torch.Tensor, length: torch.Tensor,

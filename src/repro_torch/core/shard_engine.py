@@ -1,0 +1,704 @@
+"""Partition-sharded BSP walk engine (paper §3: walker-centric + InCoM).
+
+Walkers live on the shard that owns their current node under the MPGP
+``assignment``. One superstep is:
+
+  phase A (at owner(cur))   candidate draw + walking-backtracking
+                            acceptance (``walker.propose``);
+  exchange                  walkers whose accepted node belongs to another
+                            shard pack the constant-size InCoM message and
+                            hand off through a collective;
+  phase B (at owner(cand))  n(v) from the local path fragment, Theorem 1 /
+                            Eq. 13 update, path append, Eq. 5 termination
+                            (``walker.absorb``).
+
+Node v's visits are always appended on owner(v)'s fragment, so n(v) is a
+local count and the walk itself never travels: only the 10-field, 80-byte
+message does (Example 1). The corpus path is the elementwise union of the
+fragments (each position is written by one shard). The fullpath (HuGE-D)
+baseline ships the whole walk instead: 24 + 8L bytes, counted from the
+path it routes. ``reg_window`` mode appends its K-entry ring (80 + 8K).
+The message's ``steps`` field carries the sender's pre-step node, the
+predecessor a second-order policy needs on arrival: the step count is the
+superstep, known everywhere.
+
+Two engines realize the per-shard program:
+
+* **replicated** (``engine="auto"`` on one device): every shard reads the
+  whole CSR and carries all B lanes; the exchange is the dense
+  ``psum_union``. node2vec reads N(prev) and runs only here.
+* **partition-local** (``engine="local"``): each shard indexes only its
+  ``graph.csr.build_partitioned_csr`` slice (~|V|/k nodes, ~|E|/k arcs,
+  with the neighbours' owners and degrees beside the arcs). Walker lanes
+  sit in a per-shard pool of P slots (``pool_factor`` B / k, doubled and
+  re-run on overflow); migrants ship as packed records (transports
+  ``pool``, ``gather``, ``a2a``); a walker that leaves keeps its path
+  fragment in place as a ghost slot, which it revives if it returns, and
+  ghosts and finished walkers retire into lane-indexed stores once every
+  ``compact_every`` supersteps.
+
+Here the k shards are a leading axis of every tensor on one device
+(``dist.collectives``: the reference's stacked ``vmap`` emulation). The
+reference's ``lax.while_loop`` conditions are host reads: the replicated
+engine reads once a superstep, the local engine once a block of
+``compact_every`` supersteps (supersteps after the last live walker are
+frozen on the device, as the reference's are) and once per exchange round
+under the ``gather`` and ``a2a`` transports, whose spill loop runs while a
+shard has more than ``cap`` migrants queued.
+
+Arrivals claim slots in (source shard, record) order, and a returning
+walker finds its ghost through a per-shard lane -> ghost-slot index built
+by one scatter a round; the reference matches them with a dense
+(P, k·cap) comparison, which at a million lanes would not fit a card. No
+tensor here grows as P × k·cap or as k² × P (the ``a2a`` transport's
+receive buffers are k² · cap records, the emulated mesh's k · cap a shard).
+
+Per-lane RNG (``walker.step_uniforms``) and per-lane arithmetic do not
+depend on the layout, so walks equal the dense engine's at every k and
+under every transport. ``msg_count`` / ``msg_bytes`` come from the packed
+message tensors the exchange moves: per hand-off, the field count of the
+payload times 8 bytes a field (Example 1), so a packing change moves them
+away from ``msg_bytes_analytic``, the closed form. Byte sums are float32,
+as the reference's; counts are exact.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import incom
+from repro_torch.core import walker as wk
+from repro_torch.core.transition import Policy
+from repro_torch.dist.collectives import (all_gather, axis_index, packed_all_gather,
+                                          packed_all_to_all, psum, psum_union, row_cumsum,
+                                          take_ranked)
+from repro_torch.graph.csr import CSRGraph, PartitionedCSR, build_partitioned_csr
+
+INFO_FIELDS = ("H", "L", "EH", "EL", "EHL", "EH2", "EL2")
+# Walk batches run on this engine, either engine (``chip_smoke.py`` reads it
+# to show the k > 1 path walks here).
+BATCHES = 0
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _bytes_each(spec: wk.WalkSpec) -> float:
+    """Example 1's analytic bytes of one InCoM hand-off."""
+    return float(incom.MSG_BYTES + 8 * spec.reg_window)
+
+
+def _info_rows(info: incom.InfoState) -> torch.Tensor:
+    return torch.stack([getattr(info, f) for f in INFO_FIELDS], -1)
+
+
+def _info_of(rows: torch.Tensor) -> incom.InfoState:
+    return incom.InfoState(**{f: rows[..., i] for i, f in enumerate(INFO_FIELDS)})
+
+
+# ---------------------------------------------------------------------------
+# Replicated engine: full-width lanes on every shard, dense union exchange
+# ---------------------------------------------------------------------------
+
+
+def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
+                    keys: wk.LaneKeys, policy: Policy, spec: wk.WalkSpec, k: int) -> Dict:
+    b, dev = sources.shape[0], sources.device
+    n, L = k * b, spec.max_len
+    fullpath = spec.info_mode == "fullpath"
+    sid = axis_index(k, dev)                                  # (k, 1)
+    ids = torch.arange(b, device=dev).repeat(k)               # lane id of each (shard, lane)
+    pos = torch.arange(L, device=dev)[None, :]
+    step_cap = spec.supersteps_cap()
+
+    resident = (owner[sources][None, :] == sid).reshape(n)
+    cur = sources.repeat(k)
+    prev = cur.clone()
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    info = incom.InfoState.init(n, dev)
+    # Fragment init: the source's first visit is recorded at its owner.
+    path = torch.full((n, L), -1, dtype=torch.int32, device=dev)
+    path[:, 0] = torch.where(resident, cur, -1).to(torch.int32)
+    h = torch.zeros(n, spec.h_len(), device=dev)
+    ring = torch.zeros(n, spec.ring_len(), device=dev)
+    zeros = lambda dtype: torch.zeros(k, dtype=dtype, device=dev)
+    acc = {"accepts": zeros(torch.int64), "rejects": zeros(torch.int64),
+           "msg_count": zeros(torch.int64), "msg_bytes": zeros(torch.float32),
+           "msg_bytes_analytic": zeros(torch.float32)}
+    t = reads = 0
+    while t < step_cap:
+        reads += 1
+        if not bool((resident & active).any()):             # host sync
+            break
+        u1, u2 = wk.step_uniforms(keys, t)
+        cand, _, accept_raw, has_nbrs = wk.propose(graph, policy, cur, prev,
+                                                   u1.repeat(k), u2.repeat(k))
+        live = resident & active
+        accept = live & accept_raw
+        dead_end = live & ~has_nbrs
+        mig = accept & (owner[cand].reshape(k, b) != sid).reshape(n)
+        stay = accept & ~mig
+        if fullpath:
+            # The HuGE-D message carries the walk including the accepted
+            # node, so it is appended at the origin; phase B's append at
+            # the same position is idempotent.
+            idx = info.L.to(torch.int64).clamp(0, L - 1)
+            path = torch.where(accept[:, None] & (pos == idx[:, None]),
+                               cand.to(torch.int32)[:, None], path)
+
+        # ---- pack + hand off (the measured exchange) ----------------------
+        msg_i = torch.stack([ids, cur, cand], 1)
+        msg_f = _info_rows(info)
+        payload = {"i": msg_i, "f": msg_f}
+        if spec.reg_window:
+            payload["ring"] = ring
+        if fullpath:
+            payload.update(path=path, h=h)
+        arrivals = psum_union({name: x.reshape((k, b) + x.shape[1:])
+                               for name, x in payload.items()}, mig.reshape(k, b))
+        arr_i = arrivals["i"]
+        arrived = psum(mig.reshape(k, b).to(torch.int64)) > 0          # (B,)
+        shipped_fields = msg_i.shape[1] + msg_f.shape[1] + (
+            arrivals["ring"].shape[1] if spec.reg_window else 0)
+        incoming = (arrived[None, :] & (owner[arr_i[:, 2]][None, :] == sid)).reshape(n)
+        proc = stay | incoming
+
+        # ---- merge arrivals into the local lane state ----------------------
+        tiled = lambda x: x.repeat((k,) + (1,) * (x.dim() - 1))
+        sel = lambda a, o: torch.where(incoming.reshape((n,) + (1,) * (o.dim() - 1)),
+                                       tiled(a), o)
+        cand_b = sel(arr_i[:, 2], cand)
+        sender_cur = sel(arr_i[:, 1], cur)
+        info_b = _info_of(sel(arrivals["f"], msg_f))
+        ring_b = sel(arrivals["ring"], ring) if spec.reg_window else ring
+        path_b, h_b = ((sel(arrivals["path"], path), sel(arrivals["h"], h)) if fullpath
+                       else (path, h))
+        info2, path2, h, ring, done_now = wk.absorb(spec, info_b, path_b, h_b, ring_b,
+                                                    cand_b, proc)
+
+        resident = (resident & ~mig) | incoming
+        cur = torch.where(proc, cand_b, cur)
+        prev = torch.where(proc, sender_cur, prev)
+        active = torch.where(proc, ~done_now, active & ~dead_end)
+
+        # ---- measured + analytic traffic ----------------------------------
+        per_shard = lambda x: x.reshape(k, -1).sum(1)
+        n_out = per_shard(mig.to(torch.int64))
+        if fullpath:
+            shipped = per_shard(((path >= 0) & mig[:, None]).to(torch.int64))
+            add_meas = 8.0 * msg_i.shape[1] * _f32(n_out) + 8.0 * _f32(shipped)
+            add_an = per_shard(torch.where(mig, incom.fullpath_msg_bytes(info.L + 1.0), 0.0))
+        else:
+            add_meas = float(8 * shipped_fields) * _f32(n_out)
+            add_an = _bytes_each(spec) * _f32(n_out)
+        info, path = info2, path2
+        acc["accepts"] += per_shard(accept.to(torch.int64))
+        acc["rejects"] += per_shard((live & has_nbrs & ~accept_raw).to(torch.int64))
+        acc["msg_count"] += n_out
+        acc["msg_bytes"] += add_meas
+        acc["msg_bytes_analytic"] += add_an
+        t += 1
+    return dict(acc, cur=cur.reshape(k, b), prev=prev.reshape(k, b),
+                resident=resident.reshape(k, b), active=active.reshape(k, b),
+                info=info, path=path.reshape(k, b, L), h=h.reshape(k, b, -1),
+                ring=ring.reshape(k, b, -1), t=t, host_reads=reads)
+
+
+def _merge(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys) -> wk.WalkerBatchState:
+    """Combine the (k, ...) replicated-engine outputs into one state: every
+    lane is resident on exactly one shard at the end."""
+    res = out["resident"]
+    k, b = res.shape
+    info = incom.InfoState(**{f: getattr(out["info"], f).reshape(k, b) for f in INFO_FIELDS})
+    return _combine(out, spec, keys, res, out["path"], out["cur"], out["prev"], info,
+                    out["h"], out["ring"], res & out["active"])
+
+
+def _combine(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys, holder: torch.Tensor,
+             path, cur, prev, info: incom.InfoState, h, ring, active) -> wk.WalkerBatchState:
+    """One state from (k, B, ...) per-shard rows: each lane's scalars from
+    the one shard that ``holder`` marks; its path from the union of the
+    fragments, or in fullpath mode the holder's copy."""
+    k, b = holder.shape
+    at = holder.to(torch.int64).argmax(0)                     # the holding shard
+    lanes = torch.arange(b, device=holder.device)
+    pick = lambda x: x[at, lanes]
+    if spec.info_mode == "fullpath":
+        path = pick(path)
+    else:
+        path = path.max(0).values                             # each position: one writer
+    return wk.WalkerBatchState(
+        cur=pick(cur), prev=pick(prev), path=path,
+        info=incom.InfoState(**{f: pick(getattr(info, f)) for f in INFO_FIELDS}),
+        h_series=pick(h), hring=pick(ring), active=active.any(0), keys=keys,
+        supersteps=out["t"], accepts=out["accepts"].sum(), rejects=out["rejects"].sum(),
+        msg_count=out["msg_count"].sum(), msg_bytes=out["msg_bytes"].sum(),
+        msg_bytes_analytic=out["msg_bytes_analytic"].sum())
+
+
+# ---------------------------------------------------------------------------
+# Partition-local engine: slot pools over the slices, packed sparse exchange
+# ---------------------------------------------------------------------------
+
+
+def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
+               keys: wk.LaneKeys, policy: Policy, spec: wk.WalkSpec, k: int, pool: int,
+               cap: int, compact_every: int, transport: str) -> Dict:
+    """One batch on the partition-local engine.
+
+    Slot j of shard s holds the global lane id in ``lane[s, j]`` (-1 =
+    free) and that walker's cur / prev / info / ring and its owner-local
+    path row. Phase A reads only the shard's slice; migrants ship as
+    packed records; arrivals claim free slots in (source shard, record)
+    order. A walker that leaves keeps its slot as a ghost (its fragment
+    stays), a finished one as a tombstone; one flush per block of
+    ``compact_every`` supersteps retires both into the lane-indexed stores
+    (one scatter each, with row B of every store taking the writes of the
+    slots not retired) and packs the live slots to the front. A walker
+    that finds no free slot counts in ``overflow``: the driver re-runs the
+    batch with a doubled pool (at P = B none can overflow, since a lane
+    holds at most one slot a shard)."""
+    b, dev = sources.shape[0], sources.device
+    p, L = pool, spec.max_len
+    fullpath = spec.info_mode == "fullpath"
+    shards, local_of = pcsr.slices, pcsr.local_of
+    max_nodes = shards.indptr.shape[1] - 1
+    max_edges = shards.indices.shape[1]
+    step_cap = spec.supersteps_cap()
+    sid = axis_index(k, dev)                                   # (k, 1)
+    slot_id = torch.arange(k * p, device=dev).reshape(k, p)    # flat (shard, slot) id
+    store = b + 1                                              # lane-indexed rows + a spill row
+    store_row = lambda lane_or_b: (sid * store + lane_or_b).reshape(-1)
+    lpos = torch.arange(L, device=dev)[None, None, :]
+    r_cap = p if transport == "pool" else cap
+    counts = {"host_reads": 0, "exchange_rounds": 0, "spill_rounds": 0}
+    zk = lambda dtype: torch.zeros(k, dtype=dtype, device=dev)
+    flat = lambda x: x.reshape((k * p,) + x.shape[2:])
+    shaped = lambda x: x.reshape((k, p) + x.shape[1:])
+
+    # ---- pool init: resident source lanes claim slots in lane order -------
+    resident0 = owner[sources][None, :] == sid                 # (k, B)
+    packed, valid0 = take_ranked({"lane": torch.arange(b, device=dev).expand(k, b)},
+                                 resident0, p)
+    lane0 = torch.where(valid0, packed["lane"], -1)
+    occ0 = lane0 >= 0
+    cur0 = torch.where(occ0, sources[lane0.clamp_min(0)], 0)
+    prow0 = torch.full((k, p, L), -1, dtype=torch.int32, device=dev)
+    prow0[:, :, 0] = torch.where(occ0, cur0, -1).to(torch.int32)
+    info0 = incom.InfoState.init(k * p, dev)
+    st = dict(lane=lane0, alive=occ0, term=torch.zeros_like(occ0), cur=cur0, prev=cur0,
+              info=incom.InfoState(**{f: shaped(getattr(info0, f)) for f in INFO_FIELDS}),
+              ring=torch.zeros(k, p, spec.ring_len(), device=dev),
+              h=torch.zeros(k, p, spec.h_len(), device=dev), prow=prow0,
+              t=torch.zeros((), dtype=torch.int64, device=dev),
+              accepts=zk(torch.int64), rejects=zk(torch.int64), msg_count=zk(torch.int64),
+              msg_bytes=zk(torch.float32), msg_bytes_analytic=zk(torch.float32),
+              overflow=(resident0.sum(1) - p).clamp_min(0), peak_occ=occ0.sum(1))
+    fin_info0 = incom.InfoState.init(k * store, dev)
+    fin = dict(cur=torch.zeros(k, store, dtype=torch.int64, device=dev),
+               prev=torch.zeros(k, store, dtype=torch.int64, device=dev),
+               info=incom.InfoState(**{f: getattr(fin_info0, f).clone().reshape(k, store)
+                                       for f in INFO_FIELDS}),
+               ring=torch.zeros(k, store, spec.ring_len(), device=dev),
+               h=torch.zeros(k, store, spec.h_len(), device=dev),
+               valid=torch.zeros(k, store, dtype=torch.bool, device=dev),
+               active=torch.zeros(k, store, dtype=torch.bool, device=dev),
+               # The owner-local path fragments (the travelling walk in fullpath mode).
+               path=torch.full((k, store, L), -1, dtype=torch.int32, device=dev))
+    ghost_of = torch.full((k * store,), -1, dtype=torch.int64, device=dev)
+
+    def flush_into(st, mask, active_mask):
+        """Retire ``mask`` slots into the lane-indexed stores: their path
+        rows (the fragment; in fullpath mode only a finished walk's), and
+        for a finished or (``active_mask``) live walker its final state."""
+        lane = st["lane"]
+        rows = store_row(torch.where(mask, lane, b))
+        mfin = mask & (st["term"] | active_mask)
+        frows = store_row(torch.where(mfin, lane, b))
+        fin["path"].view(k * store, L)[frows if fullpath else rows] = flat(st["prow"])
+        fin["cur"].view(-1)[frows] = flat(st["cur"])
+        fin["prev"].view(-1)[frows] = flat(st["prev"])
+        for f in INFO_FIELDS:
+            getattr(fin["info"], f).view(-1)[frows] = flat(getattr(st["info"], f))
+        fin["ring"].view(k * store, -1)[frows] = flat(st["ring"])
+        fin["h"].view(k * store, -1)[frows] = flat(st["h"])
+        fin["valid"].view(-1)[frows] = True
+        fin["active"].view(-1)[store_row(torch.where(mask & active_mask, lane, b))] = True
+
+    def flush_and_repack(st):
+        """Retire ghosts and tombstones, then pack the live slots to the
+        front of each pool."""
+        nonlive = (st["lane"] >= 0) & ~st["alive"]
+        flush_into(st, nonlive, torch.zeros_like(nonlive))
+        lane = torch.where(nonlive, -1, st["lane"])
+        live = lane >= 0
+        got, pv = take_ranked({"lane": lane, "cur": st["cur"], "prev": st["prev"],
+                               "info": _info_rows(st["info"]), "ring": st["ring"],
+                               "h": st["h"], "prow": st["prow"]}, live, p)
+        keep = lambda x, fill: torch.where(pv.reshape(pv.shape + (1,) * (x.dim() - 2)),
+                                           x, fill)
+        st.update(lane=keep(got["lane"], -1), alive=pv, term=torch.zeros_like(pv),
+                  cur=keep(got["cur"], 0), prev=keep(got["prev"], 0),
+                  info=_info_of(keep(got["info"], 0.0)), ring=keep(got["ring"], 0.0),
+                  h=keep(got["h"], 0.0), prow=keep(got["prow"], -1))
+
+    def exchange_round(c, pay, ship_sz):
+        """One round of the packed exchange: ship up to ``cap`` pending
+        migrants a shard (all under the pool transport), deliver each
+        record to the owner of its candidate, revive returning walkers'
+        ghosts and place first arrivals in free slots. The collectives
+        move each record as its sender's slot id; a receiver reads the
+        record's fields from the senders' stacked payload ``pay`` by it,
+        which on one device stands for the wire."""
+        pending = c["pending"]
+        cand_all = flat(pay["i"])[:, 2]
+        if transport == "a2a":
+            arr, arr_valid, sent = packed_all_to_all({"slot": slot_id}, c["dest"], pending,
+                                                     k, r_cap)
+            rec_slot, rec_valid = arr["slot"].reshape(-1), arr_valid.reshape(-1)
+            rec_dest = sid.expand(k, k * r_cap).reshape(-1)   # row d arrived at d
+        else:
+            if transport == "gather":
+                arr, arr_valid, sent = packed_all_gather({"slot": slot_id}, pending, r_cap)
+                rec_slot, rec_valid = arr["slot"].reshape(-1), arr_valid.reshape(-1)
+            else:
+                # Flat pool transport: the P-wide payload travels masked, so
+                # one round always delivers every migrant.
+                sent = pending
+                rec_slot = all_gather(slot_id).reshape(-1)
+                rec_valid = all_gather(pending).reshape(-1)
+            # Receivers filter the broadcast records by the candidate's owner.
+            rec_dest = owner[cand_all[rec_slot]]
+        n_rec = rec_slot.shape[0]
+        rec_lane = flat(pay["i"])[rec_slot, 0]
+        rec_dest = torch.where(rec_valid, rec_dest, k)
+
+        rrec = torch.full((k * p + 1,), -1, dtype=torch.int64, device=dev)
+        if fullpath:
+            # The walk left with its walker; the sender's slot frees.
+            lane1 = torch.where(sent, -1, c["lane"])
+            revive = torch.zeros_like(rec_valid)
+        else:
+            # A sender's slot stays as a ghost holding its fragment; a
+            # returning walker revives its own ghost in place, which keeps
+            # a shard at one slot a lane. The lane -> ghost-slot index is
+            # one scatter, read at each record's destination, then undone.
+            lane1 = c["lane"]
+            ghost = (lane1 >= 0) & ~c["alive"] & ~c["term"]
+            grows = store_row(torch.where(ghost, lane1, b))
+            ghost_of[grows] = slot_id.remainder(p).reshape(-1)
+            g = ghost_of[rec_dest.clamp(max=k - 1) * store + rec_lane.clamp_min(0)]
+            ghost_of[grows] = -1
+            revive = rec_valid & (g >= 0)
+            rrec[torch.where(revive, rec_dest.clamp(max=k - 1) * p + g, k * p)] = \
+                torch.arange(n_rec, device=dev)
+        rrec = rrec[:k * p].reshape(k, p)
+        revived = rrec >= 0
+        # First arrivals: the r-th free slot (ascending) of shard d takes the
+        # r-th record addressed to d that revived nothing, in record order.
+        key = torch.where(rec_valid & ~revive, rec_dest, k)
+        order = torch.sort(key, stable=True).indices
+        n_mine = torch.zeros(k + 1, dtype=torch.int64, device=dev).index_add_(
+            0, key, torch.ones_like(key))[:k]
+        starts = torch.cumsum(n_mine, 0) - n_mine
+        free = lane1 < 0
+        free_rank = row_cumsum(free) - 1
+        takes = free & (free_rank < n_mine[:, None])
+        rec_idx = order[(starts[:, None] + free_rank).clamp(0, n_rec - 1)]
+        place = takes | revived
+        src = rec_slot[torch.where(revived, rrec, rec_idx)]      # (k, P) sender slots
+        t_i = flat(pay["i"])[src]
+        if fullpath:
+            prow1 = torch.where(takes[..., None], flat(pay["path"])[src], c["prow"])
+        else:
+            # A first visit's (or post-flush return's) fragment comes from
+            # the lane-indexed store; a revived slot's is already in place.
+            t_lane = torch.where(takes, t_i[..., 0], 0)
+            prow1 = torch.where(takes[..., None], fin["path"].view(k * store, L)[
+                store_row(t_lane)].reshape(k, p, L), c["prow"])
+        put = lambda a, o: torch.where(place.reshape(place.shape + (1,) * (o.dim() - 2)), a, o)
+        n_sent = sent.sum(1)
+        if fullpath:
+            add_meas = 8.0 * pay["i"].shape[2] * _f32(n_sent) + \
+                8.0 * _f32(torch.where(sent, ship_sz, 0).sum(1))
+        else:
+            add_meas = float(8 * c["fields"]) * _f32(n_sent)
+        return dict(
+            c, pending=pending & ~sent,
+            lane=torch.where(takes, t_i[..., 0], lane1),
+            alive=(c["alive"] & ~sent) | place,
+            term=c["term"] & ~place,
+            cur=put(t_i[..., 1], c["cur"]),
+            prev=put(t_i[..., 1], c["prev"]),
+            info=_info_of(put(flat(pay["f"])[src], _info_rows(c["info"]))),
+            ring=put(flat(pay["ring"])[src], c["ring"]) if spec.reg_window else c["ring"],
+            h=put(flat(pay["h"])[src], c["h"]) if fullpath else c["h"],
+            prow=prow1,
+            proc=c["proc"] | place,
+            pcand=put(t_i[..., 2], c["pcand"]),
+            overflow=c["overflow"] + (n_mine - free.sum(1)).clamp_min(0),
+            msg_count=c["msg_count"] + n_sent,
+            msg_bytes=c["msg_bytes"] + add_meas)
+
+    def superstep(st, t_host: int):
+        """One BSP superstep. Once no walker lives (or the cap is reached)
+        it changes nothing and ``t`` stays. Returns the new state and the
+        device flag of whether it stepped."""
+        lane, info = st["lane"], st["info"]
+        occ = (lane >= 0) & st["alive"]                        # ghosts/tombstones don't walk
+        stepping = (psum(occ.sum(1)) > 0) & (st["t"] < step_cap)
+        u1f, u2f = wk.step_uniforms(keys, t_host)
+        ls = lane.clamp_min(0)
+        u1, u2 = u1f[ls], u2f[ls]
+
+        # ---- phase A on the local slice ------------------------------------
+        cur = st["cur"]
+        cur_l = local_of[cur].clamp(0, max_nodes - 1)
+        start = shards.take("indptr", cur_l).to(torch.int64)
+        deg = _f32(shards.take("indptr", cur_l + 1).to(torch.int64) - start)
+        deg = torch.where(occ, deg, 0.0)                       # free slots are stale
+        has_nbrs = deg > 0
+        j = torch.minimum((u1 * deg).to(torch.int64), (deg.to(torch.int64) - 1).clamp_min(0))
+        eidx = (start + j).clamp(0, max_edges - 1)
+        cand = shards.take("indices", eidx).to(torch.int64)
+        cand_owner = shards.take("nbr_owner", eidx).to(torch.int64)   # the halo's owner()
+        p_acc = policy.accept_prob_local(shards, st["prev"], cur_l, cand, eidx)
+        accept_raw = has_nbrs & (u2 < p_acc)
+        accept = occ & accept_raw & stepping
+        dead_end = occ & ~has_nbrs & stepping
+        mig = accept & (cand_owner != sid)
+        stay = accept & ~mig
+
+        prow, ship_sz = st["prow"], None
+        if fullpath:
+            # The message carries the walk including the accepted node.
+            idx = info.L.to(torch.int64).clamp(0, L - 1)
+            prow = torch.where(accept[..., None] & (lpos == idx[..., None]),
+                               cand.to(torch.int32)[..., None], prow)
+            ship_sz = (prow >= 0).sum(2)
+
+        # ---- packed sparse exchange -----------------------------------------
+        pay = {"i": torch.stack([lane, cur, cand], -1), "f": _info_rows(info)}
+        if spec.reg_window:
+            pay["ring"] = st["ring"]
+        if fullpath:
+            pay.update(path=prow, h=st["h"])
+        n_mig = mig.sum(1)
+        if fullpath:
+            add_an = torch.where(mig, incom.fullpath_msg_bytes(info.L + 1.0), 0.0).sum(1)
+        else:
+            add_an = _bytes_each(spec) * _f32(n_mig)
+        c = dict(pending=mig, dest=cand_owner, lane=lane, alive=st["alive"], term=st["term"],
+                 cur=cur, prev=st["prev"], info=info, ring=st["ring"], h=st["h"], prow=prow,
+                 proc=stay, pcand=cand, overflow=zk(torch.int64), msg_count=zk(torch.int64),
+                 msg_bytes=zk(torch.float32),
+                 fields=pay["i"].shape[2] + pay["f"].shape[2]
+                 + (pay["ring"].shape[2] if spec.reg_window else 0))
+        # The first round runs unread: with nothing pending it changes
+        # nothing, as the reference's loop that would not have entered.
+        c = exchange_round(c, pay, ship_sz)
+        counts["exchange_rounds"] += 1
+        stepped = None
+        if transport != "pool":
+            # Spill rounds, while some shard has more than ``cap`` queued.
+            while True:
+                more, stepped = torch.stack([c["pending"].any(), stepping]).tolist()
+                counts["host_reads"] += 1
+                if not more:
+                    break
+                c = exchange_round(c, pay, ship_sz)
+                counts["exchange_rounds"] += 1
+                counts["spill_rounds"] += 1
+
+        # ---- phase B on the compacted pool ----------------------------------
+        lane_x, proc, pcand = c["lane"], c["proc"], c["pcand"]
+        info2, path2, h2, ring2, done_now = wk.absorb(
+            spec, incom.InfoState(**{f: flat(getattr(c["info"], f)) for f in INFO_FIELDS}),
+            flat(c["prow"]), flat(c["h"]), flat(c["ring"]), flat(pcand), flat(proc))
+        done = (proc & shaped(done_now)) | dead_end
+        st = dict(
+            st, lane=lane_x,
+            # A finished walker tombstones: its state freezes in the pool and
+            # retires to the stores at the next flush.
+            alive=c["alive"] & (lane_x >= 0) & ~done,
+            term=c["term"] | done,
+            cur=torch.where(proc, pcand, c["cur"]), prev=torch.where(proc, c["cur"], c["prev"]),
+            info=incom.InfoState(**{f: shaped(getattr(info2, f)) for f in INFO_FIELDS}),
+            ring=shaped(ring2), h=shaped(h2), prow=shaped(path2),
+            t=st["t"] + stepping.to(torch.int64),
+            accepts=st["accepts"] + accept.sum(1),
+            rejects=st["rejects"] + (occ & has_nbrs & ~accept_raw & stepping).sum(1),
+            msg_count=st["msg_count"] + c["msg_count"],
+            msg_bytes=st["msg_bytes"] + c["msg_bytes"],
+            msg_bytes_analytic=st["msg_bytes_analytic"] + add_an,
+            overflow=st["overflow"] + c["overflow"],
+            peak_occ=torch.maximum(st["peak_occ"], (lane_x >= 0).sum(1)))
+        return st, stepped
+
+    while True:
+        live_n, t0, overflow = torch.stack([((st["lane"] >= 0) & st["alive"]).sum(), st["t"],
+                                            st["overflow"].sum()]).tolist()
+        counts["host_reads"] += 1
+        if overflow or not (live_n > 0 and t0 < step_cap):
+            break        # an overflowed run is run again with a larger pool: stop it here
+        # ``compact_every`` supersteps, then one flush and repack. A stepping
+        # superstep has t == t0 + i, so the host knows each one's draws.
+        for i in range(max(compact_every, 1)):
+            st, stepped = superstep(st, t0 + i)
+            if stepped is False:         # the walk ended: the rest of the block is idle
+                break
+        flush_and_repack(st)
+
+    # ---- final flush: ghosts, tombstones and still-live lanes ---------------
+    filled = st["lane"] >= 0
+    flush_into(st, filled, st["alive"])
+    return dict(st, fin=fin, occ_final=filled.sum(1), t=int(st["t"]), **counts)
+
+
+def _merge_local(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys) -> wk.WalkerBatchState:
+    """Combine the (k, ...) partition-local outputs into one state: each
+    lane retired (or was flushed live) on exactly one shard, the one whose
+    ``valid`` row is set."""
+    fin = out["fin"]
+    b = fin["valid"].shape[1] - 1
+    lanes = lambda x: x[:, :b]
+    fv = lanes(fin["valid"])
+    info = incom.InfoState(**{f: lanes(getattr(fin["info"], f)) for f in INFO_FIELDS})
+    return _combine(out, spec, keys, fv, lanes(fin["path"]), lanes(fin["cur"]),
+                    lanes(fin["prev"]), info, lanes(fin["h"]), lanes(fin["ring"]),
+                    fv & lanes(fin["active"]))
+
+
+def _shard_stats(out: Dict, k: int, pcsr: Optional[PartitionedCSR], pool: Optional[int],
+                 cap: Optional[int], retries: int) -> Dict:
+    """Per-shard balance, occupancy and traffic, and the host reads and
+    exchange rounds the run took."""
+    stats: Dict = {"supersteps": [out["t"]] * k,
+                   "msg_count": out["msg_count"].cpu().numpy().astype(int).tolist(),
+                   "host_reads": out["host_reads"]}
+    if "peak_occ" in out:
+        stats.update(
+            peak_lane_occupancy=out["peak_occ"].cpu().numpy().astype(int).tolist(),
+            final_lane_occupancy=out["occ_final"].cpu().numpy().astype(int).tolist(),
+            pool_slots=pool, exchange_cap=cap, pool_retries=retries,
+            exchange_rounds=out["exchange_rounds"], spill_rounds=out["spill_rounds"])
+    if pcsr is not None:
+        stats["owned_nodes"] = pcsr.num_owned.astype(int).tolist()
+        stats["csr_bytes_per_shard"] = pcsr.shard_csr_nbytes().astype(int).tolist()
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Caches and the public driver
+# ---------------------------------------------------------------------------
+
+# Both caches key on the caller's graph object by identity and hold it by
+# weakref, so a dropped graph's slices free with it and a recycled id()
+# never aliases. The port has no graph mutation yet, so identity stands for
+# the graph's contents (the reference adds its delta overlay's version).
+_PCSR_CACHE: Dict = {}
+_POOL_CACHE: Dict = {}
+
+
+def partitioned_csr_for(graph: CSRGraph, assignment: np.ndarray, num_shards: int,
+                        key_obj: object = None) -> PartitionedCSR:
+    """Memoized ``build_partitioned_csr``: the slicing is O(|E|) host work
+    and the engine runs once per walk batch of every round. ``key_obj`` is
+    the object whose identity keys the entry: pass the caller's graph
+    when ``graph`` is a derived copy (``with_edge_cm()`` makes a new one)."""
+    key_obj = graph if key_obj is None else key_obj
+    asn = np.asarray(assignment)
+    key = (id(key_obj), num_shards, graph.edge_cm is not None, hash(asn.tobytes()))
+    hit = _PCSR_CACHE.get(key)
+    if hit is not None and hit[0]() is key_obj:
+        return hit[1]
+    pcsr = build_partitioned_csr(graph, asn, num_shards)
+    if len(_PCSR_CACHE) >= 8:
+        _PCSR_CACHE.clear()
+    _PCSR_CACHE[key] = (weakref.ref(key_obj), pcsr)
+    return pcsr
+
+
+def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.LaneKeys,
+                     policy: Policy, spec: wk.WalkSpec, assignment, num_shards: int, *,
+                     engine: str = "auto", pool_factor: float = 2.0,
+                     exchange_cap: Optional[int] = None, compact_every: int = 8,
+                     transport: Optional[str] = None, with_stats: bool = False):
+    """Run one walk per source on ``num_shards`` partition shards, stacked
+    on the graph's device. ``assignment`` maps node -> shard (MPGP's).
+
+    ``engine``: ``"replicated"`` (every shard on the whole CSR, all lanes;
+    what ``"auto"`` resolves to on one device, as in the reference) or
+    ``"local"`` (partition-local slices, slot pools, packed exchange; for
+    policies with ``supports_partition_local``). ``pool_factor`` is the
+    gamma of the MPGP balance bound that sizes each shard's pool (gamma B /
+    k slots, doubled and re-run on overflow, the size remembered);
+    ``exchange_cap`` bounds the records a shard ships per round (per
+    destination under ``a2a``; default P / 8, at least 8); ``transport``
+    picks ``"gather"`` (the default here), ``"a2a"`` or ``"pool"``. Walks
+    are the same under every engine, shard count and transport.
+    ``with_stats=True`` also returns the per-shard stats dict."""
+    global BATCHES
+    BATCHES += 1
+    dev = graph.device
+    sources = torch.as_tensor(sources, device=dev).to(torch.int64)
+    asn = np.asarray(assignment)
+    owner = torch.as_tensor(asn, device=dev).to(torch.int64)
+    graph_key = graph                   # the caches key on the caller's object
+    if policy.needs_edge_cm and graph.edge_cm is None:
+        graph = graph.with_edge_cm()
+    if engine == "auto":
+        # On one device the k programs run one after another and there is
+        # no memory to save; the reference picks the replicated engine there.
+        engine = "replicated"
+    if engine == "replicated":
+        out = _run_replicated(graph, owner, sources, keys, policy, spec, num_shards)
+        state = _merge(out, spec, keys)
+        return (state, _shard_stats(out, num_shards, None, None, None, 0)) if with_stats \
+            else state
+    if engine != "local":
+        raise ValueError(f"unknown engine {engine!r}")
+    if not policy.supports_partition_local:
+        raise ValueError(
+            f"{type(policy).__name__} cannot run partition-local (it reads "
+            "non-local CSR rows); use engine='replicated'")
+    if transport is None:
+        transport = "gather"
+    if transport not in ("pool", "gather", "a2a"):
+        raise ValueError(f"unknown transport {transport!r}")
+
+    pcsr = partitioned_csr_for(graph, asn, num_shards, key_obj=graph_key)
+    b = int(sources.shape[0])
+    init_occ = np.bincount(asn[sources.cpu().numpy()], minlength=num_shards) if b \
+        else np.zeros(1, np.int64)
+    pool = min(b, max(math.ceil(pool_factor * b / max(num_shards, 1)), int(init_occ.max()), 1))
+    pool_key = (id(graph_key), num_shards, b, spec, float(pool_factor), hash(asn.tobytes()))
+    hit = _POOL_CACHE.get(pool_key)
+    if hit is not None and hit[0]() is graph_key:
+        pool = max(pool, hit[1])
+    cap = int(exchange_cap) if exchange_cap else max(8, pool // 8)
+    retries = 0
+    while True:
+        out = _run_local(pcsr, owner, sources, keys, policy, spec, num_shards, pool, cap,
+                         compact_every, transport)
+        if int(out["overflow"].sum()) == 0:
+            break
+        # Walkers piled onto one shard beyond gamma B / k: double the pool
+        # and run again. At pool == B no overflow is possible.
+        if pool >= b:
+            raise RuntimeError("a slot pool of B slots overflowed")
+        pool = min(b, pool * 2)
+        retries += 1
+    if retries:
+        if len(_POOL_CACHE) >= 64:
+            _POOL_CACHE.clear()
+        _POOL_CACHE[pool_key] = (weakref.ref(graph_key), pool)
+    state = _merge_local(out, spec, keys)
+    return (state, _shard_stats(out, num_shards, pcsr, pool, cap, retries)) if with_stats \
+        else state

@@ -5,7 +5,10 @@ All policies expose one batched function:
     accept_prob(graph, prev, cur, cand, cand_edge_idx) -> (B,) float32
 
 used inside the rejection loop of the walker engine (a rejected lane keeps
-``cur`` and redraws next superstep).
+``cur`` and redraws next superstep). First-order policies also evaluate it
+from one shard's partition-local CSR slice (``accept_prob_local``), which
+the partition-local walk engine needs; node2vec reads N(prev), a row that
+may live on another shard, so it runs only on the replicated engine.
 """
 
 from __future__ import annotations
@@ -45,8 +48,17 @@ class Policy:
     """Base class — subclasses are stateless, graph-closed callables."""
 
     needs_edge_cm: bool = False     # HuGE transition needs Cm(u,v) precompute
+    # Whether accept_prob can be evaluated from one shard's slice alone.
+    supports_partition_local: bool = False
 
     def accept_prob(self, graph, prev, cur, cand, cand_edge_idx) -> torch.Tensor:
+        raise NotImplementedError
+
+    def accept_prob_local(self, shards, prev, cur_local, cand, cand_edge_idx) -> torch.Tensor:
+        """``accept_prob`` on the stacked partition-local slices
+        (``graph.csr.ShardCSR``): every argument is (k, P), ``cur_local`` a
+        local row and ``cand_edge_idx`` a local arc of the lane's shard.
+        The same float32 expression, fed from the slices."""
         raise NotImplementedError
 
 
@@ -59,19 +71,34 @@ class HugePolicy(Policy):
     """
 
     needs_edge_cm = True
+    supports_partition_local = True
 
     def accept_prob(self, graph, prev, cur, cand, cand_edge_idx):
-        deg_u = node_degrees(graph, cur)
-        deg_v = node_degrees(graph, cand)
         if graph.edge_cm is None:
             raise ValueError("HugePolicy requires graph.with_edge_cm()")
-        cm = graph.edge_cm[cand_edge_idx].to(torch.float32)
-        ratio = torch.maximum(deg_u / deg_v.clamp_min(1.0),
-                              deg_v / deg_u.clamp_min(1.0))
-        alpha = ratio / (deg_u - cm).clamp_min(1.0)
-        if graph.weights is not None:
-            alpha = alpha * graph.weights[cand_edge_idx]
-        return torch.tanh(alpha)
+        w = None if graph.weights is None else graph.weights[cand_edge_idx]
+        return _huge(node_degrees(graph, cur), node_degrees(graph, cand),
+                     graph.edge_cm[cand_edge_idx], w)
+
+    def accept_prob_local(self, shards, prev, cur_local, cand, cand_edge_idx):
+        # deg(u) from the local row; deg(v), Cm and w from the arc-aligned halo.
+        if shards.edge_cm is None:
+            raise ValueError("HugePolicy requires graph.with_edge_cm()")
+        deg_u = (shards.take("indptr", cur_local + 1)
+                 - shards.take("indptr", cur_local)).to(torch.float32)
+        w = None if shards.weights is None else shards.take("weights", cand_edge_idx)
+        return _huge(deg_u, shards.take("nbr_deg", cand_edge_idx).to(torch.float32),
+                     shards.take("edge_cm", cand_edge_idx), w)
+
+
+def _huge(deg_u, deg_v, cm, w):
+    """Eq. 3's acceptance from float32 degrees, Cm and the optional weight."""
+    ratio = torch.maximum(deg_u / deg_v.clamp_min(1.0),
+                          deg_v / deg_u.clamp_min(1.0))
+    alpha = ratio / (deg_u - cm.to(torch.float32)).clamp_min(1.0)
+    if w is not None:
+        alpha = alpha * w
+    return torch.tanh(alpha)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +127,12 @@ class Node2vecPolicy(Policy):
 class DeepwalkPolicy(Policy):
     """Uniform first-order walk — every candidate accepted."""
 
+    supports_partition_local = True
+
     def accept_prob(self, graph, prev, cur, cand, cand_edge_idx):
+        return torch.ones_like(cand, dtype=torch.float32)
+
+    def accept_prob_local(self, shards, prev, cur_local, cand, cand_edge_idx):
         return torch.ones_like(cand, dtype=torch.float32)
 
 

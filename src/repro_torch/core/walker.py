@@ -4,24 +4,35 @@ Every walker is a lane of a batched tensor program and one superstep is
 one BSP step: ``propose`` draws a candidate and runs the acceptance test
 (rejected lanes keep their node and redraw next superstep), ``absorb``
 applies the Theorem 1 / Eq. 13 update, appends the node and tests Eq. 5
-termination.
+termination. The partition-sharded engine (``core.shard_engine``) runs the
+same two phases, ``propose`` where the walker resides and ``absorb`` where
+the accepted node lives.
 
 The reference runs the supersteps inside one ``lax.while_loop``; here the
 loop is on the host and reads ``any(active)`` back once per superstep — one
 device sync each. ``supersteps`` counts exactly the supersteps the
 reference's loop runs.
 
-Two information modes: ``incom`` (DistGER) and ``fixed`` (routine walks of
-``fixed_len``). RNG is per lane and stateless (``rng_mode="lane"``): lane
-i's draws at superstep t depend only on (its block's key, t, i % width),
-where a batch's lanes fall into blocks of ``width`` lanes, each with its
-own key (``LaneKeys``).
+Three information modes: ``incom`` (DistGER: O(1) updates, optionally with
+R^2 over a ring of the last ``reg_window`` entropies), ``fullpath`` (the
+HuGE-D baseline: H recomputed from the path and R^2 over the stored
+H-series at every step) and ``fixed`` (routine walks of ``fixed_len``).
+RNG is per lane and stateless (``rng_mode="lane"``): lane i's draws at
+superstep t depend only on (its block's key, t, i % width), where a
+batch's lanes fall into blocks of ``width`` lanes, each with its own key
+(``LaneKeys``). So walks are the same on one shard or k.
+
+With a partition ``part``, ``run_walk_batch`` runs the batch on the
+partition-sharded engine, whose ``msg_count`` / ``msg_bytes`` are measured
+from the messages it exchanges between shards (80-byte InCoM messages,
+24 + 8L bytes for fullpath), with the analytic figure beside them
+(``msg_bytes_analytic``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,16 +62,16 @@ class WalkSpec:
     max_len: int = 100          # path buffer capacity (hard cap)
     min_len: int = 8            # don't test termination before this length
     mu: float = 0.995           # Eq. 5 termination threshold (R^2 < mu)
-    info_mode: str = "incom"    # "incom" | "fixed"
+    info_mode: str = "incom"    # "incom" | "fullpath" | "fixed"
     fixed_len: int = 80         # routine walk length (info_mode == "fixed")
     reg_start: int = 1          # L0: start of the regression series
+    reg_window: int = 0         # > 0: R^2 over the last K points (incom.windowed_r_squared)
     max_supersteps: int = 0     # 0 => 8 * max_len safety cap
     rng_mode: str = "lane"      # draws keyed by batch position
 
     def __post_init__(self):
-        if self.info_mode not in ("incom", "fixed"):
-            raise NotImplementedError(
-                f"info_mode={self.info_mode!r}: the port runs 'incom' and 'fixed'")
+        if self.info_mode not in ("incom", "fullpath", "fixed"):
+            raise ValueError(f"unknown info_mode {self.info_mode!r}")
         if self.rng_mode != "lane":
             raise NotImplementedError(
                 f"rng_mode={self.rng_mode!r}: the port runs lane-keyed walks")
@@ -73,7 +84,16 @@ class WalkSpec:
         regression series needs >= 4 points past L0 to be non-degenerate."""
         if self.info_mode == "fixed":
             return self.min_len
+        if self.reg_window:
+            return max(self.min_len, 4)
         return max(self.min_len, self.reg_start + 3)
+
+    def h_len(self) -> int:
+        """Width of a walker's H-series: the whole walk's in fullpath mode."""
+        return self.max_len if self.info_mode == "fullpath" else 1
+
+    def ring_len(self) -> int:
+        return max(self.reg_window, 1)
 
 
 # Supersteps whose block keys derive together, in one device pass: the
@@ -133,11 +153,16 @@ class WalkerBatchState:
     prev: torch.Tensor         # (B,) int64 previous node (== cur at start)
     path: torch.Tensor         # (B, max_len) int32, -1 padded
     info: incom.InfoState      # (B,) scalars
+    h_series: torch.Tensor     # (B, max_len) float32 in fullpath mode, else (B, 1)
+    hring: torch.Tensor        # (B, K) float32 ring of recent H (reg_window mode)
     active: torch.Tensor       # (B,) bool
     keys: LaneKeys             # lane i's draws derive from (its block key, t, i % width)
     supersteps: int = 0
     accepts: torch.Tensor = None   # () int64
     rejects: torch.Tensor = None   # () int64
+    msg_count: torch.Tensor = None           # () int64: cross-shard hand-offs
+    msg_bytes: torch.Tensor = None           # () float32: their bytes, measured
+    msg_bytes_analytic: torch.Tensor = None  # () float32: Example 1's closed form
 
 
 def init_batch(sources: torch.Tensor, keys: LaneKeys, spec: WalkSpec) -> WalkerBatchState:
@@ -145,11 +170,15 @@ def init_batch(sources: torch.Tensor, keys: LaneKeys, spec: WalkSpec) -> WalkerB
     path = torch.full((b, spec.max_len), -1, dtype=torch.int32, device=dev)
     path[:, 0] = sources.to(torch.int32)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     return WalkerBatchState(
         cur=sources.to(torch.int64), prev=sources.to(torch.int64), path=path,
         info=incom.InfoState.init(b, dev),
+        h_series=torch.zeros(b, spec.h_len(), dtype=torch.float32, device=dev),
+        hring=torch.zeros(b, spec.ring_len(), dtype=torch.float32, device=dev),
         active=torch.ones(b, dtype=torch.bool, device=dev),
-        keys=keys, accepts=zero, rejects=zero)
+        keys=keys, accepts=zero, rejects=zero,
+        msg_count=zero, msg_bytes=zero_f, msg_bytes_analytic=zero_f)
 
 
 def step_uniforms(keys: LaneKeys, superstep: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,22 +206,84 @@ def propose(graph: CSRGraph, policy: Policy, cur, prev, u1, u2):
     return cand, eidx, has_nbrs & (u2 < p_acc), has_nbrs
 
 
+def _fullpath_entropy(path: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """H(W^L) recomputed from the path, O(max_len^2) per lane:
+    H = -(1/L) sum_{i<L} log2(n(path_i) / L)."""
+    pos = torch.arange(path.shape[1], device=path.device)
+    mask = pos[None, :] < length[:, None]                       # (B, max_len)
+    eq = (path[:, :, None] == path[:, None, :]) & mask[:, None, :] & mask[:, :, None]
+    n_i = eq.sum(-1).to(torch.float32)
+    lf = torch.clamp_min(length.to(torch.float32), 1.0)[:, None]
+    term = torch.where(mask, torch.log2(torch.clamp_min(n_i, 1.0) / lf), 0.0)
+    return -term.sum(-1) / lf[:, 0]
+
+
+def _fullpath_r2(h_series: torch.Tensor, length: torch.Tensor, window: int = 0,
+                 start: int = 1) -> torch.Tensor:
+    """Pearson R^2 over the stored prefix-entropy series, O(L) per step;
+    ``window`` > 0 keeps the last ``window`` points, ``start`` = L0 drops
+    the points with L < L0."""
+    pos = torch.arange(h_series.shape[1], dtype=torch.float32, device=h_series.device)
+    l_series = pos[None, :] + 1.0
+    in_prefix = pos[None, :] < length[:, None]
+    if window:
+        in_prefix = in_prefix & (pos[None, :] >= length[:, None] - window)
+    if start > 1:
+        in_prefix = in_prefix & (l_series >= float(start))
+    mask = in_prefix.to(torch.float32)
+    cnt = torch.clamp_min(mask.sum(-1), 1.0)
+    eh = (h_series * mask).sum(-1) / cnt
+    el = (l_series * mask).sum(-1) / cnt
+    ehl = (h_series * l_series * mask).sum(-1) / cnt
+    eh2 = (h_series * h_series * mask).sum(-1) / cnt
+    el2 = (l_series * l_series * mask).sum(-1) / cnt
+    cov = ehl - eh * el
+    vh = torch.clamp_min(eh2 - eh * eh, 0.0)
+    vl = torch.clamp_min(el2 - el * el, 0.0)
+    denom = vh * vl
+    return torch.where(denom > 1e-12, cov * cov / torch.clamp_min(denom, 1e-12), 0.0)
+
+
 def absorb(spec: WalkSpec, info: incom.InfoState, path: torch.Tensor,
-           cand: torch.Tensor, proc: torch.Tensor):
-    """Apply one accepted step on ``proc`` lanes. Returns (info', path',
-    done_now)."""
+           h_series: torch.Tensor, hring: torch.Tensor, cand: torch.Tensor,
+           proc: torch.Tensor):
+    """Apply one accepted step on ``proc`` lanes against the local buffers.
+
+    ``path`` is the whole walk on one shard and the owner's fragment in the
+    sharded engine: n(v) is the same over either, since every visit to v
+    is appended where v lives. The append at position L is idempotent, so
+    fullpath callers that appended before shipping the walk reuse it.
+    Returns (info', path', h_series', hring', done_now)."""
     info_acc, new_path = incom.accept_update(info, path, cand, spec.reg_start,
                                              mask=proc)
     new_info = info_acc.where(proc, info)
     l_new = new_info.L
+    if spec.info_mode == "fullpath":
+        length = l_new.to(torch.int64)
+        h_full = _fullpath_entropy(new_path, length)
+        idx = (length - 1).clamp(0, spec.max_len - 1)
+        hpos = torch.arange(h_series.shape[1], device=h_series.device)[None, :]
+        h_series = torch.where(proc[:, None] & (hpos == idx[:, None]), h_full[:, None],
+                               h_series)
+        r2 = _fullpath_r2(h_series, length, spec.reg_window, spec.reg_start)
+        # The recomputed H equals the incremental one; its cost is the point.
+        new_info = dataclasses.replace(new_info, H=torch.where(proc, h_full, new_info.H))
+    elif spec.reg_window:
+        k = hring.shape[1]
+        slot = torch.remainder(l_new.to(torch.int64) - 1, k)
+        rpos = torch.arange(k, device=hring.device)[None, :]
+        hring = torch.where(proc[:, None] & (rpos == slot[:, None]), new_info.H[:, None],
+                            hring)
+        r2 = incom.windowed_r_squared(hring, l_new, spec.reg_window)
+    else:
+        r2 = incom.r_squared(new_info)
     if spec.info_mode == "fixed":
         done_now = proc & (l_new >= float(spec.fixed_len))
     else:
-        r2 = incom.r_squared(new_info)
         mu = float(np.float32(spec.mu))     # the reference compares in float32
         done_now = proc & (l_new >= float(spec.min_test_len())) & (r2 < mu)
     done_now = done_now | (proc & (l_new >= float(spec.max_len)))
-    return new_info, new_path, done_now
+    return new_info, new_path, h_series, hring, done_now
 
 
 def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
@@ -201,14 +292,17 @@ def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
     cand, _, accept_raw, has_nbrs = propose(graph, policy, st.cur, st.prev, u1, u2)
     accept = st.active & accept_raw
     dead_end = st.active & ~has_nbrs     # no neighbours: terminate now
-    new_info, new_path, done_now = absorb(spec, st.info, st.path, cand, accept)
-    return WalkerBatchState(
+    new_info, new_path, h_series, hring, done_now = absorb(
+        spec, st.info, st.path, st.h_series, st.hring, cand, accept)
+    return dataclasses.replace(
+        st,
         cur=torch.where(accept, cand, st.cur),
         prev=torch.where(accept, st.cur, st.prev),
         path=new_path,
         info=new_info,
+        h_series=h_series,
+        hring=hring,
         active=st.active & ~(done_now | dead_end),
-        keys=st.keys,
         supersteps=st.supersteps + 1,
         accepts=st.accepts + accept.sum(),
         rejects=st.rejects + (st.active & has_nbrs & ~accept_raw).sum(),
@@ -216,10 +310,25 @@ def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
 
 
 def run_walk_batch(graph: CSRGraph, sources: torch.Tensor, keys: LaneKeys,
-                   policy: Policy, spec: WalkSpec) -> WalkerBatchState:
+                   policy: Policy, spec: WalkSpec, part=None,
+                   num_shards: Optional[int] = None, **shard_kwargs) -> WalkerBatchState:
     """Run one walk per source until every lane terminates (or the cap).
     ``supersteps`` counts the supersteps of this batch, the most any of its
-    blocks needs."""
+    blocks needs.
+
+    Without ``part`` this is the dense single-shard engine. With ``part``
+    (node -> shard) the batch runs on the partition-sharded BSP engine,
+    ``num_shards`` shards (max(part) + 1 if not given), and the returned
+    message counts are measured from its exchanges. The walks are the same
+    either way. Further keyword arguments (``engine``, ``pool_factor``,
+    ``exchange_cap``, ...) go to ``shard_engine.run_walk_sharded``."""
+    if part is not None:
+        from repro_torch.core.shard_engine import run_walk_sharded
+        part = np.asarray(part)
+        if num_shards is None:
+            num_shards = int(part.max()) + 1
+        return run_walk_sharded(graph, sources, keys, policy, spec, part, num_shards,
+                                **shard_kwargs)
     st = init_batch(sources, keys, spec)
     cap = spec.supersteps_cap()
     while st.supersteps < cap and bool(st.active.any()):   # host sync
@@ -232,5 +341,8 @@ def batch_stats(st: WalkerBatchState) -> Dict[str, float]:
         "supersteps": st.supersteps,
         "accepts": int(st.accepts),
         "rejects": int(st.rejects),
+        "msg_count": int(st.msg_count),
+        "msg_bytes": float(st.msg_bytes),
+        "msg_bytes_analytic": float(st.msg_bytes_analytic),
         "mean_len": float(st.info.L.mean()),
     }

@@ -9,7 +9,7 @@ searches. The arrays are tensors on one device; ``indptr`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,3 +163,146 @@ def edge_common_neighbors(graph: CSRGraph,
                                     ).index_add_(0, arc - lo, hit.to(torch.int32))
         lo = hi
     return cm
+
+
+# --- the partition-local store of the sharded walk engine --------------------
+
+
+def subgraph_partition_pad(graph: CSRGraph, assignment: np.ndarray, num_parts: int
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Split a CSR graph into per-partition padded CSR slices, stacked:
+    (indptr_p, indices_p, owned_nodes_p, max_nodes), host numpy. Node ids
+    stay global; each partition stores the adjacency of the nodes it owns."""
+    parts = _partition_slices(graph, assignment, num_parts)
+    return parts["indptr"], parts["indices"], parts["owned"], parts["max_nodes"]
+
+
+def _partition_slices(graph: CSRGraph, assignment: np.ndarray, num_parts: int) -> dict:
+    """Per-partition CSR slicing on the host, O(|V| + |E|). Within a
+    partition rows are in ascending global id and keep their sorted
+    neighbour lists, so the slice row of node v is its global row."""
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    indices = graph.indices.cpu().numpy().astype(np.int64)
+    n = len(indptr) - 1
+    asn = np.asarray(assignment, np.int64)
+    deg = indptr[1:] - indptr[:-1]
+
+    counts = np.bincount(asn, minlength=num_parts)
+    max_nodes = max(int(counts.max()), 1) if n else 1
+    node_starts = np.zeros(num_parts + 1, np.int64)
+    np.cumsum(counts, out=node_starts[1:])
+    order = np.argsort(asn, kind="stable")       # ascending ids within a part
+    local_of = np.empty(max(n, 1), np.int64)
+    local_of[order] = np.arange(n) - np.repeat(node_starts[:-1], counts)
+    owned = np.full((num_parts, max_nodes), -1, np.int64)
+    deg_p = np.zeros((num_parts, max_nodes), np.int64)
+    if n:
+        owned[asn, local_of[:n]] = np.arange(n)
+        deg_p[asn, local_of[:n]] = deg
+    indptr_p = np.zeros((num_parts, max_nodes + 1), np.int64)
+    np.cumsum(deg_p, axis=1, out=indptr_p[:, 1:])
+
+    # Arcs are src-major in ascending src, so a stable sort by partition
+    # keeps each partition's arcs in its local-row order: the indptr_p layout.
+    src = np.repeat(np.arange(n), deg)
+    arc_order = np.argsort(asn[src], kind="stable") if len(src) else src
+    e_counts = np.bincount(asn[src], minlength=num_parts).astype(np.int64)
+    max_edges = max(int(e_counts.max()), 1) if len(src) else 1
+    e_starts = np.zeros(num_parts + 1, np.int64)
+    np.cumsum(e_counts, out=e_starts[1:])
+    arc_p = asn[src][arc_order]
+    arc_pos = np.arange(len(src)) - np.repeat(e_starts[:-1], e_counts)
+    dst = indices[arc_order]
+
+    def edge_aligned(values, fill, dtype):
+        out = np.full((num_parts, max_edges), fill, dtype)
+        if len(src):
+            out[arc_p, arc_pos] = values
+        return out
+
+    return {
+        "indptr": indptr_p, "indices": edge_aligned(dst, -1, np.int64), "owned": owned,
+        "max_nodes": max_nodes, "local_of": local_of[:n], "num_owned": counts.astype(np.int64),
+        "deg": deg, "arc_dst": dst, "edge_aligned": edge_aligned, "arc_order": arc_order,
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCSR:
+    """The k shards' padded CSR slices in local row ids, stacked on a
+    leading shard axis, with arc-aligned halo metadata (neighbour owner and
+    degree), so phase A of a walk step never reads a global O(|E|) array.
+
+    indptr:    (k, max_nodes+1) int32 — local row offsets
+    indices:   (k, max_edges)   int32 — global neighbour ids (-1 pad)
+    nbr_owner: (k, max_edges)   int32 — the shard owning each neighbour
+    nbr_deg:   (k, max_edges)   int32 — each neighbour's degree (HuGE Eq. 3)
+    weights:   (k, max_edges)   float32 or None
+    edge_cm:   (k, max_edges)   int32 or None — Cm(u, v)
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    nbr_owner: torch.Tensor
+    nbr_deg: torch.Tensor
+    weights: Optional[torch.Tensor] = None
+    edge_cm: Optional[torch.Tensor] = None
+
+    def take(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        """``field[s, idx[s, j]]`` for every shard s: one gather on the
+        flattened field (``idx`` is (k, P))."""
+        arr = getattr(self, name)
+        k, width = arr.shape
+        base = torch.arange(k, device=idx.device)[:, None] * width
+        return arr.reshape(-1)[idx + base]
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedCSR:
+    """The partition-local graph store: stacked ``ShardCSR`` slices of
+    O(|V|/k + |E|/k) each, plus the O(|V|) node metadata the walk engine
+    needs, replicated like the assignment itself."""
+
+    slices: ShardCSR
+    local_of: torch.Tensor        # (|V|,) int64: global node -> local row at its owner
+    owned: np.ndarray             # (k, max_nodes) int64, host: local row -> global node
+    num_owned: np.ndarray         # (k,) int64, host
+    num_parts: int
+
+    def shard_csr_nbytes(self) -> np.ndarray:
+        """Bytes per shard of the CSR slice proper: indptr and indices, with
+        the weights and Cm where present."""
+        s = self.slices
+        per = sum(t.shape[-1] * t.element_size()
+                  for t in (s.indptr, s.indices, s.weights, s.edge_cm) if t is not None)
+        return np.full(self.num_parts, per, np.int64)
+
+
+def build_partitioned_csr(graph: CSRGraph, assignment: np.ndarray,
+                          num_parts: int) -> PartitionedCSR:
+    """The partition-local store the sharded walk engine runs on, on the
+    graph's device: each shard's slice holds its owned nodes' adjacency in
+    local rows, neighbour ids global (they name the message destination
+    and the path entry), and the per-arc neighbour owner and degree."""
+    parts = _partition_slices(graph, assignment, num_parts)
+    asn = np.asarray(assignment, np.int64)
+    dst, edge_aligned, arc_order = parts["arc_dst"], parts["edge_aligned"], parts["arc_order"]
+    dev = graph.device
+    as_dev = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+    nbr_owner = edge_aligned(asn[dst] if len(dst) else dst, -1, np.int64)
+    nbr_deg = edge_aligned(parts["deg"][dst] if len(dst) else dst, 0, np.int64)
+    weights = edge_cm = None
+    if graph.weights is not None:
+        w = graph.weights.cpu().numpy().astype(np.float32)[arc_order]
+        weights = as_dev(edge_aligned(w, 0.0, np.float32), torch.float32)
+    if graph.edge_cm is not None:
+        cm = graph.edge_cm.cpu().numpy().astype(np.int64)[arc_order]
+        edge_cm = as_dev(edge_aligned(cm, 0, np.int64), torch.int32)
+    slices = ShardCSR(indptr=as_dev(parts["indptr"], torch.int32),
+                      indices=as_dev(parts["indices"], torch.int32),
+                      nbr_owner=as_dev(nbr_owner, torch.int32),
+                      nbr_deg=as_dev(nbr_deg, torch.int32),
+                      weights=weights, edge_cm=edge_cm)
+    return PartitionedCSR(slices=slices, local_of=as_dev(parts["local_of"], torch.int64),
+                          owned=parts["owned"], num_owned=parts["num_owned"],
+                          num_parts=num_parts)

@@ -3,8 +3,10 @@
 Runs the embedding path's two phases on one GPU — the first 40 walk
 supersteps of round 0 and 100 DSGL training steps over round 0's walks,
 as ``embed_graph(PAPER_EMBED, num_shards=2)`` runs them on the yt-sim
-R-MAT preset (two replicas, a hotness sync at the step-50 boundary; the
-MPGP partition steers nothing on the dense walk engine, so it is skipped) —
+R-MAT preset (two replicas, a hotness sync at the step-50 boundary), the
+walk window on the dense engine and then on the partition-sharded one
+(replicated at k = 2 under MPGP, the main path's; partition-local at k = 2
+under MPGP and at k = 4 under the hash partition) —
 and the LM serving paths' two each — one prefill of 4 prompts of 2,048
 tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b, xlstm-350m,
 minicpm3-4b and then deepseek-v2-lite-16b (MLA + MoE at its published
@@ -58,6 +60,7 @@ OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
                "wide_cb_state_kernel", "wide_chain_kernel", "wide_out_kernel")
 SHARDS = 2
+SHARDED_WINDOWS = (("replicated", 2, "mpgp"), ("local", 2, "mpgp"), ("local", 4, "hash"))
 
 
 def _device_us(evt) -> float:
@@ -152,6 +155,26 @@ def main(argv: list) -> int:
             bool(st.active.any())                     # the loop's per-superstep sync
 
     profile_window(torch, "walk", walk_window, SUPERSTEPS)
+
+    # The same supersteps on the sharded engine, each run cut at them.
+    import dataclasses
+
+    from repro_torch.core import mpgp
+    from repro_torch.core.shard_engine import run_walk_sharded
+
+    window_spec = dataclasses.replace(spec, max_supersteps=SUPERSTEPS)
+    for engine, k, name in SHARDED_WINDOWS:
+        part = (mpgp.mpgp_partition if name == "mpgp" else mpgp.hash_partition)(
+            pipe.graph, k).assignment
+
+        def sharded_window(engine=engine, k=k, part=part):
+            keys = LaneKeys.for_round(prng.fold_in(pipe.key_walk, 0), 0,
+                                      len(pipe.sources), dev)
+            run_walk_sharded(pipe.graph, pipe.sources, keys, policy, window_spec, part, k,
+                             engine=engine)
+
+        profile_window(torch, f"walk {engine} k={k} {name}", sharded_window, SUPERSTEPS,
+                       warmup=True)
 
     # Training: steps over round 0's ring slots, as the pipeline runs them.
     pipe._append(pipe._run_round(0))

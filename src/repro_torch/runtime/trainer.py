@@ -25,11 +25,12 @@ With ``num_shards`` = S > 1 (the paper's distributed regime) DSGL trains
 S replicas of the embedding matrices, each on its own ring slots, and a
 chunk that crosses a ``sync_period`` boundary of global steps ends with the
 hotness-block sync (Improvement-III); ``embeddings()`` is the replica mean.
-The MPGP assignment is stored with the walk shard count, but the walks run
-on the dense engine: the partition-sharded engine draws the same walks
-(the reference's DESIGN.md §9), and it is not ported yet, so the
-partition steers nothing here and the walk statistics carry no message
-counts.
+With an MPGP assignment the walks run on the partition-sharded engine over
+``walk_shards`` shards (``core.shard_engine``, the reference's default
+engine for one device): the same walks as the dense engine's, and the walk
+statistics carry the InCoM messages it exchanged (``msg_count``,
+``msg_bytes`` measured, ``msg_bytes_analytic``; bytes summed in float32,
+as the reference's).
 """
 
 from __future__ import annotations
@@ -105,8 +106,10 @@ class StreamingEmbedPipeline:
         self.phi_in = torch.stack([r[0] for r in reps])      # (S, N, d)
         self.phi_out = torch.stack([r[1] for r in reps])
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._stats: Dict[str, Any] = {"supersteps": 0, "accepts": zero,
-                                       "rejects": zero}
+        zero_f = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._stats: Dict[str, Any] = {"supersteps": 0, "accepts": zero, "rejects": zero,
+                                       "msg_count": zero, "msg_bytes": zero_f,
+                                       "msg_bytes_analytic": zero_f}
         self.batch_supersteps: List[int] = []   # supersteps of every walk batch
         self.phase_s = {"walk": 0.0, "train": 0.0}  # host wall time per phase
 
@@ -131,22 +134,25 @@ class StreamingEmbedPipeline:
         """Walk round r from every source; returns (chunk sources, state)
         pairs. Lane i draws what the reference pipeline's lane i draws: the
         key of its 4,096-source chunk (``walker.REF_CHUNK``) is
-        fold_in(round_key, chunk start)."""
+        fold_in(round_key, chunk start). With an assignment the batches run
+        on the partition-sharded engine."""
         round_key = prng.fold_in(self.key_walk, r)
+        shards = self.walk_shards if self.assignment is not None else None
         pairs = []
         for start in range(0, len(self.sources), MAX_LANES):
             chunk = self.sources[start:start + MAX_LANES]
             keys = LaneKeys.for_round(round_key, start, len(chunk), self.device)
-            pairs.append((chunk, run_walk_batch(self.graph, chunk, keys,
-                                                self.policy, self.spec)))
+            pairs.append((chunk, run_walk_batch(self.graph, chunk, keys, self.policy,
+                                                self.spec, self.assignment,
+                                                num_shards=shards)))
         return pairs
 
     def _append(self, pairs) -> None:
         for _, st in pairs:
             ring_append(self.ring, st.path, st.info.L)
             self._stats["supersteps"] += st.supersteps
-            self._stats["accepts"] = self._stats["accepts"] + st.accepts
-            self._stats["rejects"] = self._stats["rejects"] + st.rejects
+            for name in ("accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic"):
+                self._stats[name] = self._stats[name] + getattr(st, name)
             self.batch_supersteps.append(st.supersteps)
 
     # --- train side -------------------------------------------------------
@@ -265,7 +271,8 @@ class StreamingEmbedPipeline:
         }
 
     def stats(self) -> Dict[str, Any]:
-        stats = {k: int(v) for k, v in self._stats.items()}
+        stats = {k: float(v) if k.startswith("msg_bytes") else int(v)
+                 for k, v in self._stats.items()}
         stats["mean_len"] = (float(self.ring.lengths.sum())
                              / max(self.ring.num_filled, 1))
         stats["d_history"] = list(self.controller.history)
