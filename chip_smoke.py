@@ -77,6 +77,31 @@ Phases (each failure raises and ends the run with a non-zero exit):
    at the analytic bytes; each prints its wall time, supersteps, host
    reads, exchange rounds, pool, lane occupancy, CSR bytes per shard and
    peak memory, and MPGP's hand-offs are printed against hash's at k = 4.
+   Then ``[refresh]``, dynamic graphs in two cases: the ``fl-sim`` preset
+   (80,513 nodes at degree 146, 16 rounds resident in the ring) under
+   ``PAPER_EMBED``, and the reference's acceptance recipe (rmat 2,048 at
+   degree 10, seed 3, its test's config). Each runs
+   ``embed_graph(num_shards=2, return_state=True)``, a 5% ``churn_batch``
+   (seed 1, timed on the host), ``refresh_embedding`` and a from-scratch
+   vertex-keyed ``embed_graph`` of the mutated graph. Every slot whose
+   pre-update root is unaffected must be bit-identical after the refresh;
+   the affected mask must equal an int64 recount on the host from the
+   pre-update ring; the first and the last retained round's spliced rows
+   must equal a full vertex-keyed round of every source on the mutated
+   graph; ocn must move by exactly the tokens written less those replaced;
+   the overlay's graph must hold exactly the mutated edge set, and its
+   incremental Cm must equal ``edge_common_neighbors`` of it; K1 launches
+   = write-backs = fine-tune steps, all in graph replays, a hotness sync at
+   each 50-step boundary; phi finite. The recipe is also held to the
+   reference's acceptance: at most 30% of the vertices walked again, the
+   refreshed AUC within 0.02 of the scratch run's. (On fl-sim the
+   low-degree pool's arcs lie on most walks, and the AUC does not rank a
+   trained embedding of its R-MAT graph above chance: PERF.md §6.) Each
+   prints the churn, the affected count (the churn's endpoints and the
+   roots whose walks traverse a changed arc), the rounds, the re-walk's
+   walks and supersteps, the arcs and wedges the incremental Cm recounts,
+   the refresh's wall time by phase against the base and scratch runs',
+   the stale, refreshed and scratch AUCs and peak memory.
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -723,6 +748,299 @@ def walk_phase(torch, np, graph, dev) -> None:
         f"({(1 - m / max(h, 1)) * 100:.4f}% fewer, {m * incom.MSG_BYTES} against "
         f"{h * incom.MSG_BYTES} bytes)")
     log(f"[walk] phase {time.perf_counter() - t0:.2f} s")
+
+
+# --- dynamic graphs: the refresh on fl-sim and on the reference's recipe --------
+
+REFRESH_CHURN = 0.05            # the reference's acceptance recipe: 5% churn, seed 1
+REFRESH_MAX_AFFECTED = 0.30
+REFRESH_AUC_GAP = 0.02
+
+
+def affected_on_host(np, walks, roots, batch, n) -> np.ndarray:
+    """The affected mask recounted on the host from the pre-update ring
+    rows and their roots, in int64 numpy: the churn's endpoints, and every
+    root whose walk steps along a changed arc in either direction."""
+    changed = np.concatenate([batch.insert, batch.delete]).astype(np.int64)
+    aff = np.zeros(n, bool)
+    aff[np.unique(changed)] = True
+    codes = np.unique(np.concatenate([changed[:, 0] * n + changed[:, 1],
+                                      changed[:, 1] * n + changed[:, 0]]))
+    for lo in range(0, len(walks), 1 << 16):
+        w = walks[lo:lo + (1 << 16)].astype(np.int64)
+        a, b = w[:, :-1], w[:, 1:]
+        pair = np.maximum(a, 0) * n + np.maximum(b, 0)
+        pos = np.minimum(np.searchsorted(codes, pair), len(codes) - 1)
+        hit = ((codes[pos] == pair) & (a >= 0) & (b >= 0)).any(axis=1)
+        aff[roots[lo:lo + (1 << 16)][hit]] = True
+    return aff
+
+
+def refresh_phase(torch, np, counters, dev) -> dict:
+    """Dynamic graphs, in two cases run through ``refresh_case``: fl-sim
+    (80,513 nodes at degree 146; 16 rounds fit the ring) under
+    ``PAPER_EMBED``, and the reference's acceptance recipe (rmat 2,048 at
+    degree 10, seed 3, its test's ``EmbedConfig``). The recipe alone is held
+    to the reference's acceptance, at most 30% of the vertices walked again
+    and the refreshed AUC within 0.02 of scratch's: on fl-sim the pool's
+    arcs lie on most walks, and the AUC does not rank a trained embedding
+    of its R-MAT graph above chance (PERF.md §6), so there it is printed."""
+    from repro_torch.configs.distger import GRAPH_PRESETS, PAPER_EMBED
+    from repro_torch.core.api import EmbedConfig
+    from repro_torch.graph.generators import rmat_graph
+
+    preset = GRAPH_PRESETS["fl-sim"]
+    runs = [refresh_case(torch, np, counters, dev, preset.name,
+                         rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev),
+                         PAPER_EMBED)]
+    torch.cuda.empty_cache()
+    runs.append(refresh_case(torch, np, counters, dev, "recipe",
+                             rmat_graph(2048, 10, seed=3, device=dev),
+                             EmbedConfig(dim=32, epochs=1, lr=0.05, delta=1e-3, max_len=40,
+                                         min_len=10, window=6, negatives=4),
+                             acceptance=True))
+    return {"launches": {k: v for run in runs for k, v in run["launches"].items()},
+            "writebacks": sum(run["writebacks"] for run in runs),
+            "replays": sum(run["replays"] for run in runs)}
+
+
+def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=False) -> dict:
+    """``embed_graph(cfg, num_shards=2, return_state=True)`` on the graph, a
+    5% ``churn_batch`` (seed 1), ``refresh_embedding``, and a from-scratch
+    vertex-keyed ``embed_graph`` of the mutated graph, every launch count set
+    to 0 before each and read after. Checks: every slot whose pre-update root
+    is unaffected is bit-identical after the refresh; the affected mask
+    equals a recount on the host; the first and the last retained round's
+    spliced rows equal a full vertex-keyed round of every source on the
+    mutated graph; ocn moved by exactly the tokens spliced and appended less
+    those replaced; the overlay's graph holds exactly the arcs of the graph
+    before less the deleted and plus the inserted edges, and its incremental
+    Cm equals ``edge_common_neighbors`` of it; K1 launches = write-backs =
+    fine-tune steps, all in graph replays, with a hotness sync at each
+    50-step boundary; phi finite. With ``acceptance``, the reference's: at
+    most 30% of the vertices walked again, and the refreshed AUC within 0.02
+    of the scratch run's."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import dsgl, shard_engine
+    from repro_torch.core.api import embed_graph, refresh_embedding
+    from repro_torch.core.walker import VertexKeys, run_walk_batch
+    from repro_torch.eval import link_prediction_auc
+    from repro_torch.graph.csr import edge_common_neighbors
+    from repro_torch.graph.generators import churn_batch
+    from repro_torch.kernels.sgns import ops
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.LAUNCHES = 0
+        ops.WRITEBACKS = 0
+        dsgl.GRAPH_REPLAYS = 0
+        shard_engine.BATCHES = 0
+        return time.perf_counter()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"k1": ops.LAUNCHES, "writebacks": ops.WRITEBACKS,
+                "replays": dsgl.GRAPH_REPLAYS, "batches": shard_engine.BATCHES,
+                "others": {n: c.LAUNCHES for n, c in counters.items() if n != "sgns_lifetime"}}
+
+    tag = f"[refresh {name}]"
+    t_phase = time.perf_counter()
+    n = graph.num_nodes
+    log(f"{tag} |V|={n} arcs={graph.num_edges}; {cfg.method}, dim {cfg.dim}, max_len "
+        f"{cfg.max_len}, window {cfg.window}, lr {cfg.lr}, epochs {cfg.epochs}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the base run ------------------------------------------------------------
+    t0 = reset()
+    phi0, _, base, state = embed_graph(graph, cfg, num_shards=2, return_stats=True,
+                                       return_state=True, device=dev)
+    base_wall = time.perf_counter() - t0
+    base_n = counts()
+    pipe = state.refresher.pipeline
+    ws = base["stats"]
+    log(f"{tag} base embed_graph wall {base_wall:.2f} s: Cm {base['cm_s']:.2f} s, "
+        f"partition {base['part_s']:.2f} s, walks {ws['phase_s']['walk']:.2f} s, training "
+        f"{ws['phase_s']['train']:.2f} s; rounds {base['rounds']} (ring {pipe.ring_rounds}), "
+        f"supersteps {ws['supersteps']}, steps {base['steps']}, K1 launches {base_n['k1']}")
+    if base_n["k1"] != base["steps"] or base_n["writebacks"] != base["steps"] \
+            or base_n["replays"] != base["chunks"]:
+        raise AssertionError(f"{tag} base run: {base_n} for {base['steps']} steps in "
+                             f"{base['chunks']} chunks")
+    log(f"{tag} base run's link-prediction AUC on the graph before the churn "
+        f"{link_prediction_auc(graph, phi0, np.random.default_rng(7)):.6f}")
+    walks_before = pipe.ring.walks.clone()
+    lengths_before = pipe.ring.lengths.clone()
+    ocn_before = pipe.ring.ocn.clone()
+    roots_before = pipe._slot_root.copy()
+    rounds_before = pipe._slot_round.copy()
+
+    # 2. the churn (host numpy) ---------------------------------------------------
+    t0 = time.perf_counter()
+    batch = churn_batch(graph, REFRESH_CHURN, seed=1)
+    churn_s = time.perf_counter() - t0
+    log(f"{tag} churn_batch: +{len(batch.insert)} / -{len(batch.delete)} edges "
+        f"({batch.num_changes / (graph.num_edges / 2):.6f} of the edges) in {churn_s:.2f} s "
+        f"on the host")
+
+    # 3. the refresh -----------------------------------------------------------
+    g_step0, chunks0, syncs0 = pipe.global_step, pipe.chunks, pipe.syncs
+    batches0 = len(pipe.batch_supersteps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = reset()
+    phi1, _, rs = refresh_embedding(state, batch)
+    refresh_wall = time.perf_counter() - t0
+    ref_n = counts()
+    refresh_peak = torch.cuda.max_memory_allocated() / 2**30
+    g2 = state.graph
+    ph = rs.phase_s
+    log(f"{tag} affected {rs.affected} ({rs.affected_frac:.6f} of |V|), retained rounds "
+        f"{rs.retained_rounds}, extra rounds {rs.extra_rounds}, re-walked walks "
+        f"{rs.rewalk_walks}, re-walk supersteps {rs.rewalk_supersteps} (the base run's "
+        f"{ws['supersteps']}), fine-tune steps {rs.fine_tune_steps}")
+    log(f"{tag} refresh_embedding wall {refresh_wall:.2f} s: compact {ph['compact']:.2f} s "
+        f"(Cm {ph['cm']:.2f} s), detection {ph['detect']:.2f} s, re-walk {ph['rewalk']:.2f} s, "
+        f"top-up {ph['topup']:.2f} s, fine-tune {ph['finetune']:.2f} s; base embed "
+        f"{base_wall:.2f} s; peak device memory {refresh_peak:.3f} GiB")
+    want_steps = rs.fine_tune_steps
+    want_syncs = pipe.global_step // dsgl.DSGLConfig().sync_period \
+        - g_step0 // dsgl.DSGLConfig().sync_period
+    log(f"{tag} K1 launches {ref_n['k1']}, write-backs {ref_n['writebacks']}, graph replays "
+        f"{ref_n['replays']} for {pipe.chunks - chunks0} chunks, hotness syncs "
+        f"{pipe.syncs - syncs0} (50-step boundaries {want_syncs}), walk batches on the sharded "
+        f"engine {ref_n['batches']} of {len(pipe.batch_supersteps) - batches0}, other kernels "
+        f"{ref_n['others']}")
+    if ref_n["k1"] != want_steps or ref_n["writebacks"] != want_steps \
+            or ref_n["replays"] != pipe.chunks - chunks0 or pipe.syncs - syncs0 != want_syncs \
+            or pipe.global_step - g_step0 != want_steps:
+        raise AssertionError(f"{tag} every fine-tune step must be a K1 launch in a graph "
+                             f"replay: {ref_n}, {pipe.syncs - syncs0} syncs")
+    if ref_n["batches"] != len(pipe.batch_supersteps) - batches0 or any(ref_n["others"].values()):
+        raise AssertionError(f"{tag} walk batches or other kernels: {ref_n}")
+    if not (torch.isfinite(phi1).all() and torch.isfinite(pipe.phi_out).all()):
+        raise AssertionError(f"{tag} phi is not finite")
+
+    # Unaffected slots bit-identical; the mask against a recount on the host.
+    t0 = time.perf_counter()
+    aff = state.refresher.last_affected_mask
+    written = roots_before >= 0
+    host_aff = affected_on_host(np, walks_before.cpu().numpy()[written], roots_before[written],
+                                batch, n)
+    if not np.array_equal(host_aff, aff):
+        raise AssertionError(f"{tag} affected mask {int(aff.sum())} != the host's "
+                             f"{int(host_aff.sum())}")
+    kept = torch.from_numpy(np.nonzero(written & ~aff[np.maximum(roots_before, 0)])[0]).to(dev)
+    same_kept = torch.equal(walks_before[kept], pipe.ring.walks[kept]) and \
+        torch.equal(lengths_before[kept], pipe.ring.lengths[kept])
+    touched = np.unique(np.concatenate([batch.insert, batch.delete]))
+    log(f"{tag} unaffected slots {len(kept)} bit-identical {same_kept}; affected mask equals "
+        f"the host's int64 recount True: {len(touched)} churn endpoints, "
+        f"{int(aff.sum()) - len(touched)} more roots whose walks traverse a changed arc")
+    if not same_kept:
+        raise AssertionError(f"{tag} a slot of an unaffected root changed")
+
+    # ocn moved by exactly the tokens of the slots written less those they held.
+    now_roots = pipe._slot_root
+    moved = np.nonzero((now_roots >= 0) & (~written | aff[np.maximum(roots_before, 0)]))[0]
+    moved_t = torch.from_numpy(moved).to(dev)
+    tokens = lambda w: torch.bincount(w[w >= 0].to(torch.int64), minlength=n)
+    want_ocn = tokens(pipe.ring.walks[moved_t]) - tokens(walks_before[moved_t])
+    ocn_ok = torch.equal(pipe.ring.ocn.to(torch.int64) - ocn_before.to(torch.int64), want_ocn)
+    log(f"{tag} ocn after - before == tokens written - tokens replaced over {len(moved)} "
+        f"slots: {ocn_ok}")
+    if not ocn_ok:
+        raise AssertionError(f"{tag} ocn is not exact after the refresh")
+
+    # The first and the last retained round's spliced rows against full rounds.
+    resident = np.unique(rounds_before[written & aff[np.maximum(roots_before, 0)]])
+    spliced = {}
+    for r in sorted({int(resident[0]), int(resident[-1])}):
+        t1 = time.perf_counter()
+        sources = torch.arange(n, device=dev)
+        full = run_walk_batch(g2, sources, VertexKeys(prng.fold_in(pipe.key_walk, r), sources),
+                              pipe.policy, pipe.spec, pipe.assignment,
+                              num_shards=pipe.walk_shards)
+        sel = np.nonzero(written & aff[np.maximum(roots_before, 0)] & (rounds_before == r))[0]
+        rows = torch.from_numpy(roots_before[sel]).to(dev)
+        slots = torch.from_numpy(sel).to(dev)
+        spliced[r] = (len(sel), torch.equal(pipe.ring.walks[slots], full.path[rows])
+                      and torch.equal(pipe.ring.lengths[slots], full.info.L.to(torch.int32)[rows]))
+        log(f"{tag} round {r}: {len(sel)} spliced rows equal a full vertex-keyed round of "
+            f"{n} sources on the mutated graph {spliced[r][1]} ({time.perf_counter() - t1:.2f} s)")
+        del full
+    if not all(ok for _, ok in spliced.values()):
+        raise AssertionError(f"{tag} spliced rows differ from full rounds: {spliced}")
+
+    # The overlay's graph against the edge set the churn makes, arc for arc.
+    def arc_codes(g):
+        rows = torch.repeat_interleave(torch.arange(n, device=dev), g.degrees(),
+                                       output_size=g.num_edges)
+        return rows, rows * n + g.indices.to(torch.int64)
+
+    def both_ways(edges):
+        e = torch.from_numpy(edges).to(dev)
+        return torch.cat([e[:, 0] * n + e[:, 1], e[:, 1] * n + e[:, 0]])
+
+    old = arc_codes(graph)[1]
+    want = torch.sort(torch.cat([old[~torch.isin(old, both_ways(batch.delete))],
+                                 both_ways(batch.insert)])).values
+    src, got = arc_codes(g2)
+    arcs_ok = torch.equal(got, want) and g2.weights is None
+    log(f"{tag} the overlay's graph: {g2.num_edges} arcs = {graph.num_edges} - "
+        f"{2 * len(batch.delete)} + {2 * len(batch.insert)}, the mutated edge set: {arcs_ok}")
+    if not arcs_ok:
+        raise AssertionError(f"{tag} the overlay's graph is not the mutated edge set")
+    del old, want, got
+
+    # The overlay's incremental Cm against a full recount.
+    mark = torch.zeros(n, dtype=torch.bool, device=dev)
+    mark[torch.from_numpy(touched).to(dev)] = True
+    deg = g2.degrees()
+    stale = mark[src] | mark[g2.indices]
+    wedges = torch.minimum(deg[src], deg[g2.indices])
+    log(f"{tag} Cm: {int(stale.sum())} of {g2.num_edges} arcs recounted (a touched "
+        f"endpoint), {int(wedges[stale].sum())} of {int(wedges.sum())} wedges")
+    del src, stale, wedges
+    t1 = time.perf_counter()
+    full_cm = edge_common_neighbors(g2)
+    torch.cuda.synchronize()
+    cm_ok = torch.equal(g2.edge_cm, full_cm)
+    log(f"{tag} incremental Cm ({ph['cm']:.2f} s) equals edge_common_neighbors of the "
+        f"mutated graph ({time.perf_counter() - t1:.2f} s): {cm_ok}")
+    if not cm_ok:
+        raise AssertionError(f"{tag} the incremental Cm differs from the full recount")
+    del full_cm, walks_before, lengths_before
+    log(f"{tag} checks {time.perf_counter() - t0:.2f} s")
+
+    # 4. from scratch on the mutated graph, and the three AUCs -----------------
+    torch.cuda.empty_cache()
+    t0 = reset()
+    phi_s, _, scratch = embed_graph(g2, dataclasses.replace(cfg, rng_mode="vertex"),
+                                    num_shards=2, return_stats=True, device=dev)
+    scratch_wall = time.perf_counter() - t0
+    scratch_n = counts()
+    auc = {which: link_prediction_auc(g2, phi, np.random.default_rng(7))
+           for which, phi in (("stale", phi0), ("refreshed", phi1), ("scratch", phi_s))}
+    log(f"{tag} scratch embed_graph wall {scratch_wall:.2f} s (rounds {scratch['rounds']}, "
+        f"K1 launches {scratch_n['k1']}); refresh / base wall {refresh_wall / base_wall:.4f}, "
+        f"refresh / scratch {refresh_wall / scratch_wall:.4f}")
+    log(f"{tag} link-prediction AUC on the mutated graph: stale {auc['stale']:.6f}, "
+        f"refreshed {auc['refreshed']:.6f}, scratch {auc['scratch']:.6f}")
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"phase {time.perf_counter() - t_phase:.2f} s")
+    if acceptance and (rs.affected_frac > REFRESH_MAX_AFFECTED
+                       or abs(auc["refreshed"] - auc["scratch"]) > REFRESH_AUC_GAP):
+        raise AssertionError(f"{tag} the reference's acceptance: {rs.affected_frac} of the "
+                             f"vertices walked again (at most {REFRESH_MAX_AFFECTED}), refreshed "
+                             f"AUC {auc['refreshed']} against scratch's {auc['scratch']} (within "
+                             f"{REFRESH_AUC_GAP})")
+    return {"launches": {f"{name} embed k=2": base_n["k1"], f"{name} refresh": ref_n["k1"],
+                         f"{name} scratch k=2": scratch_n["k1"]},
+            "writebacks": base_n["writebacks"] + ref_n["writebacks"] + scratch_n["writebacks"],
+            "replays": base_n["replays"] + ref_n["replays"] + scratch_n["replays"]}
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -1794,6 +2112,8 @@ def main() -> int:
     walk_phase(torch, np, graph, dev)
     del graph
     torch.cuda.empty_cache()
+    refresh = refresh_phase(torch, np, counters, dev)
+    torch.cuda.empty_cache()
 
     # 4. the dense LM path -------------------------------------------------------
     launches = {LM_ARCH: lm_path(torch, np, counters, lm_cfg, prompts)}
@@ -1828,9 +2148,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_shapes[MOE_ARCH] = flash_times(torch, fa_ops, fa_ref, moe_prefill_case)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
-    total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"]
+    total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"] \
+        + sum(refresh["launches"].values())
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "
-        f"{emb[1]['launches']}; {launches}")
+        f"{emb[1]['launches']}, {refresh['launches']}; {launches}")
 
     by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
     flash = flash_shapes[LM_ARCH]      # the top-level numbers: qwen3-1.7b's prefill shape
@@ -1846,14 +2167,16 @@ def main() -> int:
         "bound_ms": sgns["bound_ms"],
         "bound_by": sgns["bound_by"],
         "library_ms": None,
-        "launches_by_path": {"yt-sim k=2": emb[2]["launches"], "yt-sim k=1": emb[1]["launches"]},
+        "launches_by_path": {"yt-sim k=2": emb[2]["launches"], "yt-sim k=1": emb[1]["launches"],
+                             **refresh["launches"]},
         "ms_s1": sgns["ms_s1"],
         "padded_bound_ms": sgns["padded_bound_ms"],
         "step_ms": sgns["step_ms"],
         "us_per_position": sgns["us_per_position"],
         "extent": sgns["extent"],
-        "graph_replays": emb[2]["replays"] + emb[1]["replays"],
-        "writeback_launches": emb[2]["writebacks"] + emb[1]["writebacks"],
+        "graph_replays": emb[2]["replays"] + emb[1]["replays"] + refresh["replays"],
+        "writeback_launches": emb[2]["writebacks"] + emb[1]["writebacks"]
+        + refresh["writebacks"],
         "writeback_ms": sgns["writeback_ms"],
         "writeback_plain_ms": sgns["writeback_plain_ms"],
         "writeback_bound_ms": sgns["writeback_bound_ms"],

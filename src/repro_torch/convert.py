@@ -12,7 +12,7 @@ layout, so that both packages compute with the same weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,13 +27,20 @@ def _key(raw) -> tuple:
     return (k0, k1)
 
 
-def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+def from_reference_state(tree: Dict[str, Any], device="cuda",
+                         d_history: Optional[Sequence[float]] = None) -> Dict[str, Any]:
     """Reference state (numpy) -> {"phi_in", "phi_out": (S, N, d) float32,
     "ring": CorpusRing, "key_walk", "key_train": prng keys, "stats": walk
     counters as ints, "assignment": the MPGP assignment as int32 numpy, or
-    None, "graph": CSRGraph (when the tree holds one)}."""
+    None, "slot_root", "slot_round": the ring's host slot maps (int64, -1
+    where never written) or None, "d_history": the ΔD controller's history
+    (``d_history``, read off the reference pipeline's
+    ``controller.history``, which its state tree does not hold) or None,
+    "graph": CSRGraph (when the tree holds one)}. A port pipeline that
+    adopts it (``adopt_state``) can continue and refresh from it."""
     dev = resolve_device(device)
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    i64 = lambda name: None if tree.get(name) is None else np.array(tree[name], np.int64)
     state = {
         "phi_in": f32(tree["phi_in"]),
         "phi_out": f32(tree["phi_out"]),
@@ -43,6 +50,9 @@ def from_reference_state(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         "stats": {k: int(np.asarray(v)) for k, v in tree.get("stats", {}).items()},
         "assignment": (None if tree.get("assignment") is None
                        else np.array(tree["assignment"], np.int32)),
+        "slot_root": i64("slot_root"),
+        "slot_round": i64("slot_round"),
+        "d_history": None if d_history is None else [float(d) for d in d_history],
     }
     g = tree.get("graph")
     if g is not None:

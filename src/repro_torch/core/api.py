@@ -3,7 +3,8 @@
 DeepWalk / node2vec / HuGE all run through the same sampler, each with its
 routine configuration (fixed L, r) or DistGER's information-centric
 termination (R^2 < mu walk length + Delta D <= delta walk count).
-``embed_graph`` is the one-call entry point: sample -> learn -> embeddings.
+``embed_graph`` is the one-call entry point: sample -> learn -> embeddings;
+``refresh_embedding`` absorbs edge churn into a live embedding.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ class EmbedConfig:
     seed: int = 0
     p: float = 1.0                 # node2vec return parameter
     q: float = 1.0                 # node2vec in-out parameter
-    rng_mode: str = "lane"         # walk RNG keying (the port runs "lane")
+    rng_mode: str = "lane"         # walk RNG: "lane" (batch position) or "vertex" (source id)
 
 
 def make_walk_plan(cfg: EmbedConfig) -> Tuple[object, WalkSpec, Dict]:
@@ -71,6 +72,24 @@ def sample_corpus(graph, cfg: EmbedConfig, part: Optional[np.ndarray] = None, *,
                            seed=cfg.seed, part=part, **rounds)
 
 
+@dataclasses.dataclass
+class EmbedState:
+    """A live embedding: the streaming pipeline and the delta overlay /
+    refresh logic around it, which ``refresh_embedding`` keeps current
+    across edge-churn batches."""
+
+    refresher: object           # core.incremental.IncrementalRefresh
+    cfg: EmbedConfig
+    num_shards: int
+
+    @property
+    def graph(self):
+        return self.refresher.pipeline.graph
+
+    def embeddings(self):
+        return self.refresher.embeddings()
+
+
 def embed_graph(
     graph,
     cfg: EmbedConfig = EmbedConfig(),
@@ -79,6 +98,8 @@ def embed_graph(
     return_corpus: bool = False,
     return_stats: bool = False,
     streaming: bool = True,
+    updates=None,
+    return_state: bool = False,
     device="cuda",
 ):
     """partition -> info-oriented walks -> DSGL -> embeddings, on ``device``.
@@ -95,13 +116,20 @@ def embed_graph(
     preset up to or-sim). ``streaming=False`` is the two-phase path: sample
     the whole corpus, then ``dsgl.train_dsgl`` in frequency-rank space.
 
+    Dynamic graphs: ``return_state=True`` also returns an ``EmbedState``
+    that ``refresh_embedding`` absorbs edge churn into (the walks are then
+    vertex-keyed, so a subset of a round walks again as it walked);
+    ``updates=EdgeBatch(...)`` embeds the graph and refreshes it with the
+    batch at once. Both need the streaming pipeline.
+
     Returns (phi_in, phi_out) as tensors on ``device`` in node-id space
-    (replica-averaged), plus the host ``Corpus`` if ``return_corpus`` and,
-    on the streaming path, the run's summary if ``return_stats``: rounds,
-    steps, chunks, syncs and their bytes, walk statistics (with the
-    messages' count and bytes, measured and analytic, at k > 1), the Cm and
-    partition seconds (``cm_s``, ``part_s``), the partition's locality,
-    balance and per-part node counts."""
+    (replica-averaged), plus the host ``Corpus`` if ``return_corpus``, on
+    the streaming path the run's summary if ``return_stats`` (rounds,
+    steps, chunks, syncs and their bytes, walk statistics with the
+    messages' count and bytes, measured and analytic, at k > 1, the Cm and
+    partition seconds ``cm_s`` and ``part_s``, the partition's locality,
+    balance and per-part node counts), and the ``EmbedState`` if
+    ``return_state``, in that order."""
     import time
 
     import torch
@@ -111,6 +139,12 @@ def embed_graph(
     from repro_torch.core.mpgp import mpgp_partition
     from repro_torch.runtime.trainer import StreamingEmbedPipeline
 
+    incremental = updates is not None or return_state
+    if incremental and not streaming:
+        raise ValueError("updates= and return_state= need the streaming pipeline "
+                         "(streaming=True); the two-phase path keeps no state to refresh")
+    if incremental and cfg.rng_mode != "vertex":
+        cfg = dataclasses.replace(cfg, rng_mode="vertex")
     dev = resolve_device(device)
     graph = graph.to(dev)
     policy, spec, rounds = make_walk_plan(cfg)
@@ -148,9 +182,42 @@ def embed_graph(
     run = pipe.run()
     run["cm_s"] += summary.pop("cm_s")
     summary.update({k: v for k, v in run.items() if k not in ("phi_in", "phi_out", "ring")})
+    state = None
+    if incremental:
+        from repro_torch.core.incremental import IncrementalRefresh
+
+        state = EmbedState(refresher=IncrementalRefresh(pipe), cfg=cfg, num_shards=num_shards)
+        if updates is not None:
+            state.refresher.apply_updates(updates)
+            state.refresher.refresh()
     out = pipe.embeddings()
+    if incremental:                 # a refresh trains phi in place: hand out copies
+        out = tuple(t.clone() for t in out)
     if return_corpus:
         out = out + (pipe.corpus(),)
     if return_stats:
         out = out + (summary,)
+    if return_state:
+        out = out + (state,)
     return out
+
+
+def refresh_embedding(state: EmbedState, updates, *, detect: Optional[str] = None,
+                      **refresh_kwargs):
+    """Absorb an ``EdgeBatch`` into a live embedding, on the device the
+    embedding lives on: mutate -> detect (from the corpus) -> walk again
+    only the affected vertices -> fine-tune DSGL in place. Returns (phi_in,
+    phi_out, stats), ``stats`` a ``core.incremental.RefreshStats``. Keyword
+    arguments (``fine_tune_frac``, ``max_extra_rounds``, ``mode``, ...) go
+    to the refresh; ``detect`` ("traversal" or "paranoid") overrides the
+    detection mode for this call only."""
+    prev_detect = state.refresher.detect
+    if detect is not None:
+        state.refresher.detect = detect
+    try:
+        state.refresher.apply_updates(updates)
+        stats = state.refresher.refresh(**refresh_kwargs)
+    finally:
+        state.refresher.detect = prev_detect
+    phi_in, phi_out = (t.clone() for t in state.refresher.embeddings())
+    return phi_in, phi_out, stats

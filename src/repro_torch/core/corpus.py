@@ -21,8 +21,8 @@ import torch
 from repro_torch import prng
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.transition import Policy
-from repro_torch.core.walker import (MAX_LANES, REF_CHUNK, LaneKeys, WalkSpec, batch_stats,
-                                    run_walk_batch)
+from repro_torch.core.walker import (MAX_LANES, REF_CHUNK, LaneKeys, VertexKeys, WalkSpec,
+                                    batch_stats, run_walk_batch)
 from repro_torch.graph.csr import CSRGraph
 
 
@@ -90,6 +90,22 @@ def ring_append(ring: CorpusRing, paths: torch.Tensor,
     ring.total += b
 
 
+def ring_replace(ring: CorpusRing, slots: torch.Tensor, paths: torch.Tensor,
+                 lengths: torch.Tensor) -> None:
+    """Overwrite ring slots in place: the incremental refresh's write path.
+    A re-walked vertex's new walk takes its stale walk's slot, so every
+    other slot stays bit-identical. ``ocn`` stays exact: the replaced slots'
+    tokens are subtracted before the new walks' tokens are added.
+    ``cursor`` and ``total`` do not move: a replacement is not an append."""
+    slots = slots.to(torch.int64)
+    old = ring.walks[slots].reshape(-1)
+    ring.ocn.index_add_(0, old.clamp_min(0).to(torch.int64), -(old >= 0).to(torch.int32))
+    flat = paths.reshape(-1)
+    ring.ocn.index_add_(0, flat.clamp_min(0).to(torch.int64), (flat >= 0).to(torch.int32))
+    ring.walks[slots] = paths.to(torch.int32)
+    ring.lengths[slots] = lengths.to(torch.int32)
+
+
 def ring_import(state: Dict[str, np.ndarray], device) -> CorpusRing:
     """Rebuild a device ring from the reference's ``ring_export`` output
     (walks, lengths, ocn, cursor, total)."""
@@ -140,20 +156,23 @@ def generate_corpus(
     num_shards = None if part is None else int(np.max(part)) + 1
     agg = {"supersteps": 0, "accepts": 0, "rejects": 0, "msg_count": 0, "msg_bytes": 0.0,
            "msg_bytes_analytic": 0.0}
+    by_vertex = spec.rng_mode == "vertex"
     keep_walking = True
     while keep_walking:
         key, round_key = prng.split(key)
-        # The reference splits a fresh key off the round key for each of its
-        # REF_CHUNK-source chunks in turn: a chain, derived on the host once
-        # per round (one split per chunk).
+        # Lane keys: the reference splits a fresh key off the round key for
+        # each of its REF_CHUNK-source chunks in turn, a chain derived on
+        # the host once per round. Vertex keys: every chunk walks under the
+        # round key itself (the source ids tell the lanes apart).
         chunk_keys = []
-        for _ in range(0, n, REF_CHUNK):
+        for _ in range(0, 0 if by_vertex else n, REF_CHUNK):
             round_key, k = prng.split(round_key)
             chunk_keys.append(k)
         for start in range(0, n, MAX_LANES):
             chunk = sources[start:start + MAX_LANES]
-            keys = LaneKeys.of(chunk_keys[start // REF_CHUNK:(start + MAX_LANES) // REF_CHUNK],
-                               REF_CHUNK, len(chunk), dev)
+            keys = (VertexKeys(round_key, chunk) if by_vertex else
+                    LaneKeys.of(chunk_keys[start // REF_CHUNK:(start + MAX_LANES) // REF_CHUNK],
+                                REF_CHUNK, len(chunk), dev))
             st = run_walk_batch(graph, chunk, keys, policy, spec, part, num_shards=num_shards)
             ring_append(ring, st.path, st.info.L)
             s = batch_stats(st)

@@ -165,3 +165,51 @@ def accept_update(
         hit = hit & mask[:, None]
     path_new = torch.where(hit, v[:, None].to(path.dtype), path)
     return s_new, path_new
+
+
+# Ring rows per pass of the corpus scans below: bounds their int64 pair codes
+# to ~50 MB at max_len 100, whatever the ring's size.
+SCAN_ROWS = 1 << 16
+
+
+def paths_traverse_edges(paths: torch.Tensor, edge_codes: torch.Tensor,
+                         num_nodes: int) -> torch.Tensor:
+    """Which recorded walks traverse any of a set of (changed) arcs.
+
+    paths:      (B, max_len) int32, -1 padded walk buffers (the corpus).
+    edge_codes: (m,) sorted int64 row-major arc codes u * num_nodes + v
+                (both directions of an undirected edge).
+
+    Returns (B,) bool, on the paths' device. The corpus half of the
+    incremental refresh: staleness is read off the recorded paths by one
+    consecutive-pair membership test, no walk re-simulated. The codes are
+    int64 at every |V| (the reference switches to a host int64 route once
+    |V|² reaches 2³¹; the answers are the same), and the rows are scanned
+    ``SCAN_ROWS`` at a time."""
+    out = torch.zeros(paths.shape[0], dtype=torch.bool, device=paths.device)
+    m = int(edge_codes.shape[0])
+    if m == 0:
+        return out
+    codes = edge_codes.to(paths.device, torch.int64)
+    for lo in range(0, paths.shape[0], SCAN_ROWS):
+        p = paths[lo:lo + SCAN_ROWS].to(torch.int64)
+        a, b = p[:, :-1], p[:, 1:]
+        code = a.clamp_min(0) * num_nodes + b.clamp_min(0)
+        pos = torch.searchsorted(codes, code.reshape(-1)).clamp_max(m - 1)
+        hit = (codes[pos] == code.reshape(-1)).reshape(code.shape) & (a >= 0) & (b >= 0)
+        out[lo:lo + SCAN_ROWS] = hit.any(dim=1)
+    return out
+
+
+def paths_visit_nodes(paths: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """Which recorded walks visit any marked node; ``node_mask`` (|V|,) bool.
+
+    The paranoid detector's criterion: a walk that visits nothing in the
+    closed neighbourhood of the churn draws the same candidates and
+    acceptance inputs on the mutated graph, so it is provably unchanged."""
+    out = torch.zeros(paths.shape[0], dtype=torch.bool, device=paths.device)
+    mask = node_mask.to(paths.device)
+    for lo in range(0, paths.shape[0], SCAN_ROWS):
+        p = paths[lo:lo + SCAN_ROWS].to(torch.int64)
+        out[lo:lo + SCAN_ROWS] = (mask[p.clamp_min(0)] & (p >= 0)).any(dim=1)
+    return out

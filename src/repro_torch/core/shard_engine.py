@@ -53,7 +53,7 @@ by one scatter a round; the reference matches them with a dense
 tensor here grows as P × k·cap or as k² × P (the ``a2a`` transport's
 receive buffers are k² · cap records, the emulated mesh's k · cap a shard).
 
-Per-lane RNG (``walker.step_uniforms``) and per-lane arithmetic do not
+Per-lane RNG (the batch keys' ``uniforms``) and per-lane arithmetic do not
 depend on the layout, so walks equal the dense engine's at every k and
 under every transport. ``msg_count`` / ``msg_bytes`` come from the packed
 message tensors the exchange moves: per hand-off, the field count of the
@@ -78,6 +78,7 @@ from repro_torch.dist.collectives import (all_gather, axis_index, packed_all_gat
                                           packed_all_to_all, psum, psum_union, row_cumsum,
                                           take_ranked)
 from repro_torch.graph.csr import CSRGraph, PartitionedCSR, build_partitioned_csr
+from repro_torch.graph.delta import graph_version
 
 INFO_FIELDS = ("H", "L", "EH", "EL", "EHL", "EH2", "EL2")
 # Walk batches run on this engine, either engine (``chip_smoke.py`` reads it
@@ -108,7 +109,7 @@ def _info_of(rows: torch.Tensor) -> incom.InfoState:
 
 
 def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
-                    keys: wk.LaneKeys, policy: Policy, spec: wk.WalkSpec, k: int) -> Dict:
+                    keys: wk.Keys, policy: Policy, spec: wk.WalkSpec, k: int) -> Dict:
     b, dev = sources.shape[0], sources.device
     n, L = k * b, spec.max_len
     fullpath = spec.info_mode == "fullpath"
@@ -136,7 +137,7 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
         reads += 1
         if not bool((resident & active).any()):             # host sync
             break
-        u1, u2 = wk.step_uniforms(keys, t)
+        u1, u2 = keys.uniforms(t)
         cand, _, accept_raw, has_nbrs = wk.propose(graph, policy, cur, prev,
                                                    u1.repeat(k), u2.repeat(k))
         live = resident & active
@@ -210,7 +211,7 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
                 ring=ring.reshape(k, b, -1), t=t, host_reads=reads)
 
 
-def _merge(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys) -> wk.WalkerBatchState:
+def _merge(out: Dict, spec: wk.WalkSpec, keys: wk.Keys) -> wk.WalkerBatchState:
     """Combine the (k, ...) replicated-engine outputs into one state: every
     lane is resident on exactly one shard at the end."""
     res = out["resident"]
@@ -220,7 +221,7 @@ def _merge(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys) -> wk.WalkerBatchSta
                     out["h"], out["ring"], res & out["active"])
 
 
-def _combine(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys, holder: torch.Tensor,
+def _combine(out: Dict, spec: wk.WalkSpec, keys: wk.Keys, holder: torch.Tensor,
              path, cur, prev, info: incom.InfoState, h, ring, active) -> wk.WalkerBatchState:
     """One state from (k, B, ...) per-shard rows: each lane's scalars from
     the one shard that ``holder`` marks; its path from the union of the
@@ -248,7 +249,7 @@ def _combine(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys, holder: torch.Tens
 
 
 def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
-               keys: wk.LaneKeys, policy: Policy, spec: wk.WalkSpec, k: int, pool: int,
+               keys: wk.Keys, policy: Policy, spec: wk.WalkSpec, k: int, pool: int,
                cap: int, compact_every: int, transport: str) -> Dict:
     """One batch on the partition-local engine.
 
@@ -453,7 +454,7 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
         lane, info = st["lane"], st["info"]
         occ = (lane >= 0) & st["alive"]                        # ghosts/tombstones don't walk
         stepping = (psum(occ.sum(1)) > 0) & (st["t"] < step_cap)
-        u1f, u2f = wk.step_uniforms(keys, t_host)
+        u1f, u2f = keys.uniforms(t_host)
         ls = lane.clamp_min(0)
         u1, u2 = u1f[ls], u2f[ls]
 
@@ -561,7 +562,7 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
     return dict(st, fin=fin, occ_final=filled.sum(1), t=int(st["t"]), **counts)
 
 
-def _merge_local(out: Dict, spec: wk.WalkSpec, keys: wk.LaneKeys) -> wk.WalkerBatchState:
+def _merge_local(out: Dict, spec: wk.WalkSpec, keys: wk.Keys) -> wk.WalkerBatchState:
     """Combine the (k, ...) partition-local outputs into one state: each
     lane retired (or was flushed live) on exactly one shard, the one whose
     ``valid`` row is set."""
@@ -598,10 +599,11 @@ def _shard_stats(out: Dict, k: int, pcsr: Optional[PartitionedCSR], pool: Option
 # Caches and the public driver
 # ---------------------------------------------------------------------------
 
-# Both caches key on the caller's graph object by identity and hold it by
-# weakref, so a dropped graph's slices free with it and a recycled id()
-# never aliases. The port has no graph mutation yet, so identity stands for
-# the graph's contents (the reference adds its delta overlay's version).
+# Both caches key on the caller's graph object by identity and its mutation
+# version (``graph.delta.graph_version``: the delta overlay bumps a view it
+# retires), and hold the object by weakref, so a dropped graph's slices free
+# with it, a recycled id() never aliases, and a mutated graph is never served
+# the slices or the pool size of its former contents.
 _PCSR_CACHE: Dict = {}
 _POOL_CACHE: Dict = {}
 
@@ -614,7 +616,8 @@ def partitioned_csr_for(graph: CSRGraph, assignment: np.ndarray, num_shards: int
     when ``graph`` is a derived copy (``with_edge_cm()`` makes a new one)."""
     key_obj = graph if key_obj is None else key_obj
     asn = np.asarray(assignment)
-    key = (id(key_obj), num_shards, graph.edge_cm is not None, hash(asn.tobytes()))
+    key = (id(key_obj), graph_version(key_obj), num_shards, graph.edge_cm is not None,
+           hash(asn.tobytes()))
     hit = _PCSR_CACHE.get(key)
     if hit is not None and hit[0]() is key_obj:
         return hit[1]
@@ -625,7 +628,7 @@ def partitioned_csr_for(graph: CSRGraph, assignment: np.ndarray, num_shards: int
     return pcsr
 
 
-def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.LaneKeys,
+def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
                      policy: Policy, spec: wk.WalkSpec, assignment, num_shards: int, *,
                      engine: str = "auto", pool_factor: float = 2.0,
                      exchange_cap: Optional[int] = None, compact_every: int = 8,
@@ -678,7 +681,8 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.LaneKeys,
     init_occ = np.bincount(asn[sources.cpu().numpy()], minlength=num_shards) if b \
         else np.zeros(1, np.int64)
     pool = min(b, max(math.ceil(pool_factor * b / max(num_shards, 1)), int(init_occ.max()), 1))
-    pool_key = (id(graph_key), num_shards, b, spec, float(pool_factor), hash(asn.tobytes()))
+    pool_key = (id(graph_key), graph_version(graph_key), num_shards, b, spec,
+                float(pool_factor), hash(asn.tobytes()))
     hit = _POOL_CACHE.get(pool_key)
     if hit is not None and hit[0]() is graph_key:
         pool = max(pool, hit[1])

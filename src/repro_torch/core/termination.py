@@ -9,7 +9,7 @@ q(v) via relative entropy D_r(p||q) and stops when
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -23,16 +23,27 @@ class WalkCountController:
     |D_r - D_{r-1}| sits inside the round-to-round sampling noise of the
     occurrence counts, and averaging the last ``window`` values attenuates
     that noise while leaving the convergence trend untouched.
-    ``window=1`` is the exact paper-literal Eq. 7 gate."""
+    ``window=1`` is the exact paper-literal Eq. 7 gate.
+
+    ``seed_history`` warm-starts the gate from a prior run's D_r series (the
+    incremental refresh: after edge churn the refreshed corpus's D is judged
+    against the converged pre-churn trajectory, with no ``min_rounds``
+    burn-in). The windowed smoothing is replayed over the seed, so the first
+    post-churn delta compares like with like."""
 
     delta: float = 1e-3
     min_rounds: int = 2
     max_rounds: int = 20
     window: int = 1
+    seed_history: Optional[List[float]] = None
 
     def __post_init__(self):
         self.history: List[float] = []
         self._smooth: List[float] = []
+        w = max(self.window, 1)
+        for d in self.seed_history or ():
+            self.history.append(float(d))
+            self._smooth.append(float(np.mean(self.history[-w:])))
 
     def update(self, degrees: np.ndarray, ocn: np.ndarray) -> bool:
         """Record D_r for the corpus so far; return True if walking should

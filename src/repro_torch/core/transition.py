@@ -25,16 +25,18 @@ def node_degrees(graph: CSRGraph, nodes: torch.Tensor) -> torch.Tensor:
 
 
 def row_contains(graph: CSRGraph, rows: torch.Tensor,
-                 values: torch.Tensor) -> torch.Tensor:
+                 values: torch.Tensor, steps: int = 32) -> torch.Tensor:
     """Batched membership test: values[i] in sorted N(rows[i]).
 
-    Fixed 32-step binary search over each CSR row (covers any |E| < 2^32):
-    no data-dependent trip count, no host sync."""
+    Fixed-step binary search over each CSR row: no data-dependent trip
+    count, no host sync. 32 steps cover any |E| < 2^32; a caller that knows
+    the longest row's length D may pass ``steps`` = D.bit_length(), since
+    each step at least halves the interval."""
     last = graph.indices.shape[0] - 1
     lo = graph.indptr[rows]
     hi0 = graph.indptr[rows + 1]
     hi = hi0
-    for _ in range(32):
+    for _ in range(steps):
         searching = lo < hi
         mid = (lo + hi) // 2
         less = graph.indices[mid.clamp(0, last)] < values

@@ -17,10 +17,14 @@ Three information modes: ``incom`` (DistGER: O(1) updates, optionally with
 R^2 over a ring of the last ``reg_window`` entropies), ``fullpath`` (the
 HuGE-D baseline: H recomputed from the path and R^2 over the stored
 H-series at every step) and ``fixed`` (routine walks of ``fixed_len``).
-RNG is per lane and stateless (``rng_mode="lane"``): lane i's draws at
+RNG is per lane and stateless. Under ``rng_mode="lane"`` lane i's draws at
 superstep t depend only on (its block's key, t, i % width), where a
 batch's lanes fall into blocks of ``width`` lanes, each with its own key
-(``LaneKeys``). So walks are the same on one shard or k.
+(``LaneKeys``). Under ``rng_mode="vertex"`` they depend only on (the round
+key, t, lane i's source vertex) (``VertexKeys``): a walk is then the same
+in any batch that holds its source, which lets the incremental refresh
+re-walk a subset of sources and reproduce a full round's walks. Either way
+walks are the same on one shard or k.
 
 With a partition ``part``, ``run_walk_batch`` runs the batch on the
 partition-sharded engine, whose ``msg_count`` / ``msg_bytes`` are measured
@@ -32,7 +36,7 @@ from the messages it exchanges between shards (80-byte InCoM messages,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,14 +71,13 @@ class WalkSpec:
     reg_start: int = 1          # L0: start of the regression series
     reg_window: int = 0         # > 0: R^2 over the last K points (incom.windowed_r_squared)
     max_supersteps: int = 0     # 0 => 8 * max_len safety cap
-    rng_mode: str = "lane"      # draws keyed by batch position
+    rng_mode: str = "lane"      # "lane": draws keyed by batch position; "vertex": by source
 
     def __post_init__(self):
         if self.info_mode not in ("incom", "fullpath", "fixed"):
             raise ValueError(f"unknown info_mode {self.info_mode!r}")
-        if self.rng_mode != "lane":
-            raise NotImplementedError(
-                f"rng_mode={self.rng_mode!r}: the port runs lane-keyed walks")
+        if self.rng_mode not in ("lane", "vertex"):
+            raise ValueError(f"unknown rng_mode {self.rng_mode!r}")
 
     def supersteps_cap(self) -> int:
         return self.max_supersteps or 8 * self.max_len
@@ -144,6 +147,42 @@ class LaneKeys:
         k0, k1 = self._window[1]
         return k0[:, t - t0], k1[:, t - t0]
 
+    def uniforms(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(u_cand, u_accept), each (B,): what the reference's
+        ``step_uniforms`` draws for lane i % width under block key i // width
+        (split(fold_in(key, t)) gives (k1, k2), and the lane reads counter
+        i % width of each). The block keys derive on the device, then one
+        threefry pass draws both."""
+        k0, k1 = self.step_keys(t)                              # (2, blocks)
+        u = prng.uniform_at(k0[:, self.block], k1[:, self.block], self.counter)
+        return u[0], u[1]
+
+
+class VertexKeys:
+    """The keys of one vertex-keyed walk batch (``rng_mode="vertex"``): at
+    superstep t, with (k1, k2) = split(fold_in(round_key, t)), lane i draws
+    uniform(fold_in(k1, source[i])) and uniform(fold_in(k2, source[i])), as
+    the reference's ``make_uniform_fn`` does. A draw depends on (round key,
+    t, source) only, not on where the source sits in the batch."""
+
+    def __init__(self, round_key: prng.Key, sources: torch.Tensor):
+        # The round key as a batch of one block: its step keys derive on the
+        # device, STEP_KEY_WINDOW supersteps at a time.
+        self.steps = LaneKeys.of([round_key], 1, 1, sources.device)
+        self.src = sources.to(torch.int64)[None, :]              # (1, B)
+
+    def uniforms(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(u_cand, u_accept), each (B,): two threefry passes over (2, B)
+        fold each lane's source into the step's two keys and draw counter 0
+        of the folded key (a scalar ``uniform``)."""
+        k0, k1 = self.steps.step_keys(t)                         # (2, 1) each
+        f0, f1 = prng.fold_in_tensor(k0, k1, self.src)           # (2, B)
+        u = prng.uniform_at(f0, f1, 0)
+        return u[0], u[1]
+
+
+Keys = Union[LaneKeys, VertexKeys]
+
 
 @dataclasses.dataclass
 class WalkerBatchState:
@@ -156,7 +195,7 @@ class WalkerBatchState:
     h_series: torch.Tensor     # (B, max_len) float32 in fullpath mode, else (B, 1)
     hring: torch.Tensor        # (B, K) float32 ring of recent H (reg_window mode)
     active: torch.Tensor       # (B,) bool
-    keys: LaneKeys             # lane i's draws derive from (its block key, t, i % width)
+    keys: Keys                 # the lanes' draws (LaneKeys or VertexKeys)
     supersteps: int = 0
     accepts: torch.Tensor = None   # () int64
     rejects: torch.Tensor = None   # () int64
@@ -165,7 +204,7 @@ class WalkerBatchState:
     msg_bytes_analytic: torch.Tensor = None  # () float32: Example 1's closed form
 
 
-def init_batch(sources: torch.Tensor, keys: LaneKeys, spec: WalkSpec) -> WalkerBatchState:
+def init_batch(sources: torch.Tensor, keys: Keys, spec: WalkSpec) -> WalkerBatchState:
     b, dev = sources.shape[0], sources.device
     path = torch.full((b, spec.max_len), -1, dtype=torch.int32, device=dev)
     path[:, 0] = sources.to(torch.int32)
@@ -179,16 +218,6 @@ def init_batch(sources: torch.Tensor, keys: LaneKeys, spec: WalkSpec) -> WalkerB
         active=torch.ones(b, dtype=torch.bool, device=dev),
         keys=keys, accepts=zero, rejects=zero,
         msg_count=zero, msg_bytes=zero_f, msg_bytes_analytic=zero_f)
-
-
-def step_uniforms(keys: LaneKeys, superstep: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u_cand, u_accept), each (B,): what the reference's ``step_uniforms``
-    draws for lane i % width under block key i // width — split(fold_in(key,
-    superstep)) gives (k1, k2) and the lane reads counter i % width of each.
-    The block keys derive on the device, then one threefry pass draws both."""
-    k0, k1 = keys.step_keys(superstep)                         # (2, blocks)
-    u = prng.uniform_at(k0[:, keys.block], k1[:, keys.block], keys.counter)
-    return u[0], u[1]
 
 
 def propose(graph: CSRGraph, policy: Policy, cur, prev, u1, u2):
@@ -288,7 +317,7 @@ def absorb(spec: WalkSpec, info: incom.InfoState, path: torch.Tensor,
 
 def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
                st: WalkerBatchState) -> WalkerBatchState:
-    u1, u2 = step_uniforms(st.keys, st.supersteps)
+    u1, u2 = st.keys.uniforms(st.supersteps)
     cand, _, accept_raw, has_nbrs = propose(graph, policy, st.cur, st.prev, u1, u2)
     accept = st.active & accept_raw
     dead_end = st.active & ~has_nbrs     # no neighbours: terminate now
@@ -309,7 +338,7 @@ def _superstep(graph: CSRGraph, policy: Policy, spec: WalkSpec,
     )
 
 
-def run_walk_batch(graph: CSRGraph, sources: torch.Tensor, keys: LaneKeys,
+def run_walk_batch(graph: CSRGraph, sources: torch.Tensor, keys: Keys,
                    policy: Policy, spec: WalkSpec, part=None,
                    num_shards: Optional[int] = None, **shard_kwargs) -> WalkerBatchState:
     """Run one walk per source until every lane terminates (or the cap).

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -16,3 +18,11 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={str(device)!r} was requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def synced_clock(device: torch.device) -> float:
+    """The host clock once the device's queued work is done: the end of a
+    timed phase."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

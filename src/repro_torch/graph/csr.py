@@ -119,32 +119,39 @@ def build_csr(
     )
 
 
-def edge_common_neighbors(graph: CSRGraph,
-                          wedge_chunk: int = WEDGE_CHUNK) -> torch.Tensor:
-    """Per-arc common-neighbour counts Cm(u, v), CSR-aligned, int32.
+def edge_common_neighbors(graph: CSRGraph, wedge_chunk: int = WEDGE_CHUNK,
+                          arcs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-arc common-neighbour counts Cm(u, v), CSR-aligned, int32; with
+    ``arcs`` (int64 arc ids) the counts of those arcs only, in their order.
 
     For each arc the shorter of N(u), N(v) is scanned and each of its
     entries is searched in the longer one (``transition.row_contains``, a
-    fixed 32-step binary search). The (arc, entry) wedges are expanded in
-    chunks of ``wedge_chunk`` on the graph's device and the hits summed
-    per arc: the same integer counts as the reference's per-arc loop."""
+    binary search of as many steps as the longest row needs). The (arc,
+    entry) wedges are expanded in chunks of ``wedge_chunk`` on the graph's
+    device and the hits summed per arc: the same integer counts as the
+    reference's per-arc loop."""
     from repro_torch.core.transition import row_contains
 
     indptr, indices = graph.indptr, graph.indices
     dev = indices.device
-    n, m = graph.num_nodes, graph.num_edges
+    n = graph.num_nodes
+    deg = graph.degrees()
+    src = torch.repeat_interleave(torch.arange(n, device=dev), deg,
+                                  output_size=graph.num_edges)
+    dst = indices
+    if arcs is not None:
+        src, dst = src[arcs], dst[arcs]
+    m = int(src.shape[0])
     cm = torch.zeros(m, dtype=torch.int32, device=dev)
     if m == 0:
         return cm
-    deg = graph.degrees()
-    src = torch.repeat_interleave(torch.arange(n, device=dev), deg,
-                                  output_size=m)
-    scan_src = deg[src] <= deg[indices]
-    scanned = torch.where(scan_src, src, indices)      # row walked entry by entry
-    searched = torch.where(scan_src, indices, src)     # row searched in
+    scan_src = deg[src] <= deg[dst]
+    scanned = torch.where(scan_src, src, dst)          # row walked entry by entry
+    searched = torch.where(scan_src, dst, src)         # row searched in
     width = deg[scanned]
     ends = torch.cumsum(width, 0)                      # wedge index past each arc
     ends_host = ends.cpu().numpy()
+    steps = int(deg.max()).bit_length()                # enough to search the longest row
 
     lo = 0
     while lo < m:
@@ -158,7 +165,7 @@ def edge_common_neighbors(graph: CSRGraph,
             pos = (torch.arange(nw, device=dev) + base
                    - (ends[arc] - width[arc]))          # entry within its row
             vals = indices[indptr[scanned[arc]] + pos]
-            hit = row_contains(graph, searched[arc], vals)
+            hit = row_contains(graph, searched[arc], vals, steps)
             cm[lo:hi] = torch.zeros(hi - lo, dtype=torch.int32, device=dev
                                     ).index_add_(0, arc - lo, hit.to(torch.int32))
         lo = hi

@@ -177,7 +177,7 @@ def main(argv: list) -> int:
                        warmup=True)
 
     # Training: steps over round 0's ring slots, as the pipeline runs them.
-    pipe._append(pipe._run_round(0))
+    pipe._append(pipe._run_round(0), 0)
     ocn = pipe.ring.ocn.cpu().numpy()
     table = build_alias_table(ocn, pipe.cfg.neg_power, dev)
     n = graph.num_nodes

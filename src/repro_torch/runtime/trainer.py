@@ -31,6 +31,13 @@ engine for one device): the same walks as the dense engine's, and the walk
 statistics carry the InCoM messages it exchanged (``msg_count``,
 ``msg_bytes`` measured, ``msg_bytes_analytic``; bytes summed in float32,
 as the reference's).
+
+With ``WalkSpec.rng_mode == "vertex"`` the pipeline can absorb edge churn
+(``refresh``, driven by ``core.incremental``): a host mirror of the ring
+says which root and which round every slot holds, so the walks of affected
+roots are walked again under their rounds' keys and spliced into their
+slots, the ΔD gate continues from the run's history, and DSGL fine-tunes in
+place through the same CUDA graphs.
 """
 
 from __future__ import annotations
@@ -43,13 +50,15 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.corpus import (Corpus, CorpusRing, FrequencyOrder, ring_append,
-                                     ring_to_numpy)
+                                     ring_replace, ring_to_numpy)
 from repro_torch.core.dsgl import ChunkGraphs, build_alias_table, init_embeddings, train_chunk
 from repro_torch.core.info import relative_entropy_dpq
 from repro_torch.core.sync import replica_mean, sample_hotness_rows
 from repro_torch.core.termination import WalkCountController
-from repro_torch.core.walker import MAX_LANES, LaneKeys, WalkerBatchState, run_walk_batch
+from repro_torch.core.walker import (MAX_LANES, LaneKeys, VertexKeys, WalkerBatchState,
+                                     run_walk_batch)
 from repro_torch.data.pipeline import ring_chunk_indices
+from repro_torch.device import synced_clock
 
 
 class StreamingEmbedPipeline:
@@ -80,6 +89,7 @@ class StreamingEmbedPipeline:
 
         n = graph.num_nodes
         self.sources = torch.arange(n, device=self.device)
+        self._sources_host = np.arange(n, dtype=np.int64)
         # Retain as many full rounds as fit a ~0.5 GB slot budget; older
         # rounds retire on wrap. One round is the floor.
         budget_rounds = max(1, (1 << 27) // max(spec.max_len * n, 1))
@@ -112,11 +122,20 @@ class StreamingEmbedPipeline:
                                        "msg_bytes_analytic": zero_f}
         self.batch_supersteps: List[int] = []   # supersteps of every walk batch
         self.phase_s = {"walk": 0.0, "train": 0.0}  # host wall time per phase
+        self._ft = None             # (start step, steps, lr0): a refresh's fine-tune schedule
+        # Host mirror of the ring: the root vertex and the walk round each
+        # slot holds (-1: never written), kept at every append from the
+        # batches' sources, so a refresh finds every resident walk of an
+        # affected root and its round's key after partial rounds and wraps.
+        self._slot_root = np.full(self.ring.capacity, -1, np.int64)
+        self._slot_round = np.full(self.ring.capacity, -1, np.int64)
+        self._rounds_walked = 0
 
     def adopt_state(self, state: Dict[str, Any]) -> None:
         """Continue from imported state (``convert.from_reference_state``):
-        the (S, N, d) replica matrices, the ring, both RNG keys and the
-        MPGP assignment, when the state has one."""
+        the (S, N, d) replica matrices, the ring, both RNG keys, the MPGP
+        assignment when the state has one, and the ring's slot maps and the
+        ΔD history when it has them (a refresh needs both)."""
         if state["phi_in"].shape[0] != self.num_shards:
             raise ValueError(f"state has {state['phi_in'].shape[0]} replicas, the pipeline "
                              f"{self.num_shards}")
@@ -126,40 +145,70 @@ class StreamingEmbedPipeline:
             self.assignment = np.asarray(state["assignment"], dtype=np.int32)
         self.ring = state["ring"]
         self.key_walk, self.key_train = state["key_walk"], state["key_train"]
+        if state.get("slot_root") is not None:
+            self._slot_root = np.array(state["slot_root"], np.int64)
+            self._slot_round = np.array(state["slot_round"], np.int64)
+            self._rounds_walked = int(self._slot_round.max()) + 1
+        if state.get("d_history") is not None:
+            c = self.controller
+            self.controller = WalkCountController(
+                delta=c.delta, min_rounds=c.min_rounds, max_rounds=c.max_rounds,
+                window=c.window, seed_history=list(state["d_history"]))
         if self._graphs is not None:              # the graphs hold the old phi
             self._graphs = ChunkGraphs()
 
     # --- walk side --------------------------------------------------------
-    def _run_round(self, r: int) -> List[Tuple[torch.Tensor, WalkerBatchState]]:
-        """Walk round r from every source; returns (chunk sources, state)
-        pairs. Lane i draws what the reference pipeline's lane i draws: the
-        key of its 4,096-source chunk (``walker.REF_CHUNK``) is
-        fold_in(round_key, chunk start). With an assignment the batches run
-        on the partition-sharded engine."""
+    def _run_round(self, r: int, sources: Optional[np.ndarray] = None
+                   ) -> List[Tuple[np.ndarray, WalkerBatchState]]:
+        """Walk round r from every source (or from ``sources``, host int64);
+        returns (batch sources on the host, state) pairs. With lane keys,
+        lane i draws what the reference pipeline's lane i draws: the key of
+        its 4,096-source chunk (``walker.REF_CHUNK``) is fold_in(round_key,
+        chunk start). With vertex keys every batch walks under the round key
+        and a walk depends on its source alone, so a subset of a round walks
+        as it did in the full round. With an assignment the batches run on
+        the partition-sharded engine."""
         round_key = prng.fold_in(self.key_walk, r)
         shards = self.walk_shards if self.assignment is not None else None
+        by_vertex = self.spec.rng_mode == "vertex"
+        if sources is None:
+            host, dev_src = self._sources_host, self.sources
+        else:
+            if not by_vertex:
+                raise ValueError("a subset of a round needs vertex-keyed walks")
+            host = np.asarray(sources, np.int64)
+            dev_src = torch.from_numpy(host).to(self.device)
         pairs = []
-        for start in range(0, len(self.sources), MAX_LANES):
-            chunk = self.sources[start:start + MAX_LANES]
-            keys = LaneKeys.for_round(round_key, start, len(chunk), self.device)
-            pairs.append((chunk, run_walk_batch(self.graph, chunk, keys, self.policy,
-                                                self.spec, self.assignment,
-                                                num_shards=shards)))
+        for start in range(0, len(host), MAX_LANES):
+            chunk = dev_src[start:start + MAX_LANES]
+            keys = (VertexKeys(round_key, chunk) if by_vertex else
+                    LaneKeys.for_round(round_key, start, len(chunk), self.device))
+            pairs.append((host[start:start + MAX_LANES],
+                          run_walk_batch(self.graph, chunk, keys, self.policy, self.spec,
+                                         self.assignment, num_shards=shards)))
         return pairs
 
-    def _append(self, pairs) -> None:
-        for _, st in pairs:
+    def _account(self, st: WalkerBatchState) -> None:
+        self._stats["supersteps"] += st.supersteps
+        for name in ("accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic"):
+            self._stats[name] = self._stats[name] + getattr(st, name)
+        self.batch_supersteps.append(st.supersteps)
+
+    def _append(self, pairs, round_idx: int) -> None:
+        cap = self.ring.capacity
+        for chunk, st in pairs:
+            slots = (self.ring.cursor + np.arange(len(chunk))) % cap
             ring_append(self.ring, st.path, st.info.L)
-            self._stats["supersteps"] += st.supersteps
-            for name in ("accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic"):
-                self._stats[name] = self._stats[name] + getattr(st, name)
-            self.batch_supersteps.append(st.supersteps)
+            self._slot_root[slots] = chunk
+            self._slot_round[slots] = round_idx
+            self._account(st)
 
     # --- train side -------------------------------------------------------
     def _lrs(self, count: int) -> np.ndarray:
-        fracs = (self.global_step + np.arange(count)) / max(self.total_steps, 1)
-        return np.maximum(self.cfg.lr * (1.0 - fracs),
-                          self.cfg.min_lr).astype(np.float32)
+        start, total, lr0 = (0, self.total_steps, self.cfg.lr) if self._ft is None \
+            else self._ft                     # a refresh's fine-tune mini-schedule
+        fracs = (self.global_step - start + np.arange(count)) / max(total, 1)
+        return np.maximum(lr0 * (1.0 - fracs), self.cfg.min_lr).astype(np.float32)
 
     def _train_slots(self, base: int, pool: int, ocn_host: np.ndarray,
                      steps: int, table=None, order=None) -> None:
@@ -221,7 +270,8 @@ class StreamingEmbedPipeline:
         self.phase_s[phase] += time.perf_counter() - t0
 
     def _walk(self, r: int) -> None:
-        self._timed("walk", lambda: self._append(self._run_round(r)))
+        self._timed("walk", lambda: self._append(self._run_round(r), r))
+        self._rounds_walked = r + 1
 
     def _train(self, *args, **kwargs) -> None:
         self._timed("train", self._train_slots, *args, **kwargs)
@@ -294,6 +344,135 @@ class StreamingEmbedPipeline:
         if self.num_shards > 1:
             return replica_mean(self.phi_in), replica_mean(self.phi_out)
         return self.phi_in[0], self.phi_out[0]
+
+    # --- incremental refresh (core.incremental drives this) ----------------
+    def corpus_slots(self) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
+        """(walks, roots, valid): the device ring's walk rows as they lie,
+        the host slot -> root map, and the mask of slots ever written.
+        Affected-vertex detection reads the ring on the device."""
+        return self.ring.walks, self._slot_root, self._slot_root >= 0
+
+    def _rewalk_resident(self, root_mask: np.ndarray) -> Tuple[int, int]:
+        """Walk every resident walk rooted in ``root_mask`` again under its
+        round's key and splice it into the slot its predecessor holds
+        (``ring_replace`` keeps ocn exact). Vertex keys make the subset walks
+        the ones a full round on the current graph gives. Returns
+        (walks re-walked, rounds resident)."""
+        n = len(self.sources)
+        slot_ids = np.arange(self.ring.capacity)
+        aff_slot = (self._slot_root >= 0) & np.asarray(root_mask)[
+            np.maximum(self._slot_root, 0)]
+        rounds_resident = np.unique(self._slot_round[aff_slot])
+        rewalk_walks = 0
+        for r in rounds_resident:
+            sel = aff_slot & (self._slot_round == r)
+            roots_r = self._slot_root[sel]
+            slot_of = np.full(n, -1, np.int64)
+            slot_of[roots_r] = slot_ids[sel]
+            for chunk, st in self._run_round(int(r), sources=roots_r):
+                slots = torch.from_numpy(slot_of[chunk]).to(self.device)
+                ring_replace(self.ring, slots, st.path, st.info.L)
+                self._account(st)
+                rewalk_walks += len(chunk)
+        return rewalk_walks, int(len(rounds_resident))
+
+    def refresh(self, new_graph, affected_mask: np.ndarray, *,
+                fine_tune_steps: Optional[int] = None, fine_tune_frac: float = 0.5,
+                fine_tune_lr_scale: float = 0.3, max_extra_rounds: int = 2) -> Dict[str, Any]:
+        """Absorb a mutated graph: walk again only the affected roots' resident
+        walks, splice them in, continue the seeded ΔD gate, fine-tune DSGL in
+        place.
+
+        Per retained round the affected roots walk under that round's key
+        and their walks replace their predecessors' slots; every other slot
+        stays bit-identical. The Eq. 7 controller then continues from the
+        run's D_r history: while D moves by more than delta, affected-subset
+        rounds append (at most ``max_extra_rounds``, and never a wrap of the
+        ring). DSGL fine-tunes over the refreshed ring on a decayed schedule
+        of ``fine_tune_frac`` of the original steps at ``fine_tune_lr_scale``
+        times the learning rate, with the alias table and the frequency
+        order rebuilt from the exact refreshed ocn, through the pipeline's
+        CUDA graphs (static buffers: the ring's rows and the negatives are
+        gathered into them at each chunk, so no graph holds stale data). The
+        MPGP assignment of the base run stays in force."""
+        if self.spec.rng_mode != "vertex":
+            raise ValueError("refresh requires WalkSpec.rng_mode='vertex'")
+        n = len(self.sources)
+        if new_graph.num_nodes != n:
+            raise ValueError(f"refresh cannot change the vertex set yet ({new_graph.num_nodes} "
+                             f"!= {n}); rebuild with embed_graph")
+        if getattr(self.policy, "needs_edge_cm", False) and new_graph.edge_cm is None:
+            new_graph = new_graph.with_edge_cm()
+        t0 = time.perf_counter()
+        self.graph = new_graph
+        self.degrees = new_graph.degrees().cpu().numpy()
+        affected = np.nonzero(np.asarray(affected_mask))[0].astype(np.int64)
+        cap = self.ring.capacity
+        sup0 = self._stats["supersteps"]
+
+        rewalk_walks, retained = self._rewalk_resident(affected_mask)
+        t1 = synced_clock(self.device)
+
+        # Seeded ΔD gate: extra subset rounds while D moves.
+        hist = list(self.controller.history)
+        gate = WalkCountController(delta=self.controller.delta, min_rounds=1,
+                                   max_rounds=len(hist) + 1 + max_extra_rounds,
+                                   window=self.controller.window, seed_history=hist)
+        extra = 0
+        r_next = self._rounds_walked
+        while len(affected):
+            if not gate.update_d(relative_entropy_dpq(self.degrees, self.ring.ocn.cpu().numpy())):
+                break
+            # An append must fit: a wrap would overwrite unaffected roots'
+            # walks and ring_append never subtracts overwritten tokens.
+            if self.ring.total + len(affected) > cap:
+                break
+            self._append(self._run_round(r_next, sources=affected), r_next)
+            rewalk_walks += len(affected)
+            extra += 1
+            r_next += 1
+        self._rounds_walked = r_next
+        self.controller = gate                  # the next refresh seeds from here
+        t2 = synced_clock(self.device)
+
+        ocn_host = self.ring.ocn.cpu().numpy()
+        filled = self.ring.num_filled
+        ft = (int(fine_tune_steps) if fine_tune_steps is not None
+              else max(1, int(fine_tune_frac * self.total_steps)))
+        self._ft = (self.global_step, ft, float(self.cfg.lr * fine_tune_lr_scale))
+        try:
+            table = build_alias_table(ocn_host, self.cfg.neg_power, self.device)
+            order = FrequencyOrder.from_ocn(ocn_host) if self.num_shards > 1 else None
+            done = 0
+            while done < ft:
+                step = min(self.steps_per_round, ft - done)
+                self._train_slots(0, filled, ocn_host, step, table=table, order=order)
+                done += step
+        finally:
+            self._ft = None
+        t3 = synced_clock(self.device)
+        return {
+            "affected": int(len(affected)),
+            "affected_frac": float(len(affected) / max(n, 1)),
+            "retained_rounds": int(retained),
+            "extra_rounds": int(extra),
+            "rewalk_walks": int(rewalk_walks),
+            "rewalk_supersteps": int(self._stats["supersteps"] - sup0),
+            "fine_tune_steps": int(ft),
+            "phase_s": {"rewalk": t1 - t0, "topup": t2 - t1, "finetune": t3 - t2},
+        }
+
+    def adopt_graph(self, new_graph) -> None:
+        """Adopt a mutated graph without walking or training: later walks see
+        it, the ring keeps its stale walks (the detect-only refresh, whose
+        caller carries the affected roots as debt)."""
+        if new_graph.num_nodes != len(self.sources):
+            raise ValueError(f"adopt_graph cannot change the vertex set "
+                             f"({new_graph.num_nodes} != {len(self.sources)})")
+        if getattr(self.policy, "needs_edge_cm", False) and new_graph.edge_cm is None:
+            new_graph = new_graph.with_edge_cm()
+        self.graph = new_graph
+        self.degrees = new_graph.degrees().cpu().numpy()
 
 
 class DSGLTrainer:

@@ -181,7 +181,7 @@ def test_pipeline_round_above_one_chunk_bit_exact(big_graphs, method, p, q):
                                  rounds, DSGLConfig(dim=4, seed=3))
     for r in range(2):
         ref._append(ref._run_round(r), r)
-        got._append(got._run_round(r))
+        got._append(got._run_round(r), r)
     np.testing.assert_array_equal(np.asarray(ref.ring.walks), got.ring.walks.numpy())
     np.testing.assert_array_equal(np.asarray(ref.ring.lengths), got.ring.lengths.numpy())
     np.testing.assert_array_equal(np.asarray(ref.ring.ocn), got.ring.ocn.numpy())
