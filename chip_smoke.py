@@ -69,7 +69,21 @@ Phases (each failure raises and ends the run with a non-zero exit):
    same two chunks from a clone of the same state through a new graph must
    give bit-equal phi (the write-back adds in a fixed order); K1's times at
    S = 2 and S = 1, and the write-back's and the step's against their
-   bounds. Then ``[walk]``: one round of walks (the k = 2 run's round-0
+   bounds. Then ``[durable]``: the k = 2 run again as a durable, supervised
+   run (the same pipeline, a ``HealthMonitor`` checking every tenth chunk,
+   snapshots in the reference's layout every three iterations, two kept,
+   in a temporary directory removed at the end) under ``run_with_restarts``
+   with a crash at a round, a torn snapshot and a crash at a tail
+   iteration; its phi must equal the k = 2 run's bit for bit, K1 launches =
+   write-backs = the steps trained, replays included, all in graph
+   replays, and one flight record must be dumped per fired fault; then a
+   heal drill from the newest tail snapshot: a NaN injected into phi must
+   be reported ``nonfinite`` at the first checked chunk, rolled back to the
+   snapshot (phi equal to its arrays bit for bit) and the run finished at
+   half the learning rate, phi finite, AUC above 0.75; the run telemetry is
+   written and read back. Prints each snapshot's bytes and write seconds,
+   each resume's seconds and the steps it trained again, and the device
+   time a checked chunk adds. Then ``[walk]``: one round of walks (the k = 2 run's round-0
    keys) on the dense engine and on the sharded engine, replicated at k =
    2 and partition-local at k = 2 and 4 under MPGP and at k = 4 under the
    hash partition. Each must draw the dense walks bit for bit and count a
@@ -82,8 +96,8 @@ Phases (each failure raises and ends the run with a non-zero exit):
    ``PAPER_EMBED``, and the reference's acceptance recipe (rmat 2,048 at
    degree 10, seed 3, its test's config). Each runs
    ``embed_graph(num_shards=2, return_state=True)``, a 5% ``churn_batch``
-   (seed 1, timed on the host), ``refresh_embedding`` and a from-scratch
-   vertex-keyed ``embed_graph`` of the mutated graph. Every slot whose
+   (seed 1, timed on the host) and ``refresh_embedding``, and the recipe a
+   from-scratch vertex-keyed ``embed_graph`` of the mutated graph. Every slot whose
    pre-update root is unaffected must be bit-identical after the refresh;
    the affected mask must equal an int64 recount on the host from the
    pre-update ring; the first and the last retained round's spliced rows
@@ -100,8 +114,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    prints the churn, the affected count (the churn's endpoints and the
    roots whose walks traverse a changed arc), the rounds, the re-walk's
    walks and supersteps, the arcs and wedges the incremental Cm recounts,
-   the refresh's wall time by phase against the base and scratch runs',
-   the stale, refreshed and scratch AUCs and peak memory.
+   the refresh's wall time by phase against the base run's (and the
+   recipe's scratch run's), the stale and refreshed AUCs (and scratch's)
+   and peak memory.
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -644,7 +659,8 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
     if not auc > 0.75:
         raise AssertionError(f"AUC {auc} <= 0.75")
     return {"phi_in": phi_in, "phi_out": phi_out, "corpus": corpus, "launches": launches,
-            "writebacks": writebacks, "replays": replays}
+            "writebacks": writebacks, "replays": replays,
+            "assignment": stats.get("assignment")}
 
 
 WALK_RUNS = (("replicated", 2, "mpgp"), ("local", 2, "mpgp"), ("local", 4, "mpgp"),
@@ -663,11 +679,12 @@ def walk_hops(np, paths, part) -> int:
     return hops
 
 
-def walk_phase(torch, np, graph, dev) -> None:
+def walk_phase(torch, np, graph, dev, parts=None) -> None:
     """One round of walks on the graph, ``PAPER_EMBED``'s spec and the k = 2
     pipeline's round-0 keys, five times: the dense engine, then the sharded
     engine replicated at k = 2 (MPGP), partition-local at k = 2 and 4
-    (MPGP) and at k = 4 under the hash partition. Each sharded run must
+    (MPGP) and at k = 4 under the hash partition (``parts`` holds the
+    partitions made already, (k, name) -> assignment). Each sharded run must
     draw the dense run's walks bit for bit (paths, lengths, accepts,
     rejects), count a hand-off for every cross-owner hop of its paths (on
     the host) and measure the bytes the closed form gives. Prints each
@@ -688,14 +705,15 @@ def walk_phase(torch, np, graph, dev) -> None:
     key_walk = prng.split(prng.PRNGKey(PAPER_EMBED.seed), 2 + 2)[0]
     keys = lambda: LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, n, dev)
     sources = torch.arange(n, device=dev)
-    parts = {}
-    for k, name in sorted({(k, name) for _, k, name in WALK_RUNS}):
+    parts = dict(parts or {})
+    for k, name in sorted({(k, name) for _, k, name in WALK_RUNS} - set(parts)):
         t1 = time.perf_counter()
         fn = mpgp.mpgp_partition if name == "mpgp" else mpgp.hash_partition
         parts[k, name] = fn(graph, k).assignment
         log(f"[walk] {name} k={k}: partition {time.perf_counter() - t1:.2f} s, nodes per "
             f"part {np.bincount(parts[k, name], minlength=k).tolist()}")
-    log(f"[walk] set-up (Cm, partitions) {time.perf_counter() - t0:.2f} s")
+    log(f"[walk] set-up (Cm, partitions) {time.perf_counter() - t0:.2f} s; the k = 2 MPGP "
+        f"partition is [main k=2]'s")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -752,6 +770,281 @@ def walk_phase(torch, np, graph, dev) -> None:
 
 # --- dynamic graphs: the refresh on fl-sim and on the reference's recipe --------
 
+DURABLE_PLAN = {"round": [3], "tail": [1]}      # crash at a round and at a tail iteration
+DURABLE_TORN = {"ckpt": [1]}                    # and leave the second snapshot torn
+# Round or tail iterations a snapshot: 8 commit across the restarts. The
+# torn write is the run's second, so a longer cadence loses more walked and
+# trained work to it than its fewer writes save (PERF.md §5).
+DURABLE_CKPT_EVERY = 3
+DURABLE_KEEP = 2
+DURABLE_CHECK_EVERY = 500       # global steps: the watchdog checks every tenth 50-step chunk
+CHECK_TIMING_REPS = 7
+
+
+def first_checked_step(start: int, total: int, per_call: int, chunk: int, every: int) -> int:
+    """The global step at which the first chunk the watchdog checks ends,
+    for a tail that trains from ``start``: calls of ``per_call`` steps in
+    chunks of ``chunk``, a chunk checked when it crosses a multiple of
+    ``every`` (``HealthMonitor.due``)."""
+    step = start
+    while step < total:
+        n, done = min(per_call, total - step), 0
+        while done < n:
+            count = min(chunk, n - done)
+            if step // every != (step + count) // every:
+                return step + count
+            step += count
+            done += count
+    raise AssertionError(f"no checked chunk between steps {start} and {total}")
+
+
+def checked_chunk_ms(torch, np, pipe) -> tuple:
+    """Device ms of one 50-step chunk of the pipeline's tail replayed
+    unchecked and checked (the copy into the pre-chunk buffers, the same
+    graph, the five reductions), in turns, by CUDA events; medians."""
+    from repro_torch import prng
+    from repro_torch.core.dsgl import build_alias_table, train_chunk_checked_in_place
+    from repro_torch.data.pipeline import ring_chunk_indices
+    from repro_torch.runtime.trainer import HEALTH_KEYS
+
+    cfg, graphs = pipe.cfg, pipe._graphs
+    table = build_alias_table(pipe.ring.ocn.cpu().numpy(), cfg.neg_power, pipe.device)
+    idx = ring_chunk_indices(prng.fold_in(pipe.key_train, 12345), 0, pipe.ring.num_filled,
+                             cfg.sync_period, pipe.num_shards, cfg.batch_groups,
+                             cfg.multi_windows, pipe.device)
+    args = (pipe.ring.walks[idx], table, prng.fold_in(pipe.key_train, 54321),
+            np.full(cfg.sync_period, cfg.min_lr, np.float32), cfg.window, cfg.negatives)
+    plain = lambda: graphs.train_chunk(pipe.phi_in, pipe.phi_out, *args)
+
+    def checked():
+        _, health = train_chunk_checked_in_place(graphs.train_chunk, pipe._pre_chunk(),
+                                                 pipe.phi_in, pipe.phi_out, *args)
+        return torch.stack([health[k].to(torch.float64) for k in HEALTH_KEYS])
+
+    times = {"plain": [], "checked": []}
+    for fn in (plain, checked):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(CHECK_TIMING_REPS):
+        for name, fn in (("plain", plain), ("checked", checked)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b))
+    med = lambda v: sorted(v)[len(v) // 2]
+    return med(times["plain"]), med(times["checked"])
+
+
+def durable_phase(torch, np, counters, graph, assignment, want, dev) -> dict:
+    """``[durable]``: the k = 2 yt-sim run of ``[main k=2]`` again, as a
+    durable, supervised, watched run. The same pipeline (``PAPER_EMBED``,
+    the graph's Cm counted first, that run's MPGP ``assignment``, two
+    replicas) with a
+    ``HealthMonitor`` checking every tenth chunk runs under
+    ``run_with_restarts`` with a crash at a round, a torn snapshot and a
+    crash at a tail iteration, snapshots every DURABLE_CKPT_EVERY
+    iterations (DURABLE_KEEP kept) in a temporary directory, each crash
+    resumed from the newest valid snapshot. phi must equal ``[main k=2]``'s
+    (``want``) bit for bit; K1 launches = write-backs = the steps trained,
+    replays included, every chunk a graph replay. Then the heal drill: the
+    newest tail snapshot with steps left is resumed with a NaN injected into
+    phi; the watchdog must report ``nonfinite`` at the first checked chunk,
+    roll back to that snapshot (phi equal to its arrays bit for bit) and run
+    to the end at lr scale 0.5: phi finite, the replica mean's AUC above
+    0.75, one rollback. Telemetry is on with a flight directory: one flight
+    record per fired fault, the counters printed, the run telemetry written
+    and read back. Prints the restarts and faults, each snapshot's bytes and
+    write seconds, each resume's seconds and the steps it replayed, the
+    checked chunks and the device time a checked chunk adds."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.ckpt.checkpoint import load_checkpoint, read_meta, valid_steps
+    from repro_torch.configs.distger import PAPER_EMBED
+    from repro_torch.core import dsgl
+    from repro_torch.core.api import dsgl_config, make_walk_plan
+    from repro_torch.eval import link_prediction_auc
+    from repro_torch.kernels.sgns import ops
+    from repro_torch.runtime.faults import FaultInjector, SimulatedFailure, run_with_restarts
+    from repro_torch.runtime.health import HealthConfig, HealthMonitor
+    from repro_torch.runtime.trainer import StreamingEmbedPipeline
+
+    tag = "[durable]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    root, flight = os.path.join(tmp, "ckpt"), os.path.join(tmp, "flight")
+    try:
+        t0 = time.perf_counter()
+        graph = graph.with_edge_cm()
+        torch.cuda.synchronize()
+        log(f"{tag} Cm again in {time.perf_counter() - t0:.2f} s")
+        policy, spec, rounds = make_walk_plan(PAPER_EMBED)
+        cfg = dsgl_config(PAPER_EMBED)
+        obs.reset()
+        for name in counters:
+            counters[name].LAUNCHES = 0
+        ops.WRITEBACKS = 0
+        dsgl.GRAPH_REPLAYS = 0
+        with obs.override(enabled=True, flight_dir=flight):
+            faults = FaultInjector(DURABLE_PLAN, torn_plan=DURABLE_TORN)
+            health = HealthMonitor(HealthConfig(check_every=DURABLE_CHECK_EVERY))
+            pipe = {"p": StreamingEmbedPipeline(graph, policy, spec, rounds, cfg,
+                                                assignment=assignment, num_shards=2,
+                                                health=health)}
+            done = []                # (steps, chunks, checked chunks, snapshots) of each pipeline
+            resumes = []
+            retire = lambda q: done.append((q.steps_run, q.chunks, q.checked_chunks,
+                                            q.snapshot_log))
+
+            def attempt(i):
+                q = pipe["p"]
+                try:
+                    return q.run(ckpt_root=root, ckpt_every_rounds=DURABLE_CKPT_EVERY,
+                                 ckpt_keep=DURABLE_KEEP, faults=faults)
+                except SimulatedFailure as err:
+                    log(f"{tag} attempt {i} crashed at global step {q.global_step} "
+                        f"(phase {q._phase}): {err}")
+                    resumes.append({"crashed_at": q.global_step})
+                    retire(q)
+                    raise
+
+            def recover(i):
+                t = time.perf_counter()
+                pipe["p"] = q = StreamingEmbedPipeline.resume(root, policy, spec, cfg,
+                                                              health=health, device=dev)
+                torch.cuda.synchronize()
+                resumes[-1].update(s=time.perf_counter() - t, step=q.global_step,
+                                   phase=q._phase,
+                                   replays=resumes[-1]["crashed_at"] - q.global_step)
+
+            t0 = time.perf_counter()
+            res, restarts = run_with_restarts(attempt, recover=recover)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, writebacks, replays = ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS
+            others = {name: c.LAUNCHES for name, c in counters.items() if name != "sgns_lifetime"}
+            p = pipe["p"]
+            retire(p)
+            steps, chunks, checked = (sum(d[i] for d in done) for i in range(3))
+            log(f"{tag} supervised run {wall:.2f} s: {restarts} restarts, faults fired "
+                f"{faults.fired}, torn snapshot writes planned {DURABLE_TORN}; rounds "
+                f"{res['rounds']}, final step {res['steps']}")
+            for snap in (snap for d in done for snap in d[3]):
+                log(f"{tag} snapshot {snap['seq']} ({snap['phase']}, step {snap['step']}): "
+                    f"{snap['bytes']} bytes written in {snap['write_s']:.3f} s "
+                    f"({snap['bytes'] / snap['write_s'] / 2**30:.3f} GiB/s)")
+            for r in resumes:
+                log(f"{tag} crash at step {r['crashed_at']}, resumed to step {r['step']} "
+                    f"({r['phase']}) in {r['s']:.3f} s; {r['replays']} steps trained again")
+            rep = health.report()
+            log(f"{tag} K1 launches {launches}, write-backs {writebacks}, graph replays "
+                f"{replays}; steps trained {steps} (the run's {res['steps']} and "
+                f"{steps - res['steps']} again) in {chunks} chunks; checked chunks {checked} "
+                f"({rep['checks']} checks, {rep['detections']} detections); other kernels "
+                f"{others}")
+            if restarts != 3 or sorted(faults.fired) != [("round", 3), ("tail", 1)] \
+                    or faults.pending:
+                raise AssertionError(f"{restarts} restarts, fired {faults.fired}, "
+                                     f"{faults.pending} planned faults left")
+            if launches != steps or writebacks != steps or replays != chunks:
+                raise AssertionError(f"K1 launches {launches}, write-backs {writebacks} for "
+                                     f"{steps} steps; {replays} replays for {chunks} chunks")
+            got_in, got_out = (t.cpu() for t in p.embeddings())
+            if not (torch.equal(got_in, want[0]) and torch.equal(got_out, want[1])):
+                raise AssertionError("the crashed and resumed run's phi is not [main k=2]'s")
+            log(f"{tag} phi equals [main k=2]'s bit for bit")
+            records = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+            fault_records = [r for r in records if r.startswith("flight_fault_")]
+            log(f"{tag} flight records {records}")
+            if len(fault_records) != len(faults.fired):
+                raise AssertionError(f"{len(fault_records)} flight records for "
+                                     f"{len(faults.fired)} fired faults")
+            counts = ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS
+            plain_ms, checked_ms = checked_chunk_ms(torch, np, p)
+            ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS = counts   # timing, not the path
+            del p, pipe["p"]
+            log(f"{tag} a 50-step chunk: {plain_ms:.4f} ms unchecked, {checked_ms:.4f} ms "
+                f"checked: +{checked_ms - plain_ms:.4f} ms of device time a checked chunk")
+
+            # The heal drill, from the newest tail snapshot with steps left.
+            metas = {s: read_meta(root, s)[1] for s in valid_steps(root)}
+            tail = max(s for s, m in metas.items()
+                       if m["phase"] == "tail" and m["global_step"] < m["total_steps"])
+            heal_root = os.path.join(tmp, "heal")
+            os.makedirs(heal_root)
+            os.rename(os.path.join(root, f"step_{tail:08d}"),
+                      os.path.join(heal_root, f"step_{tail:08d}"))
+            shutil.rmtree(root)
+            _, snap, meta = load_checkpoint(heal_root, only=("phi_in", "phi_out"))
+            heal_health = HealthMonitor(HealthConfig(check_every=DURABLE_CHECK_EVERY))
+            t0 = time.perf_counter()
+            q = StreamingEmbedPipeline.resume(heal_root, policy, spec, cfg, health=heal_health,
+                                              device=dev)
+            restored = []
+            restore = q._restore_in_place
+
+            def checked_restore():
+                step = restore()
+                restored.append(np.array_equal(q.phi_in.cpu().numpy(), snap["phi_in"])
+                                and np.array_equal(q.phi_out.cpu().numpy(), snap["phi_out"]))
+                return step
+
+            q._restore_in_place = checked_restore
+            want_step = first_checked_step(q.global_step, q.total_steps, q.steps_per_round,
+                                           cfg.sync_period, DURABLE_CHECK_EVERY)
+            heal_faults = FaultInjector(inject_plan={"phi_nan": [0]})
+            heal = q.run(ckpt_root=heal_root, faults=heal_faults)
+            torch.cuda.synchronize()
+            heal_wall = time.perf_counter() - t0
+            hrep = heal["health"]
+            phi_in, phi_out = q.embeddings()
+            finite = bool(torch.isfinite(phi_in).all() and torch.isfinite(phi_out).all())
+            auc = link_prediction_auc(graph, phi_in, np.random.default_rng(0)) if finite \
+                else float("nan")
+            detected = heal_health.detections[0].step if heal_health.detections else None
+            log(f"{tag} heal drill from snapshot {tail} (step {meta['global_step']} of "
+                f"{meta['total_steps']}) in {heal_wall:.2f} s: injected {heal_faults.injected}, "
+                f"detections {hrep['detection_kinds']} at step {detected} (first checked "
+                f"chunk ends at {want_step}), rollbacks {hrep['rollbacks']}, restored phi "
+                f"equal to the snapshot {restored}, lr scale {heal['lr_scale']}, phi finite "
+                f"{finite}, AUC {auc:.6f}; K1 launches now {ops.LAUNCHES}")
+            if hrep["detection_kinds"] != ["nonfinite"] or detected != want_step \
+                    or restored != [True] or hrep["rollbacks"] != 1 \
+                    or heal["lr_scale"] != 0.5 or not finite or not auc > 0.75:
+                raise AssertionError("the heal drill failed (line above)")
+            steps, chunks = steps + q.steps_run, chunks + q.chunks
+            launches, writebacks, replays = ops.LAUNCHES, ops.WRITEBACKS, dsgl.GRAPH_REPLAYS
+            if launches != steps or writebacks != steps or replays != chunks:
+                raise AssertionError(f"K1 launches {launches}, write-backs {writebacks} for "
+                                     f"{steps} steps; {replays} replays for {chunks} chunks")
+
+            snap_doc = obs.REGISTRY.snapshot()
+            shown = {k: v for k, v in sorted(snap_doc["counters"].items())
+                     if k.split(".")[0] in ("ckpt", "faults", "pipeline", "train", "walk",
+                                            "health", "supervisor")}
+            log(f"{tag} counters {shown}")
+            log(f"{tag} gauges {dict(sorted(snap_doc['gauges'].items()))}")
+            path = os.path.join(tmp, "RUN_TELEMETRY.json")
+            obs.write_run_telemetry(path, run={"phase": "durable", "nodes": graph.num_nodes})
+            doc = obs.load_run_telemetry(path)
+            if doc["counters"] != snap_doc["counters"] \
+                    or doc["counters"]["ckpt.resumes"] != len(resumes) + 2 \
+                    or doc["counters"]["faults.torn.ckpt"] != 1 \
+                    or doc["counters"]["pipeline.heals"] != 1 \
+                    or doc["counters"]["train.steps"] != steps:
+                raise AssertionError(f"run telemetry {doc['counters']}")
+            log(f"{tag} run telemetry written and read back ({os.path.getsize(path)} bytes)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        obs.reset()
+    log(f"{tag} phase {time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "writebacks": writebacks, "replays": replays,
+            "checked_extra_ms": checked_ms - plain_ms}
+
+
 REFRESH_CHURN = 0.05            # the reference's acceptance recipe: 5% churn, seed 1
 REFRESH_MAX_AFFECTED = 0.30
 REFRESH_AUC_GAP = 0.02
@@ -806,9 +1099,8 @@ def refresh_phase(torch, np, counters, dev) -> dict:
 
 def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=False) -> dict:
     """``embed_graph(cfg, num_shards=2, return_state=True)`` on the graph, a
-    5% ``churn_batch`` (seed 1), ``refresh_embedding``, and a from-scratch
-    vertex-keyed ``embed_graph`` of the mutated graph, every launch count set
-    to 0 before each and read after. Checks: every slot whose pre-update root
+    5% ``churn_batch`` (seed 1) and ``refresh_embedding``, every launch count
+    set to 0 before each and read after. Checks: every slot whose pre-update root
     is unaffected is bit-identical after the refresh; the affected mask
     equals a recount on the host; the first and the last retained round's
     spliced rows equal a full vertex-keyed round of every source on the
@@ -819,7 +1111,8 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     fine-tune steps, all in graph replays, with a hotness sync at each
     50-step boundary; phi finite. With ``acceptance``, the reference's: at
     most 30% of the vertices walked again, and the refreshed AUC within 0.02
-    of the scratch run's."""
+    of a from-scratch vertex-keyed ``embed_graph`` of the mutated graph's
+    (run only then: on fl-sim no AUC ranks the graph's edges, PERF.md §6)."""
     import dataclasses
 
     from repro_torch import prng
@@ -1015,20 +1308,25 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     del full_cm, walks_before, lengths_before
     log(f"{tag} checks {time.perf_counter() - t0:.2f} s")
 
-    # 4. from scratch on the mutated graph, and the three AUCs -----------------
-    torch.cuda.empty_cache()
-    t0 = reset()
-    phi_s, _, scratch = embed_graph(g2, dataclasses.replace(cfg, rng_mode="vertex"),
-                                    num_shards=2, return_stats=True, device=dev)
-    scratch_wall = time.perf_counter() - t0
-    scratch_n = counts()
+    # 4. the AUCs; from scratch on the mutated graph where the acceptance needs it
+    phis = {"stale": phi0, "refreshed": phi1}
+    runs = {"embed k=2": base_n, "refresh": ref_n}
+    if acceptance:
+        torch.cuda.empty_cache()
+        t0 = reset()
+        phis["scratch"], _, scratch = embed_graph(
+            g2, dataclasses.replace(cfg, rng_mode="vertex"), num_shards=2, return_stats=True,
+            device=dev)
+        scratch_wall = time.perf_counter() - t0
+        runs["scratch k=2"] = counts()
+        log(f"{tag} scratch embed_graph wall {scratch_wall:.2f} s (rounds {scratch['rounds']}, "
+            f"K1 launches {runs['scratch k=2']['k1']}); refresh / scratch wall "
+            f"{refresh_wall / scratch_wall:.4f}")
     auc = {which: link_prediction_auc(g2, phi, np.random.default_rng(7))
-           for which, phi in (("stale", phi0), ("refreshed", phi1), ("scratch", phi_s))}
-    log(f"{tag} scratch embed_graph wall {scratch_wall:.2f} s (rounds {scratch['rounds']}, "
-        f"K1 launches {scratch_n['k1']}); refresh / base wall {refresh_wall / base_wall:.4f}, "
-        f"refresh / scratch {refresh_wall / scratch_wall:.4f}")
-    log(f"{tag} link-prediction AUC on the mutated graph: stale {auc['stale']:.6f}, "
-        f"refreshed {auc['refreshed']:.6f}, scratch {auc['scratch']:.6f}")
+           for which, phi in phis.items()}
+    log(f"{tag} refresh / base wall {refresh_wall / base_wall:.4f}; link-prediction AUC on the "
+        "mutated graph: "
+        + ", ".join(f"{which} {v:.6f}" for which, v in auc.items()))
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"phase {time.perf_counter() - t_phase:.2f} s")
     if acceptance and (rs.affected_frac > REFRESH_MAX_AFFECTED
@@ -1037,10 +1335,9 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
                              f"vertices walked again (at most {REFRESH_MAX_AFFECTED}), refreshed "
                              f"AUC {auc['refreshed']} against scratch's {auc['scratch']} (within "
                              f"{REFRESH_AUC_GAP})")
-    return {"launches": {f"{name} embed k=2": base_n["k1"], f"{name} refresh": ref_n["k1"],
-                         f"{name} scratch k=2": scratch_n["k1"]},
-            "writebacks": base_n["writebacks"] + ref_n["writebacks"] + scratch_n["writebacks"],
-            "replays": base_n["replays"] + ref_n["replays"] + scratch_n["replays"]}
+    return {"launches": {f"{name} {run}": n["k1"] for run, n in runs.items()},
+            "writebacks": sum(n["writebacks"] for n in runs.values()),
+            "replays": sum(n["replays"] for n in runs.values())}
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -1998,6 +2295,9 @@ def main() -> int:
     libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY, ssd_wide.LIBRARY]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    t_main = time.perf_counter()
+    mark = lambda what: log(f"[elapsed] {what} done at {time.perf_counter() - t_main:.1f} s")
+
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     build_all(libs)
@@ -2095,6 +2395,8 @@ def main() -> int:
             f"{' (mLSTM scale)' if len(case) == 6 else ' (model decay)'}: max abs err {err:.3e}")
         torch.cuda.empty_cache()
 
+    mark("build and checks")
+
     # 3. the embedding path: k = 2 (the paper's regime), then k = 1 ---------------
     preset = GRAPH_PRESETS["yt-sim"]
     t0 = time.perf_counter()
@@ -2105,53 +2407,69 @@ def main() -> int:
     emb = {k: embedding_path(torch, np, counters, graph, k, dev) for k in (2, 1)}
     phi_in = torch.stack([emb[2].pop("phi_in"), emb[1].pop("phi_in")])      # (2, N, d)
     phi_out = torch.stack([emb[2].pop("phi_out"), emb[1].pop("phi_out")])
+    want = (phi_in[0].cpu(), phi_out[0].cpu())      # [main k=2]'s, for [durable]
     sgns = sgns_main_path(torch, np, phi_in, phi_out, emb[2].pop("corpus"), dev)
     sgns_err = max(sgns_err, sgns["max_abs_err"])
     del phi_in, phi_out, emb[1]["corpus"]
     torch.cuda.empty_cache()
-    walk_phase(torch, np, graph, dev)
+    mark("[main]")
+    mpgp2 = emb[2].pop("assignment")                # [main k=2]'s MPGP partition
+    durable = durable_phase(torch, np, counters, graph, mpgp2, want, dev)
+    del want
+    torch.cuda.empty_cache()
+    mark("[durable]")
+    walk_phase(torch, np, graph, dev, {(2, "mpgp"): mpgp2})
+    mark("[walk]")
     del graph
     torch.cuda.empty_cache()
     refresh = refresh_phase(torch, np, counters, dev)
     torch.cuda.empty_cache()
+    mark("[refresh]")
 
     # 4. the dense LM path -------------------------------------------------------
     launches = {LM_ARCH: lm_path(torch, np, counters, lm_cfg, prompts)}
+    mark(LM_ARCH)
     torch.cuda.empty_cache()
     flash_shapes = {LM_ARCH: flash_times(torch, fa_ops, fa_ref, prefill_case)}
 
     # 5. the hybrid LM path --------------------------------------------------------
     launches[HYBRID_ARCH] = lm_path(torch, np, counters, hy_cfg, hy_prompts)
+    mark(HYBRID_ARCH)
     torch.cuda.empty_cache()
     flash_shapes[HYBRID_ARCH] = flash_times(torch, fa_ops, fa_ref, hy_prefill_case)
     ssd = ssd_times(torch, ssd_ops, ssd_main_case, dev)
 
     # 6. the recurrent LM path -------------------------------------------------------
     launches[RECURRENT_ARCH] = lm_path(torch, np, counters, rec_cfg, rec_prompts)
+    mark(RECURRENT_ARCH)
     torch.cuda.empty_cache()
     wide_t = wide_times(torch, ssd_ops, wide_main_case, dev)
 
     # 7. the MLA LM path ----------------------------------------------------------------
     launches[MLA_ARCH] = lm_path(torch, np, counters, mla_cfg, mla_prompts)
+    mark(MLA_ARCH)
     torch.cuda.empty_cache()
     flash_shapes[MLA_ARCH] = flash_times(torch, fa_ops, fa_ref, mla_prefill_case,
                                          sm_scale=MLA_SCALE, v_mode="k")
 
     # 8. the MoE + MLA LM path ----------------------------------------------------------
     launches[MOE_MLA_ARCH] = lm_path(torch, np, counters, ds_cfg, ds_prompts)
+    mark(MOE_MLA_ARCH)
     torch.cuda.empty_cache()
     flash_shapes[MOE_MLA_ARCH] = flash_times(torch, fa_ops, fa_ref, ds_prefill_case,
                                              sm_scale=DEEPSEEK_SCALE, v_mode="k")
 
     # 9. the plain MoE LM path ----------------------------------------------------------
     launches[MOE_ARCH] = lm_path(torch, np, counters, moe_cfg, moe_prompts)
+    mark(MOE_ARCH)
     torch.cuda.empty_cache()
     flash_shapes[MOE_ARCH] = flash_times(torch, fa_ops, fa_ref, moe_prefill_case)
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"] \
-        + sum(refresh["launches"].values())
+        + durable["launches"] + sum(refresh["launches"].values())
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "
-        f"{emb[1]['launches']}, {refresh['launches']}; {launches}")
+        f"{emb[1]['launches']}, durable {durable['launches']}, {refresh['launches']}; "
+        f"{launches}")
 
     by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
     flash = flash_shapes[LM_ARCH]      # the top-level numbers: qwen3-1.7b's prefill shape
@@ -2168,15 +2486,17 @@ def main() -> int:
         "bound_by": sgns["bound_by"],
         "library_ms": None,
         "launches_by_path": {"yt-sim k=2": emb[2]["launches"], "yt-sim k=1": emb[1]["launches"],
-                             **refresh["launches"]},
+                             "yt-sim k=2 durable": durable["launches"], **refresh["launches"]},
         "ms_s1": sgns["ms_s1"],
         "padded_bound_ms": sgns["padded_bound_ms"],
         "step_ms": sgns["step_ms"],
         "us_per_position": sgns["us_per_position"],
         "extent": sgns["extent"],
-        "graph_replays": emb[2]["replays"] + emb[1]["replays"] + refresh["replays"],
+        "graph_replays": emb[2]["replays"] + emb[1]["replays"] + durable["replays"]
+        + refresh["replays"],
         "writeback_launches": emb[2]["writebacks"] + emb[1]["writebacks"]
-        + refresh["writebacks"],
+        + durable["writebacks"] + refresh["writebacks"],
+        "checked_chunk_extra_ms": durable["checked_extra_ms"],
         "writeback_ms": sgns["writeback_ms"],
         "writeback_plain_ms": sgns["writeback_plain_ms"],
         "writeback_bound_ms": sgns["writeback_bound_ms"],

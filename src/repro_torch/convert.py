@@ -17,14 +17,10 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.corpus import ring_import
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
-
-
-def _key(raw) -> tuple:
-    k0, k1 = np.asarray(raw, np.uint32).reshape(2).tolist()
-    return (k0, k1)
 
 
 def from_reference_state(tree: Dict[str, Any], device="cuda",
@@ -45,8 +41,8 @@ def from_reference_state(tree: Dict[str, Any], device="cuda",
         "phi_in": f32(tree["phi_in"]),
         "phi_out": f32(tree["phi_out"]),
         "ring": ring_import(tree["ring"], dev),
-        "key_walk": _key(tree["key_walk"]),
-        "key_train": _key(tree["key_train"]),
+        "key_walk": prng.key_of(tree["key_walk"]),
+        "key_train": prng.key_of(tree["key_train"]),
         "stats": {k: int(np.asarray(v)) for k, v in tree.get("stats", {}).items()},
         "assignment": (None if tree.get("assignment") is None
                        else np.array(tree["assignment"], np.int32)),
@@ -54,14 +50,19 @@ def from_reference_state(tree: Dict[str, Any], device="cuda",
         "slot_round": i64("slot_round"),
         "d_history": None if d_history is None else [float(d) for d in d_history],
     }
-    g = tree.get("graph")
-    if g is not None:
-        copy = lambda name, dtype: (None if name not in g else
-                                    torch.from_numpy(np.array(g[name], dtype)).to(dev))
-        state["graph"] = CSRGraph(
-            indptr=copy("indptr", np.int64), indices=copy("indices", np.int64),
-            weights=copy("weights", np.float32), edge_cm=copy("edge_cm", np.int32))
+    if tree.get("graph") is not None:
+        state["graph"] = graph_from_arrays(tree["graph"], dev)
     return state
+
+
+def graph_from_arrays(g: Dict[str, Any], device) -> CSRGraph:
+    """A graph stored as arrays (``indptr``, ``indices``, optionally
+    ``weights`` and ``edge_cm``; the reference's or a snapshot's dtypes) as a
+    ``CSRGraph`` on ``device`` in the port's dtypes."""
+    copy = lambda name, dtype: (None if g.get(name) is None else
+                                torch.from_numpy(np.array(g[name], dtype)).to(device))
+    return CSRGraph(indptr=copy("indptr", np.int64), indices=copy("indices", np.int64),
+                    weights=copy("weights", np.float32), edge_cm=copy("edge_cm", np.int32))
 
 
 def _map(tree, fn):

@@ -62,6 +62,15 @@ def make_walk_plan(cfg: EmbedConfig) -> Tuple[object, WalkSpec, Dict]:
     return policy, spec, rounds
 
 
+def dsgl_config(cfg: EmbedConfig):
+    """The DSGL configuration ``embed_graph`` trains with under ``cfg``."""
+    from repro_torch.core.dsgl import DSGLConfig
+
+    return DSGLConfig(dim=cfg.dim, window=cfg.window, negatives=cfg.negatives,
+                      epochs=cfg.epochs, lr=cfg.lr, multi_windows=cfg.multi_windows,
+                      seed=cfg.seed)
+
+
 def sample_corpus(graph, cfg: EmbedConfig, part: Optional[np.ndarray] = None, *,
                   device="cuda") -> Corpus:
     """Rounds of walks until the ΔD gate stops them, as a host ``Corpus``:
@@ -128,14 +137,15 @@ def embed_graph(
     steps, chunks, syncs and their bytes, walk statistics with the
     messages' count and bytes, measured and analytic, at k > 1, the Cm and
     partition seconds ``cm_s`` and ``part_s``, the partition's locality,
-    balance and per-part node counts), and the ``EmbedState`` if
+    balance and per-part node counts, and its ``assignment``, node ->
+    shard), and the ``EmbedState`` if
     ``return_state``, in that order."""
     import time
 
     import torch
 
     from repro_torch.core.corpus import FrequencyOrder
-    from repro_torch.core.dsgl import DSGLConfig, train_dsgl
+    from repro_torch.core.dsgl import train_dsgl
     from repro_torch.core.mpgp import mpgp_partition
     from repro_torch.runtime.trainer import StreamingEmbedPipeline
 
@@ -159,12 +169,9 @@ def embed_graph(
         result = mpgp_partition(graph, num_shards)
         part = result.assignment
         summary.update(part_s=result.seconds, locality=result.locality,
-                       balance=result.balance, part_counts=result.counts().tolist())
-    dsgl_cfg = DSGLConfig(
-        dim=cfg.dim, window=cfg.window, negatives=cfg.negatives,
-        epochs=cfg.epochs, lr=cfg.lr, multi_windows=cfg.multi_windows,
-        seed=cfg.seed,
-    )
+                       balance=result.balance, part_counts=result.counts().tolist(),
+                       assignment=part)
+    dsgl_cfg = dsgl_config(cfg)
 
     if not streaming:
         if return_stats:

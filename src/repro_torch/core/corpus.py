@@ -106,9 +106,19 @@ def ring_replace(ring: CorpusRing, slots: torch.Tensor, paths: torch.Tensor,
     ring.lengths[slots] = lengths.to(torch.int32)
 
 
+def ring_export(ring: CorpusRing) -> Dict[str, np.ndarray]:
+    """The whole ring as host arrays, the snapshot surface: the reference's
+    ``ring_export`` (int32 walks, lengths and ocn, 0-d int32 cursor and
+    total). Importing it gives the ring back bit for bit, cursor and total
+    included, so the slot-indexed host maps stay aligned."""
+    return {"walks": ring.walks.cpu().numpy(), "lengths": ring.lengths.cpu().numpy(),
+            "ocn": ring.ocn.cpu().numpy(), "cursor": np.asarray(ring.cursor, np.int32),
+            "total": np.asarray(ring.total, np.int32)}
+
+
 def ring_import(state: Dict[str, np.ndarray], device) -> CorpusRing:
-    """Rebuild a device ring from the reference's ``ring_export`` output
-    (walks, lengths, ocn, cursor, total)."""
+    """Rebuild a device ring from ``ring_export``'s output, the port's or the
+    reference's (walks, lengths, ocn, cursor, total)."""
     as_i32 = lambda a: torch.from_numpy(np.array(a, np.int32)).to(device)
     return CorpusRing(walks=as_i32(state["walks"]),
                       lengths=as_i32(state["lengths"]),

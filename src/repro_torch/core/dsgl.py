@@ -25,7 +25,7 @@ chunk runs as one CUDA graph replay (``ChunkGraphs``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -275,25 +275,52 @@ class _ChunkGraph:
         return self.loss.view(self.steps, *self.lifetimes).sum(dim=-1)
 
 
+def chunk_health(phi_in, phi_out, pre_in, pre_out, losses) -> Dict[str, torch.Tensor]:
+    """The watchdog's five reductions of a trained chunk, as device scalars
+    (the reference's, ``core/dsgl.py:354-362``): non-finite counts over the
+    new matrices and the chunk's losses, the finite losses' sum, the
+    Frobenius norm of the update against the pre-chunk matrices and the new
+    phi_in norm. Each norm reads its operands once, with no squared copy."""
+    finite = torch.isfinite(losses)
+    norm = torch.linalg.vector_norm
+    return {
+        "nonfinite": (phi_in.numel() - torch.isfinite(phi_in).sum())
+                     + (phi_out.numel() - torch.isfinite(phi_out).sum()),
+        "loss_nonfinite": (~finite).sum(),
+        "loss_sum": torch.where(finite, losses, 0.0).sum(),
+        "update_norm": torch.hypot(norm(phi_in - pre_in), norm(phi_out - pre_out)),
+        "phi_norm": norm(phi_in),
+    }
+
+
+def train_chunk_checked_in_place(train, pre, phi_in, phi_out, walks, neg_table, key, lrs,
+                                 window: int, negatives: int,
+                                 sync_rows: torch.Tensor = None, sync: bool = False):
+    """A chunk the watchdog checks, trained in place: phi is copied into
+    ``pre``, a persistent (phi_in, phi_out) buffer pair, ``train`` trains
+    phi in place and ``chunk_health`` reduces it against the copy.
+    ``train`` is ``train_chunk`` or, on the card, ``ChunkGraphs.train_chunk``:
+    the graph an unchecked chunk replays, so phi is bit-equal to an
+    unchecked run's and no graph is captured for checking. Returns
+    (losses, health), health as device scalars."""
+    pre_in, pre_out = pre
+    pre_in.copy_(phi_in)
+    pre_out.copy_(phi_out)
+    losses = train(phi_in, phi_out, walks, neg_table, key, lrs, window, negatives,
+                   sync_rows=sync_rows, sync=sync)
+    return losses, chunk_health(phi_in, phi_out, pre_in, pre_out, losses)
+
+
 def train_chunk_checked(phi_in, phi_out, walks, neg_table, key, lrs,
                         window: int, negatives: int, sync_rows: torch.Tensor = None,
                         sync: bool = False):
-    """``train_chunk`` on copies of the matrices, plus the watchdog's health
-    reductions: non-finite counts over the new matrices and the losses, the
-    loss sum, the Frobenius norm of the update and the new phi_in norm.
-    Returns (phi_in', phi_out', losses, health)."""
+    """The reference's form of ``train_chunk_checked_in_place``: the chunk
+    trains copies of the matrices, which it returns with the losses and the
+    health reductions, (phi_in', phi_out', losses, health)."""
     new_in, new_out = phi_in.clone(), phi_out.clone()
-    losses = train_chunk(new_in, new_out, walks, neg_table, key, lrs,
-                         window, negatives, sync_rows, sync)
-    finite = torch.isfinite(losses)
-    health = {
-        "nonfinite": (~torch.isfinite(new_in)).sum() + (~torch.isfinite(new_out)).sum(),
-        "loss_nonfinite": (~finite).sum(),
-        "loss_sum": torch.where(finite, losses, 0.0).sum(),
-        "update_norm": torch.sqrt(((new_in - phi_in) ** 2).sum()
-                                  + ((new_out - phi_out) ** 2).sum()),
-        "phi_norm": torch.sqrt((new_in ** 2).sum()),
-    }
+    losses, health = train_chunk_checked_in_place(
+        train_chunk, (torch.empty_like(phi_in), torch.empty_like(phi_out)), new_in, new_out,
+        walks, neg_table, key, lrs, window, negatives, sync_rows, sync)
     return new_in, new_out, losses, health
 
 

@@ -65,12 +65,14 @@ as the reference's; counts are exact.
 from __future__ import annotations
 
 import math
+import time
 import weakref
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import incom
 from repro_torch.core import walker as wk
 from repro_torch.core.transition import Policy
@@ -592,6 +594,17 @@ def _shard_stats(out: Dict, k: int, pcsr: Optional[PartitionedCSR], pool: Option
     if pcsr is not None:
         stats["owned_nodes"] = pcsr.num_owned.astype(int).tolist()
         stats["csr_bytes_per_shard"] = pcsr.shard_csr_nbytes().astype(int).tolist()
+    # Everything above is on the host already: exporting it reads nothing
+    # more back from the device.
+    if obs.enabled():
+        obs.inc("walk.supersteps", float(np.sum(stats["supersteps"])))
+        obs.inc("walk.msg_count", float(np.sum(stats["msg_count"])))
+        if "peak_lane_occupancy" in stats:
+            obs.set_gauges("walk.peak_occ", stats["peak_lane_occupancy"])
+            obs.set_gauge("walk.pool_slots", stats["pool_slots"])
+            obs.inc("walk.pool_retries", stats["pool_retries"])
+        if "csr_bytes_per_shard" in stats:
+            obs.set_gauges("walk.csr_bytes", stats["csr_bytes_per_shard"])
     return stats
 
 
@@ -688,6 +701,7 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
         pool = max(pool, hit[1])
     cap = int(exchange_cap) if exchange_cap else max(8, pool // 8)
     retries = 0
+    t0 = time.perf_counter() if obs.enabled() else 0.0
     while True:
         out = _run_local(pcsr, owner, sources, keys, policy, spec, num_shards, pool, cap,
                          compact_every, transport)
@@ -703,6 +717,13 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
         if len(_POOL_CACHE) >= 64:
             _POOL_CACHE.clear()
         _POOL_CACHE[pool_key] = (weakref.ref(graph_key), pool)
+    if obs.enabled():
+        # The overflow check above read the run back: this wall is the
+        # device's time, not the enqueue's.
+        obs.observe("walk.batch_dispatch.s", time.perf_counter() - t0)
+        obs.inc("walk.engine_batches")
+        obs.inc("walk.spill_retries", retries)
+        obs.set_gauge("walk.pool_slots", pool)
     state = _merge_local(out, spec, keys)
     return (state, _shard_stats(out, num_shards, pcsr, pool, cap, retries)) if with_stats \
         else state

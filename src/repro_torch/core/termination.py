@@ -68,3 +68,25 @@ class WalkCountController:
     @property
     def rounds(self) -> int:
         return len(self.history)
+
+    # --- the snapshot surface ------------------------------------------------
+    def to_state(self) -> dict:
+        """JSON-serializable gate state for pipeline snapshots: the
+        configuration and the whole D_r history (the windowed smoothing is a
+        pure function of the history, so it is replayed on restore)."""
+        return {
+            "delta": float(self.delta),
+            "min_rounds": int(self.min_rounds),
+            "max_rounds": int(self.max_rounds),
+            "window": int(self.window),
+            "history": [float(d) for d in self.history],
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "WalkCountController":
+        """Rebuild a gate mid-trajectory: the ``seed_history`` replay gives
+        the same smoothed series the live gate accumulated, so the first
+        decision after a restore is the uninterrupted run's."""
+        return cls(delta=state["delta"], min_rounds=state["min_rounds"],
+                   max_rounds=state["max_rounds"], window=state["window"],
+                   seed_history=list(state["history"]))

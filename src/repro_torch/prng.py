@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -46,6 +47,13 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & M32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
     return x0, x1
+
+
+def key_of(raw) -> Key:
+    """A key stored as an array of two uint32 words (``jax.random.PRNGKey``'s
+    data, a snapshot's ``key_walk``) as the port's pair of ints."""
+    k0, k1 = np.asarray(raw, np.uint32).reshape(2).tolist()
+    return (k0, k1)
 
 
 def PRNGKey(seed: int) -> Key:

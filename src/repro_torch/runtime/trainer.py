@@ -38,34 +38,61 @@ says which root and which round every slot holds, so the walks of affected
 roots are walked again under their rounds' keys and spliced into their
 slots, the ΔD gate continues from the run's history, and DSGL fine-tunes in
 place through the same CUDA graphs.
+
+The run loop is a state machine over persisted cursors: ``save`` writes an
+atomic snapshot in the reference's on-disk layout (``ckpt.checkpoint``),
+``resume`` continues a crashed run bit for bit from the port's or the
+reference's snapshot, and with a ``runtime.health.HealthMonitor`` attached
+a divergence rolls the run back to its newest snapshot in place. The
+``runtime.faults`` injection points fire where the reference's do, and the
+run reports to ``obs`` what the reference's does, from values it already
+holds on the host.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import obs, prng
+from repro_torch.ckpt.checkpoint import latest_step, load_checkpoint, prune_steps, save_checkpoint
+from repro_torch.common.logging import get_logger, log_context
+from repro_torch.convert import graph_from_arrays
 from repro_torch.core.corpus import (Corpus, CorpusRing, FrequencyOrder, ring_append,
-                                     ring_replace, ring_to_numpy)
-from repro_torch.core.dsgl import ChunkGraphs, build_alias_table, init_embeddings, train_chunk
+                                     ring_export, ring_replace, ring_to_numpy)
+from repro_torch.core.dsgl import (ChunkGraphs, build_alias_table, init_embeddings, train_chunk,
+                                   train_chunk_checked_in_place)
 from repro_torch.core.info import relative_entropy_dpq
 from repro_torch.core.sync import replica_mean, sample_hotness_rows
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.walker import (MAX_LANES, LaneKeys, VertexKeys, WalkerBatchState,
                                      run_walk_batch)
 from repro_torch.data.pipeline import ring_chunk_indices
-from repro_torch.device import synced_clock
+from repro_torch.device import resolve_device, synced_clock
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.delta import graph_version
+from repro_torch.runtime.faults import NULL_INJECTOR, FaultInjector, SimulatedFailure
+from repro_torch.runtime.health import DivergenceError
+
+log = get_logger("repro_torch.runtime.trainer")
+
+#: The walk counters the pipeline accumulates (and snapshots).
+STAT_KEYS = ("supersteps", "accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic")
+#: The watchdog's reductions of a checked chunk (``dsgl.chunk_health``).
+HEALTH_KEYS = ("nonfinite", "loss_nonfinite", "loss_sum", "update_norm", "phi_norm")
 
 
 class StreamingEmbedPipeline:
-    """walks -> device corpus ring -> DSGL, on one device."""
+    """walks -> device corpus ring -> DSGL, on one device, with durable
+    snapshots and the divergence watchdog."""
 
     def __init__(self, graph, policy, spec, rounds_cfg: Dict, dsgl_cfg, *,
-                 assignment: Optional[np.ndarray] = None, num_shards: int = 1):
+                 assignment: Optional[np.ndarray] = None, num_shards: int = 1,
+                 walker_batch: int = 4096, health=None):
         self.cm_seconds = 0.0
         if getattr(policy, "needs_edge_cm", False) and graph.edge_cm is None:
             t0 = time.perf_counter()
@@ -84,6 +111,15 @@ class StreamingEmbedPipeline:
         self.walk_shards = self.num_shards
         self.assignment = (None if assignment is None
                            else np.asarray(assignment, dtype=np.int32))
+        # The reference dispatches a round in chunks of ``walker_batch``
+        # sources; the port walks up to MAX_LANES lanes a batch, and
+        # ``walker_batch`` keeps the cadence of the ``superstep`` fault point.
+        self.walker_batch = int(walker_batch)
+        self.health = health            # optional runtime.health.HealthMonitor
+        self._lr_scale = 1.0            # the watchdog's rollback backoff (persisted)
+        self._faults: FaultInjector = NULL_INJECTOR
+        self._snapshot_hooks: List[Callable] = []
+        self._rounds_cfg = dict(rounds_cfg)
         self.controller = WalkCountController(**rounds_cfg)
         self.degrees = graph.degrees().cpu().numpy()
 
@@ -108,7 +144,11 @@ class StreamingEmbedPipeline:
         self.chunks = 0                          # training chunks run
         self.syncs = 0                           # chunks that ended with a hotness sync
         self.sync_bytes = 0.0                    # the reference's byte count of those syncs
+        self.steps_run = 0                       # steps trained by this object, replays included
+        self.checked_chunks = 0                  # chunks the watchdog checked
+        self.snapshot_log: List[Dict[str, Any]] = []   # committed snapshots: seq, bytes, seconds
         self._graphs = ChunkGraphs() if self.device.type == "cuda" else None
+        self._pre = None            # (phi_in, phi_out) before a checked chunk
 
         key = prng.PRNGKey(dsgl_cfg.seed)
         self.key_walk, self.key_train, *rep_keys = prng.split(key, 2 + self.num_shards)
@@ -129,7 +169,19 @@ class StreamingEmbedPipeline:
         # affected root and its round's key after partial rounds and wraps.
         self._slot_root = np.full(self.ring.capacity, -1, np.int64)
         self._slot_round = np.full(self.ring.capacity, -1, np.int64)
+        # The run's cursors, all persisted by ``save``: the run loop is a
+        # state machine over phase rounds -> tail -> done, with
+        # ``_trained_rounds`` rounds fully trained and ``_rounds_walked``
+        # appended, so a resumed run re-enters the round its snapshot
+        # committed and replays forward bit for bit.
         self._rounds_walked = 0
+        self._trained_rounds = 0
+        self._phase = "rounds"
+        self._ckpt_seq = 0              # snapshot numbering (monotonic)
+        self._ckpt_root: Optional[str] = None
+        self._ckpt_every = 0
+        self._ckpt_tick = 0
+        self._ckpt_keep: Optional[int] = None
 
     def adopt_state(self, state: Dict[str, Any]) -> None:
         """Continue from imported state (``convert.from_reference_state``):
@@ -158,7 +210,8 @@ class StreamingEmbedPipeline:
             self._graphs = ChunkGraphs()
 
     # --- walk side --------------------------------------------------------
-    def _run_round(self, r: int, sources: Optional[np.ndarray] = None
+    def _run_round(self, r: int, sources: Optional[np.ndarray] = None,
+                   faults: FaultInjector = NULL_INJECTOR
                    ) -> List[Tuple[np.ndarray, WalkerBatchState]]:
         """Walk round r from every source (or from ``sources``, host int64);
         returns (batch sources on the host, state) pairs. With lane keys,
@@ -167,7 +220,11 @@ class StreamingEmbedPipeline:
         chunk start). With vertex keys every batch walks under the round key
         and a walk depends on its source alone, so a subset of a round walks
         as it did in the full round. With an assignment the batches run on
-        the partition-sharded engine."""
+        the partition-sharded engine.
+
+        ``faults`` fires the ``superstep`` point once per ``walker_batch``
+        sources, before their batch walks: a crash there loses the round,
+        none of whose walks is committed yet."""
         round_key = prng.fold_in(self.key_walk, r)
         shards = self.walk_shards if self.assignment is not None else None
         by_vertex = self.spec.rng_mode == "vertex"
@@ -178,19 +235,26 @@ class StreamingEmbedPipeline:
                 raise ValueError("a subset of a round needs vertex-keyed walks")
             host = np.asarray(sources, np.int64)
             dev_src = torch.from_numpy(host).to(self.device)
+        wb = max(self.walker_batch, 1)
         pairs = []
-        for start in range(0, len(host), MAX_LANES):
-            chunk = dev_src[start:start + MAX_LANES]
-            keys = (VertexKeys(round_key, chunk) if by_vertex else
-                    LaneKeys.for_round(round_key, start, len(chunk), self.device))
-            pairs.append((host[start:start + MAX_LANES],
-                          run_walk_batch(self.graph, chunk, keys, self.policy, self.spec,
-                                         self.assignment, num_shards=shards)))
+        with obs.trace_span("walk.round", round=r, walks=len(host)):
+            for start in range(0, len(host), MAX_LANES):
+                stop = min(start + MAX_LANES, len(host))
+                for at in range(-(-start // wb) * wb, stop, wb):
+                    faults.fire("superstep", f"round {r} chunk @{at}")
+                chunk = dev_src[start:stop]
+                keys = (VertexKeys(round_key, chunk) if by_vertex else
+                        LaneKeys.for_round(round_key, start, len(chunk), self.device))
+                pairs.append((host[start:stop],
+                              run_walk_batch(self.graph, chunk, keys, self.policy, self.spec,
+                                             self.assignment, num_shards=shards)))
+                obs.inc("walk.batches")
+            obs.inc("walk.dispatched", len(host))
         return pairs
 
     def _account(self, st: WalkerBatchState) -> None:
         self._stats["supersteps"] += st.supersteps
-        for name in ("accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic"):
+        for name in STAT_KEYS[1:]:
             self._stats[name] = self._stats[name] + getattr(st, name)
         self.batch_supersteps.append(st.supersteps)
 
@@ -205,10 +269,13 @@ class StreamingEmbedPipeline:
 
     # --- train side -------------------------------------------------------
     def _lrs(self, count: int) -> np.ndarray:
+        # _lr_scale is the watchdog's backoff multiplier: 1.0 until it ever
+        # trips, and a multiply by exactly 1.0 changes no bit.
         start, total, lr0 = (0, self.total_steps, self.cfg.lr) if self._ft is None \
             else self._ft                     # a refresh's fine-tune mini-schedule
         fracs = (self.global_step - start + np.arange(count)) / max(total, 1)
-        return np.maximum(lr0 * (1.0 - fracs), self.cfg.min_lr).astype(np.float32)
+        return np.maximum(lr0 * self._lr_scale * (1.0 - fracs),
+                          self.cfg.min_lr).astype(np.float32)
 
     def _train_slots(self, base: int, pool: int, ocn_host: np.ndarray,
                      steps: int, table=None, order=None) -> None:
@@ -217,7 +284,15 @@ class StreamingEmbedPipeline:
         ``table``/``order`` let the schedule tail, whose ocn is frozen, build
         the alias table and the frequency order once. With S > 1 replicas,
         the hotness rows of the syncs of this call come from one generator
-        seeded by the call's first global step, as the reference's do."""
+        seeded by the call's first global step, as the reference's do.
+
+        With a ``HealthMonitor`` attached, the chunks it names by global step
+        are checked in place against a persistent pre-chunk copy of phi
+        (``train_chunk_checked_in_place``; on the card the same graph, phi
+        bit-equal to an unchecked chunk's), and the five health scalars come
+        to the host in one transfer. The
+        ``phi_nan`` and ``lr_spike`` corruption sites of the fault injector
+        poison a chunk's input for the watchdog to catch."""
         cfg = self.cfg
         if table is None:
             table = build_alias_table(ocn_host, cfg.neg_power, self.device)
@@ -228,8 +303,10 @@ class StreamingEmbedPipeline:
         blocks = None
         chunk = max(min(cfg.sync_period, steps), 1)
         train = self._graphs.train_chunk if self._graphs is not None else train_chunk
+        tele = obs.enabled()
         done = 0
         while done < steps:
+            t_c = time.perf_counter() if tele else 0.0
             count = min(chunk, steps - done)
             # One hotness exchange per sync_period global steps (not per
             # chunk): a chunk that crosses a period boundary ends with one.
@@ -252,12 +329,34 @@ class StreamingEmbedPipeline:
                 self.sync_bytes += float(rows.numel() * cfg.dim * 4 * self.num_shards * 2)
             key = prng.fold_in(self.key_train,
                                2 * self.total_steps + self.global_step)
-            train(self.phi_in, self.phi_out, walks, table, key,
-                  self._lrs(count), cfg.window, cfg.negatives,
-                  sync_rows=rows, sync=sync_now)
+            lrs = self._lrs(count)
+            if self._faults.inject("phi_nan"):    # in place: the graphs' storage
+                self.phi_in[:, :4, :] = float("nan")
+            if self._faults.inject("lr_spike"):
+                lrs = lrs * np.float32(1e4)
+            check = self.health is not None and self.health.due(self.global_step, count)
+            args = (walks, table, key, lrs, cfg.window, cfg.negatives)
+            if not check:
+                train(self.phi_in, self.phi_out, *args, sync_rows=rows, sync=sync_now)
+            else:
+                _, health = train_chunk_checked_in_place(
+                    train, self._pre_chunk(), self.phi_in, self.phi_out, *args,
+                    sync_rows=rows, sync=sync_now)
             self.global_step += count
+            self.steps_run += count
             self.chunks += 1
             done += count
+            if tele:
+                obs.observe("train.chunk_dispatch.s", time.perf_counter() - t_c)
+                obs.inc("train.steps", count)
+            if check:
+                self.checked_chunks += 1
+                # One host pull of the five scalars; raises DivergenceError
+                # on a verdict, which run()'s heal loop answers.
+                values = torch.stack([health[k].to(torch.float64)
+                                      for k in HEALTH_KEYS]).cpu().tolist()
+                self.health.observe(dict(zip(HEALTH_KEYS, values)), step=self.global_step,
+                                    count=count, slots=np.unique(idx.cpu().numpy()))
 
     # --- run loop ---------------------------------------------------------
     def _timed(self, phase: str, fn, *args, **kwargs) -> None:
@@ -269,44 +368,110 @@ class StreamingEmbedPipeline:
             torch.cuda.synchronize(self.device)
         self.phase_s[phase] += time.perf_counter() - t0
 
-    def _walk(self, r: int) -> None:
-        self._timed("walk", lambda: self._append(self._run_round(r), r))
+    def _walk(self, r: int, faults: FaultInjector) -> None:
+        self._timed("walk", lambda: self._append(self._run_round(r, faults=faults), r))
         self._rounds_walked = r + 1
 
     def _train(self, *args, **kwargs) -> None:
         self._timed("train", self._train_slots, *args, **kwargs)
 
-    def run(self) -> Dict[str, Any]:
-        """Walk rounds gated by the ΔD controller, training each round, then
-        the schedule-completion tail. Returns the run's summary."""
-        t0 = time.perf_counter()
-        n = len(self.sources)
-        self._walk(0)
-        r = 0
-        while True:
-            ocn_host = self.ring.ocn.cpu().numpy()            # per-round sync
-            cont = self.controller.update_d(
-                relative_entropy_dpq(self.degrees, ocn_host))
-            self._train((r * n) % self.ring.capacity, n, ocn_host,
-                        self.steps_per_round)
-            if not cont:
-                break
-            self._walk(r + 1)
-            r += 1
+    def run(self, *, ckpt_root: Optional[str] = None, ckpt_every_rounds: int = 0,
+            ckpt_keep: Optional[int] = None,
+            faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
+        """Run (or continue, after ``resume``) the walk -> train lifecycle:
+        walk rounds gated by the ΔD controller, training each round, then
+        the schedule-completion tail. Returns the run's summary.
 
-        # Tail: re-consume the filled ring until the a-priori lr schedule
-        # ends. ocn is frozen now, so one alias table and one frequency
-        # order serve every call.
-        ocn_host = self.ring.ocn.cpu().numpy()
-        filled = self.ring.num_filled
-        table = build_alias_table(ocn_host, self.cfg.neg_power, self.device)
-        order = FrequencyOrder.from_ocn(ocn_host) if self.num_shards > 1 else None
-        while self.global_step < self.total_steps:
-            self._train(0, filled, ocn_host,
-                        min(self.steps_per_round,
-                            self.total_steps - self.global_step), table=table, order=order)
+        The loop is a state machine over persisted cursors: phase
+        ``rounds`` trains round r = ``_trained_rounds`` with rounds 0..r
+        appended and the ΔD gate holding r decisions; phase ``tail``
+        consumes the frozen ring until the a-priori schedule completes.
+        Every iteration boundary is a consistent cut, and every source of
+        randomness is keyed off persisted state (round keys fold_in(key_walk,
+        r), chunk keys fold_in(key_train, global_step), hotness rows seeded
+        by global_step), so a resumed run replays the rest bit for bit.
+        The port walks round r+1 after training round r (the reference's
+        ``overlap=False`` order); the cursors mean what the reference's do
+        at every snapshot.
+
+        ``ckpt_root`` / ``ckpt_every_rounds`` take a snapshot every N round
+        or tail iterations and a final one; ``ckpt_keep`` bounds retention;
+        ``faults`` is the injection harness (the default never fires). With
+        a ``HealthMonitor`` attached, a divergence verdict rolls the
+        pipeline back to the newest snapshot in place, backs the learning
+        rate off by ``lr_backoff``, walks the offending chunk's roots again
+        (vertex keys) and re-enters the loop, at most
+        ``HealthConfig.max_rollbacks`` times."""
+        t0 = time.perf_counter()
+        self._ckpt_root, self._ckpt_every = ckpt_root, ckpt_every_rounds
+        self._ckpt_keep = ckpt_keep
+        self._faults = faults
+        try:
+            if self.health is not None and ckpt_root and latest_step(ckpt_root) is None:
+                # The watchdog needs a rollback base before its first check.
+                self.save(ckpt_root, faults=faults)
+            while True:
+                try:
+                    result = self._run_phases(faults)
+                    break
+                except DivergenceError as err:
+                    self._heal_divergence(err, faults)
+        finally:
+            self._faults = NULL_INJECTOR
+        result["wall_s"] = time.perf_counter() - t0
+        return result
+
+    def _run_phases(self, faults: FaultInjector) -> Dict[str, Any]:
+        n = len(self.sources)
+        if self._phase == "rounds":
+            if self._rounds_walked == 0:
+                self._walk(0, faults)
+            while True:
+                r = self._trained_rounds
+                with log_context(round=r):
+                    faults.fire("round", r)
+                    ocn_host = self.ring.ocn.cpu().numpy()            # per-round sync
+                    cont = self.controller.update_d(
+                        relative_entropy_dpq(self.degrees, ocn_host))
+                    self._train((r * n) % self.ring.capacity, n, ocn_host,
+                                self.steps_per_round)
+                    self._trained_rounds = r + 1
+                    if not cont:
+                        break
+                    self._walk(r + 1, faults)
+                    self._maybe_snapshot(faults)
+            self._phase = "tail"
+            obs.span_event("pipeline.phase", phase="tail", round=self._trained_rounds,
+                           step=self.global_step)
+            self._maybe_snapshot(faults)
+
+        if self._phase == "tail":
+            # Re-consume the filled ring until the a-priori lr schedule ends.
+            # ocn is frozen now, so one alias table and one frequency order
+            # serve every iteration (and a resume rebuilds them identically).
+            ocn_host = self.ring.ocn.cpu().numpy()
+            filled = self.ring.num_filled
+            table = build_alias_table(ocn_host, self.cfg.neg_power, self.device)
+            order = FrequencyOrder.from_ocn(ocn_host) if self.num_shards > 1 else None
+            while self.global_step < self.total_steps:
+                faults.fire("tail", self.global_step)
+                self._train(0, filled, ocn_host,
+                            min(self.steps_per_round, self.total_steps - self.global_step),
+                            table=table, order=order)
+                self._maybe_snapshot(faults)
+            self._phase = "done"
+            obs.span_event("pipeline.phase", phase="done", step=self.global_step)
+            if self._ckpt_root and self._ckpt_every:
+                self.save(self._ckpt_root, faults=faults)           # final snapshot
 
         phi_in, phi_out = self.embeddings()
+        stats = self.stats()
+        if obs.enabled():       # values the run already read back for its summary
+            for k in STAT_KEYS:
+                obs.set_gauge(f"walk.{k}", stats[k])
+            obs.set_gauge("walk.mean_len", stats["mean_len"])
+            obs.set_gauge("walk.rounds", self.controller.rounds)
+            obs.set_gauge("train.global_step", self.global_step)
         return {
             "phi_in": phi_in, "phi_out": phi_out,
             "rounds": self.controller.rounds,
@@ -315,9 +480,10 @@ class StreamingEmbedPipeline:
             "syncs": self.syncs,
             "sync_bytes": self.sync_bytes,
             "ring": self.ring,
-            "stats": self.stats(),
+            "stats": stats,
             "cm_s": self.cm_seconds,
-            "wall_s": time.perf_counter() - t0,
+            "health": self.health.report() if self.health is not None else None,
+            "lr_scale": float(self._lr_scale),
         }
 
     def stats(self) -> Dict[str, Any]:
@@ -345,6 +511,232 @@ class StreamingEmbedPipeline:
             return replica_mean(self.phi_in), replica_mean(self.phi_out)
         return self.phi_in[0], self.phi_out[0]
 
+    def _pre_chunk(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The persistent buffer pair a checked chunk copies phi into,
+        allocated at the first check and again only when phi's shape moves."""
+        if self._pre is None or self._pre[0].shape != self.phi_in.shape:
+            self._pre = (torch.empty_like(self.phi_in), torch.empty_like(self.phi_out))
+        return self._pre
+
+    # --- crash-consistent snapshots ----------------------------------------
+    def _maybe_snapshot(self, faults: FaultInjector) -> None:
+        if not self._ckpt_root or not self._ckpt_every:
+            return
+        self._ckpt_tick += 1
+        if self._ckpt_tick % self._ckpt_every == 0:
+            self.save(self._ckpt_root, faults=faults)
+
+    def _state_tree(self) -> Dict[str, Any]:
+        """The snapshot's arrays, in the reference's names and dtypes: int32
+        CSR arrays and assignment, uint32 keys of shape (2,), float32 walk
+        counters."""
+        g = self.graph
+        graph = {"indptr": g.indptr.to(torch.int32), "indices": g.indices.to(torch.int32)}
+        if g.weights is not None:
+            graph["weights"] = g.weights.to(torch.float32)
+        if g.edge_cm is not None:
+            graph["edge_cm"] = g.edge_cm.to(torch.int32)
+        stats = self.stats()
+        tree = {
+            "phi_in": self.phi_in,
+            "phi_out": self.phi_out,
+            "ring": ring_export(self.ring),
+            "slot_root": self._slot_root,
+            "slot_round": self._slot_round,
+            "key_walk": np.asarray(self.key_walk, np.uint32),
+            "key_train": np.asarray(self.key_train, np.uint32),
+            "stats": {k: np.float32(stats[k]) for k in STAT_KEYS},
+            "graph": graph,
+        }
+        if self.assignment is not None:
+            tree["assignment"] = np.asarray(self.assignment, np.int32)
+        return tree
+
+    def save(self, root: str, *, faults: FaultInjector = NULL_INJECTOR) -> str:
+        """Snapshot the whole walk -> train state as one atomic checkpoint in
+        the reference's layout (``ckpt.checkpoint``): the phi replicas, the
+        ring (walks, lengths, ocn, cursor, total), the host slot maps, both
+        RNG keys, the walk counters, the ΔD controller, the run's cursors,
+        the MPGP assignment and the graph's CSR arrays, so a resume needs no
+        graph handle. Returns the committed path.
+
+        ``faults`` can crash the write two ways: ``ckpt_write`` fires before
+        anything is written (the snapshot is lost), and ``torn("ckpt")``
+        commits the directory, then corrupts its manifest and raises."""
+        with obs.trace_span("ckpt.write", seq=self._ckpt_seq, round=self._trained_rounds,
+                            step=self.global_step, phase=self._phase):
+            return self._save_inner(root, faults)
+
+    def _save_inner(self, root: str, faults: FaultInjector) -> str:
+        faults.fire("ckpt_write", self._ckpt_seq)
+        torn = faults.torn("ckpt")
+        t0 = time.perf_counter()
+        stats = self.stats()
+        meta = {
+            "kind": "streaming_pipeline",
+            "global_step": int(self.global_step),
+            "cursor": int(self.ring.cursor),
+            "rounds_walked": int(self._rounds_walked),
+            "trained_rounds": int(self._trained_rounds),
+            "phase": self._phase,
+            "controller": self.controller.to_state(),
+            "rounds_cfg": self._rounds_cfg,
+            "total_steps": int(self.total_steps),
+            "num_shards": int(self.num_shards),
+            "walk_shards": int(self.walk_shards),
+            "lr_scale": float(self._lr_scale),
+            "walker_batch": int(self.walker_batch),
+            "overlap": False,
+            "graph_version": int(graph_version(self.graph)),
+            # The counters exactly (the float32 arrays round above 2**24).
+            "walk_stats": {k: stats[k] for k in STAT_KEYS},
+        }
+        path = save_checkpoint(root, self._ckpt_seq, self._state_tree(), meta=meta)
+        if torn:
+            with open(os.path.join(path, "manifest.json"), "w") as f:
+                f.write('{"step": ')          # the data blocks never reached the disk
+            raise SimulatedFailure(f"torn checkpoint write at snapshot {self._ckpt_seq}")
+        with log_context(round=self._trained_rounds, graph_version=meta["graph_version"]):
+            log.info("snapshot %d committed at %s (phase=%s step=%d)",
+                     self._ckpt_seq, path, self._phase, self.global_step)
+        obs.inc("ckpt.writes")
+        obs.set_gauge("ckpt.last_seq", self._ckpt_seq)
+        self.snapshot_log.append({
+            "seq": self._ckpt_seq, "phase": self._phase, "step": int(self.global_step),
+            "bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+            "write_s": time.perf_counter() - t0})
+        seq = self._ckpt_seq
+        self._ckpt_seq += 1
+        if self._ckpt_keep:
+            prune_steps(root, self._ckpt_keep)
+        for hook in self._snapshot_hooks:
+            hook(path, seq, meta)
+        return path
+
+    def add_snapshot_hook(self, hook: Callable) -> None:
+        """Call ``hook(path, seq, meta)`` after every committed snapshot
+        (after retention pruning, so the path is durable); never for a torn
+        or crashed write."""
+        self._snapshot_hooks.append(hook)
+
+    @classmethod
+    def resume(cls, root: str, policy, spec, dsgl_cfg, *, step: Optional[int] = None,
+               health=None, device="cuda") -> "StreamingEmbedPipeline":
+        """Rebuild a pipeline from the newest valid snapshot under ``root``
+        (or ``step``), the port's or the reference's, on ``device``, and
+        re-enter its cursors; ``run()`` continues it. The caller gives the
+        plan (policy, spec, DSGL config); everything mutable, the graph
+        included, comes from the snapshot. The new pipeline has fresh CUDA
+        graphs."""
+        dev = resolve_device(device)
+        step_loaded, arrays, meta = load_checkpoint(root, step)
+        _check_kind(meta, root, step_loaded)
+        pipe = cls(_snapshot_graph(arrays, dev), policy, spec,
+                   meta["rounds_cfg"], dsgl_cfg,
+                   assignment=arrays.get("assignment"), num_shards=int(meta["num_shards"]),
+                   walker_batch=int(meta.get("walker_batch", 4096)),
+                   health=health)
+        pipe._adopt_snapshot(root, step_loaded, arrays, meta)
+        return pipe
+
+    def _adopt_snapshot(self, root: str, step_loaded: int, arrays: Dict[str, np.ndarray],
+                        meta: Dict[str, Any]) -> None:
+        """Load a snapshot's state into this pipeline's own tensors (copied
+        into their storage, so captured CUDA graphs stay valid), and report
+        the resume."""
+        ring = self.ring
+        if arrays["ring/walks"].shape != tuple(ring.walks.shape):
+            raise ValueError(f"snapshot ring {arrays['ring/walks'].shape} does not match the "
+                             f"pipeline's {tuple(ring.walks.shape)}; resume with the spec the "
+                             "snapshot was taken with")
+        if arrays["phi_in"].shape != tuple(self.phi_in.shape):
+            raise ValueError(f"snapshot phi {arrays['phi_in'].shape} does not match the "
+                             f"pipeline's {tuple(self.phi_in.shape)}")
+        for t, name in ((ring.walks, "ring/walks"), (ring.lengths, "ring/lengths"),
+                        (ring.ocn, "ring/ocn"), (self.phi_in, "phi_in"),
+                        (self.phi_out, "phi_out")):
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name])))
+        ring.cursor = int(arrays["ring/cursor"])
+        ring.total = int(arrays["ring/total"])
+        self.key_walk = prng.key_of(arrays["key_walk"])
+        self.key_train = prng.key_of(arrays["key_train"])
+        exact = meta.get("walk_stats") or {k: arrays[f"stats/{k}"].item() for k in STAT_KEYS}
+        self._stats = {"supersteps": int(exact["supersteps"])}
+        for k in STAT_KEYS[1:]:
+            dtype = torch.float32 if k.startswith("msg_bytes") else torch.int64
+            value = float(exact[k]) if dtype == torch.float32 else int(exact[k])
+            self._stats[k] = torch.tensor(value, dtype=dtype, device=self.device)
+        self._slot_root = np.array(arrays["slot_root"], np.int64)
+        self._slot_round = np.array(arrays["slot_round"], np.int64)
+        self.controller = WalkCountController.from_state(meta["controller"])
+        self.global_step = int(meta["global_step"])
+        self.total_steps = int(meta["total_steps"])
+        self._rounds_walked = int(meta["rounds_walked"])
+        self._trained_rounds = int(meta["trained_rounds"])
+        self._phase = meta["phase"]
+        self.walk_shards = int(meta.get("walk_shards", meta["num_shards"]))
+        self._lr_scale = float(meta.get("lr_scale", 1.0))
+        self._ckpt_seq = step_loaded + 1
+        log.info("resumed pipeline from %s snapshot %d (phase=%s round=%d step=%d)", root,
+                 step_loaded, self._phase, self._trained_rounds, self.global_step)
+        obs.span_event("ckpt.resume", snapshot=step_loaded, phase=self._phase,
+                       round=self._trained_rounds, step=self.global_step)
+        obs.inc("ckpt.resumes")
+
+    # --- the self-healing runtime -------------------------------------------
+    def _heal_divergence(self, err: DivergenceError, faults: FaultInjector) -> None:
+        """Answer a watchdog verdict: roll back to the newest snapshot in
+        place, back the learning rate off, walk the offending chunk's roots
+        again under their rounds' keys (a no-op on a clean ring with vertex
+        keys; it heals corrupt walk data) and let ``run`` re-enter the loop.
+        Re-raises without a snapshot root or once ``max_rollbacks`` is spent:
+        then the supervisor (``run_with_restarts``) is the layer to act."""
+        report = err.report
+        mon = self.health
+        if not self._ckpt_root or mon is None or mon.exhausted():
+            raise err
+        # Slots -> roots before the restore: the snapshot's slot map may
+        # predate the rounds the diverging chunk trained on.
+        roots = self._slot_root[report.slots]
+        roots = np.unique(roots[roots >= 0])
+        self._restore_in_place()
+        self._lr_scale *= mon.cfg.lr_backoff
+        quarantined = 0
+        if self.spec.rng_mode == "vertex" and len(roots):
+            mask = np.zeros(len(self.sources), bool)
+            mask[roots] = True
+            quarantined, _ = self._rewalk_resident(mask, faults)
+        mon.note_rollback(restored_step=self.global_step, lr_scale=self._lr_scale,
+                          quarantined=quarantined)
+        obs.span_event("pipeline.heal", kind=report.kind, detected_step=report.step,
+                       restored_step=self.global_step, lr_scale=self._lr_scale,
+                       quarantined=quarantined)
+        obs.inc("pipeline.heals")
+        log.warning("divergence (%s) at step %d: rolled back to step %d, lr scale now %.3g, "
+                    "quarantined %d resident walks", report.kind, report.step,
+                    self.global_step, self._lr_scale, quarantined)
+
+    def _restore_in_place(self) -> int:
+        """Adopt the newest valid snapshot's state into THIS pipeline: the
+        in-place form of ``resume``. phi and the ring are copied into their
+        own storage, so the chunks' CUDA graphs stay valid and no second
+        pipeline is held; the graph is replaced only when the snapshot's
+        differs. Returns the restored global step."""
+        step_loaded, arrays, meta = load_checkpoint(self._ckpt_root)
+        _check_kind(meta, self._ckpt_root, step_loaded)
+        g = self.graph
+        same = all(name in arrays and np.array_equal(arrays[name], t.cpu().numpy())
+                   for name, t in (("graph/indptr", g.indptr), ("graph/indices", g.indices))) \
+            and ("graph/weights" in arrays) == (g.weights is not None)
+        if not same:
+            self.adopt_graph(_snapshot_graph(arrays, self.device))
+        if "assignment" in arrays:
+            self.assignment = np.asarray(arrays["assignment"], np.int32)
+        self._adopt_snapshot(self._ckpt_root, step_loaded, arrays, meta)
+        self._ft = None
+        self._ckpt_tick = 0
+        return self.global_step
+
     # --- incremental refresh (core.incremental drives this) ----------------
     def corpus_slots(self) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
         """(walks, roots, valid): the device ring's walk rows as they lie,
@@ -352,33 +744,41 @@ class StreamingEmbedPipeline:
         Affected-vertex detection reads the ring on the device."""
         return self.ring.walks, self._slot_root, self._slot_root >= 0
 
-    def _rewalk_resident(self, root_mask: np.ndarray) -> Tuple[int, int]:
+    def _rewalk_resident(self, root_mask: np.ndarray,
+                         faults: FaultInjector = NULL_INJECTOR) -> Tuple[int, int]:
         """Walk every resident walk rooted in ``root_mask`` again under its
         round's key and splice it into the slot its predecessor holds
         (``ring_replace`` keeps ocn exact). Vertex keys make the subset walks
-        the ones a full round on the current graph gives. Returns
-        (walks re-walked, rounds resident)."""
+        the ones a full round on the current graph gives. Fires
+        ``refresh_splice`` once per resident round, inside its span, before
+        that round's splices land. Returns (walks re-walked, rounds
+        resident)."""
         n = len(self.sources)
         slot_ids = np.arange(self.ring.capacity)
         aff_slot = (self._slot_root >= 0) & np.asarray(root_mask)[
             np.maximum(self._slot_root, 0)]
         rounds_resident = np.unique(self._slot_round[aff_slot])
         rewalk_walks = 0
+        gv = int(graph_version(self.graph)) if obs.enabled() else None
         for r in rounds_resident:
-            sel = aff_slot & (self._slot_round == r)
-            roots_r = self._slot_root[sel]
-            slot_of = np.full(n, -1, np.int64)
-            slot_of[roots_r] = slot_ids[sel]
-            for chunk, st in self._run_round(int(r), sources=roots_r):
-                slots = torch.from_numpy(slot_of[chunk]).to(self.device)
-                ring_replace(self.ring, slots, st.path, st.info.L)
-                self._account(st)
-                rewalk_walks += len(chunk)
+            with obs.trace_span("refresh.splice", round=int(r), graph_version=gv):
+                faults.fire("refresh_splice", int(r))
+                sel = aff_slot & (self._slot_round == r)
+                roots_r = self._slot_root[sel]
+                slot_of = np.full(n, -1, np.int64)
+                slot_of[roots_r] = slot_ids[sel]
+                for chunk, st in self._run_round(int(r), sources=roots_r, faults=faults):
+                    slots = torch.from_numpy(slot_of[chunk]).to(self.device)
+                    ring_replace(self.ring, slots, st.path, st.info.L)
+                    self._account(st)
+                    rewalk_walks += len(chunk)
+                obs.inc("refresh.rewalk_walks", int(len(roots_r)))
         return rewalk_walks, int(len(rounds_resident))
 
     def refresh(self, new_graph, affected_mask: np.ndarray, *,
                 fine_tune_steps: Optional[int] = None, fine_tune_frac: float = 0.5,
-                fine_tune_lr_scale: float = 0.3, max_extra_rounds: int = 2) -> Dict[str, Any]:
+                fine_tune_lr_scale: float = 0.3, max_extra_rounds: int = 2,
+                faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
         """Absorb a mutated graph: walk again only the affected roots' resident
         walks, splice them in, continue the seeded ΔD gate, fine-tune DSGL in
         place.
@@ -394,7 +794,9 @@ class StreamingEmbedPipeline:
         order rebuilt from the exact refreshed ocn, through the pipeline's
         CUDA graphs (static buffers: the ring's rows and the negatives are
         gathered into them at each chunk, so no graph holds stale data). The
-        MPGP assignment of the base run stays in force."""
+        MPGP assignment of the base run stays in force. ``faults`` fires
+        ``refresh`` at entry and ``refresh_splice`` before each round's
+        splices."""
         if self.spec.rng_mode != "vertex":
             raise ValueError("refresh requires WalkSpec.rng_mode='vertex'")
         n = len(self.sources)
@@ -404,13 +806,16 @@ class StreamingEmbedPipeline:
         if getattr(self.policy, "needs_edge_cm", False) and new_graph.edge_cm is None:
             new_graph = new_graph.with_edge_cm()
         t0 = time.perf_counter()
+        gv = int(graph_version(new_graph))
+        with obs.trace_span("refresh.enter", graph_version=gv):
+            faults.fire("refresh", gv)
         self.graph = new_graph
         self.degrees = new_graph.degrees().cpu().numpy()
         affected = np.nonzero(np.asarray(affected_mask))[0].astype(np.int64)
         cap = self.ring.capacity
         sup0 = self._stats["supersteps"]
 
-        rewalk_walks, retained = self._rewalk_resident(affected_mask)
+        rewalk_walks, retained = self._rewalk_resident(affected_mask, faults)
         t1 = synced_clock(self.device)
 
         # Seeded ΔD gate: extra subset rounds while D moves.
@@ -451,6 +856,10 @@ class StreamingEmbedPipeline:
         finally:
             self._ft = None
         t3 = synced_clock(self.device)
+        obs.inc("refresh.count")
+        obs.observe("refresh.s", t3 - t0)
+        obs.set_gauge("refresh.affected", int(len(affected)))
+        obs.set_gauge("refresh.graph_version", gv)
         return {
             "affected": int(len(affected)),
             "affected_frac": float(len(affected) / max(n, 1)),
@@ -473,6 +882,18 @@ class StreamingEmbedPipeline:
             new_graph = new_graph.with_edge_cm()
         self.graph = new_graph
         self.degrees = new_graph.degrees().cpu().numpy()
+
+
+def _check_kind(meta: Dict[str, Any], root: str, step: int) -> None:
+    if meta.get("kind") != "streaming_pipeline":
+        raise ValueError(f"checkpoint at {root} step {step} is not a streaming-pipeline "
+                         "snapshot")
+
+
+def _snapshot_graph(arrays: Dict[str, np.ndarray], device) -> CSRGraph:
+    """The snapshot's graph on ``device``, in the port's dtypes."""
+    return graph_from_arrays({k[len("graph/"):]: v for k, v in arrays.items()
+                              if k.startswith("graph/")}, device)
 
 
 class DSGLTrainer:
@@ -540,8 +961,10 @@ class DSGLTrainer:
         t0 = time.perf_counter()
         sync_bytes = 0.0
         do_sync = self.num_shards > 1
+        tele = obs.enabled()
         try:
             for epoch, step0, count in schedule:
+                t_c = time.perf_counter() if tele else 0.0
                 _, chunk_np = prefetcher.next()
                 wb = torch.from_numpy(chunk_np).to(self.device)
                 rows = (torch.from_numpy(sample_hotness_rows(self.starts, self.ends, rng))
@@ -553,11 +976,17 @@ class DSGLTrainer:
                                     sync=do_sync))
                 if do_sync:
                     sync_bytes += float(rows.numel() * cfg.dim * 4 * self.num_shards * 2)
+                if tele:
+                    obs.observe("train.chunk_dispatch.s", time.perf_counter() - t_c)
+                    obs.inc("train.steps", count)
         finally:
             prefetcher.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
+        if tele:
+            obs.set_gauge("train.steps_per_s", total / max(wall, 1e-9))
+            obs.set_gauge("train.sync_bytes", sync_bytes)
         return {
             "steps": total,
             "steps_per_s": total / max(wall, 1e-9),

@@ -183,3 +183,29 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["obs", "ckpt", "common", "runtime.faults", "runtime.health"])
+def test_durability_and_telemetry_modules_import_neither_jax_nor_reference(name):
+    """The telemetry, checkpoint, logging, fault and watchdog modules are
+    copies, not imports, of the JAX package's: no ``jax`` or ``repro``
+    import in their source, and none loaded by importing them alone."""
+    base = ROOT / "src" / "repro_torch" / Path(*name.split("."))
+    files = sorted(base.rglob("*.py")) if base.is_dir() else [base.with_suffix(".py")]
+    assert files and all(f in _port_sources() for f in files)
+    bad = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)[\s.])")
+    assert not [f"{f.name}:{i}" for f in files
+                for i, line in enumerate(f.read_text().splitlines(), 1) if bad.match(line)]
+    mods = [f"repro_torch.{name}"] + [
+        "repro_torch." + ".".join(f.relative_to(ROOT / "src" / "repro_torch").with_suffix("")
+                                  .parts) for f in files if f.name != "__init__.py"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
