@@ -83,8 +83,9 @@ Phases (each failure raises and ends the run with a non-zero exit):
    half the learning rate, phi finite, AUC above 0.75; the run telemetry is
    written and read back. Prints each snapshot's bytes and write seconds,
    each resume's seconds and the steps it trained again, and the device
-   time a checked chunk adds. Then ``[walk]``: one round of walks (the k = 2 run's round-0
-   keys) on the dense engine and on the sharded engine, replicated at k =
+   time a checked chunk adds. Then ``[walk]``: the walks of the first half
+   of round 0's sources (``WALK_SHARE``; the k = 2 run's round-0 keys) on
+   the dense engine and on the sharded engine, replicated at k =
    2 and partition-local at k = 2 and 4 under MPGP and at k = 4 under the
    hash partition. Each must draw the dense walks bit for bit and count a
    hand-off for every cross-owner hop of its paths (counted on the host),
@@ -116,7 +117,31 @@ Phases (each failure raises and ends the run with a non-zero exit):
    walks and supersteps, the arcs and wedges the incremental Cm recounts,
    the refresh's wall time by phase against the base run's (and the
    recipe's scratch run's), the stale and refreshed AUCs (and scratch's)
-   and peak memory.
+   and peak memory. On fl-sim two more paths ride on the case.
+   ``[elastic]``: after the base run, the same run again (its graph, Cm,
+   partition and config) under a liveness probe with walk shard 1 down
+   for a round: one death (k = 2 -> 1: MPGP streams its nodes into
+   shard 0, its resident walks are walked again) and one re-join (1 -> 2),
+   each followed by a snapshot; ring and phi must equal the base run's
+   bit for bit, the snapshot after the re-join must resume at k = 2 with
+   its phi, K1 launches = write-backs = steps, and, right after that
+   snapshot, ``recover_shard_loss(1)`` must restore a ring whose shard-1
+   slots were zeroed, bit for bit (the run goes on from it). ``[ingest fl-sim]``: the churn goes through
+   ``IngestDriver.submit``, so the drain is the refresh every check above
+   holds; the WAL must be truncated, ``applied_seq`` = ``appended_seq`` =
+   1 and in the snapshot's meta, and ``IngestDriver.recover`` must end on
+   the driven phi. ``[ingest recipe]``: from the recipe's pre-churn
+   snapshot, a driver killed after a durable WAL append is recovered from
+   the disk, and its drain, failing once at ``refresh_splice`` (restored
+   in place, retried), must end on ``refresh_embedding``'s phi, ring and
+   ocn bit for bit. Each prints its seconds (reassign, re-join, partition
+   rebuilds, re-walks, WAL append and fsync, snapshots).
+Phases 4-9 serve each model at full width and a cut depth (``LM_LAYERS``:
+4, 27, 8, 8, 4 and 8 layers, an eighth of each model's but a third of
+zamba2's and qwen2-moe's): the layer counts below are the full
+configurations', and every count of launches per prefill scales with the
+layers served.
+
 4. The dense LM path: ``Server`` serving qwen3-1.7b at full width (28
    layers, d 2048, bf16, seeded random weights) to 8 requests with
    prompts of 512-2,048 tokens and 32 new tokens each, in waves of 4
@@ -189,8 +214,11 @@ Phases (each failure raises and ends the run with a non-zero exit):
    cache faults of phase 4 and the MoE faults of phase 8. Each model is
    freed before the next is loaded.
 
-Each path runs with every launch count set to 0 just before it and read
-just after. Prints one JSON line with the kernels' numbers (flash
+One worker process (spawned at the start, stopped at the end) makes the
+host-only inputs while the card runs the phases before them: the yt-sim
+and fl-sim graphs (numpy), fl-sim's churn batch and ``[walk]``'s k = 4
+MPGP partition. Each path runs with every launch count set to 0 just
+before it and read just after. Prints one JSON line with the kernels' numbers (flash
 attention's at qwen3-1.7b's prefill shape, and under ``by_shape`` at every
 model's) and, last, the device line.
 """
@@ -259,6 +287,14 @@ RECURRENT_ARCH = "xlstm-350m"
 MLA_ARCH = "minicpm3-4b"
 MOE_MLA_ARCH = "deepseek-v2-lite-16b"
 MOE_ARCH = "qwen2-moe-a2.7b"
+#: Phases 4-9 serve each model at full width and these depths, to keep the
+#: script inside its time limit on a slower host (PERF.md §5): an eighth of
+#: the layers (one block cycle at least), but a third of zamba2's and
+#: qwen2-moe's, whose checks need them (at 11 blocks zamba2's bf16 decode
+#: drifts past its logits bound; at 3 layers a skipped shared expert no
+#: longer moves qwen2-moe's cache and logits past theirs).
+LM_LAYERS = {LM_ARCH: 4, HYBRID_ARCH: 27, RECURRENT_ARCH: 8, MLA_ARCH: 8, MOE_MLA_ARCH: 4,
+             MOE_ARCH: 8}
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
@@ -665,6 +701,10 @@ def embedding_path(torch, np, counters, graph, shards: int, dev) -> dict:
 
 WALK_RUNS = (("replicated", 2, "mpgp"), ("local", 2, "mpgp"), ("local", 4, "mpgp"),
              ("local", 4, "hash"))
+#: ``[walk]`` walks the first 1 / WALK_SHARE of round 0's sources (the
+#: lanes draw what they draw in the full round), to keep the script inside
+#: its time limit (PERF.md §5).
+WALK_SHARE = 2
 
 
 def walk_hops(np, paths, part) -> int:
@@ -680,8 +720,8 @@ def walk_hops(np, paths, part) -> int:
 
 
 def walk_phase(torch, np, graph, dev, parts=None) -> None:
-    """One round of walks on the graph, ``PAPER_EMBED``'s spec and the k = 2
-    pipeline's round-0 keys, five times: the dense engine, then the sharded
+    """Round 0's first 1 / WALK_SHARE of the sources' walks on the graph,
+    ``PAPER_EMBED``'s spec and the k = 2 pipeline's round-0 keys, five times: the dense engine, then the sharded
     engine replicated at k = 2 (MPGP), partition-local at k = 2 and 4
     (MPGP) and at k = 4 under the hash partition (``parts`` holds the
     partitions made already, (k, name) -> assignment). Each sharded run must
@@ -703,8 +743,9 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
     policy, spec, _ = make_walk_plan(PAPER_EMBED)
     n = graph.num_nodes
     key_walk = prng.split(prng.PRNGKey(PAPER_EMBED.seed), 2 + 2)[0]
-    keys = lambda: LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, n, dev)
-    sources = torch.arange(n, device=dev)
+    walks = n // WALK_SHARE
+    keys = lambda: LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, walks, dev)
+    sources = torch.arange(walks, device=dev)
     parts = dict(parts or {})
     for k, name in sorted({(k, name) for _, k, name in WALK_RUNS} - set(parts)):
         t1 = time.perf_counter()
@@ -713,7 +754,7 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
         log(f"[walk] {name} k={k}: partition {time.perf_counter() - t1:.2f} s, nodes per "
             f"part {np.bincount(parts[k, name], minlength=k).tolist()}")
     log(f"[walk] set-up (Cm, partitions) {time.perf_counter() - t0:.2f} s; the k = 2 MPGP "
-        f"partition is [main k=2]'s")
+        f"partition is [main k=2]'s; {walks} walks (round 0's sources 0..{walks - 1})")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1069,7 +1110,53 @@ def affected_on_host(np, walks, roots, batch, n) -> np.ndarray:
     return aff
 
 
-def refresh_phase(torch, np, counters, dev) -> dict:
+# --- host preparation in a worker process -------------------------------------
+# Graph generation, MPGP partitions and churn batches are numpy / Python on
+# the host and need no card: a worker process makes them while the main
+# process keeps the card busy, and hands over the arrays.
+
+
+def host_graph(name: str, churn: bool = False) -> dict:
+    """A preset's R-MAT graph as host arrays (``rmat_graph`` builds it with
+    numpy, so these are the arrays the card's graph holds) and, with
+    ``churn``, its 5% ``churn_batch`` (seed 1); with the seconds each took."""
+    from repro_torch.configs.distger import GRAPH_PRESETS
+    from repro_torch.graph.generators import churn_batch, rmat_graph
+
+    preset = GRAPH_PRESETS[name]
+    t0 = time.perf_counter()
+    g = rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device="cpu")
+    out = {"indptr": g.indptr.numpy(), "indices": g.indices.numpy(),
+           "graph_s": time.perf_counter() - t0}
+    if churn:
+        t0 = time.perf_counter()
+        out["batch"] = churn_batch(g, REFRESH_CHURN, seed=1)
+        out["churn_s"] = time.perf_counter() - t0
+    return out
+
+
+def host_mpgp(indptr, indices, edge_cm, k: int) -> tuple:
+    """MPGP's k-way partition of the graph given as host arrays (with its
+    Cm, which PS2 reads), and its seconds."""
+    import torch
+
+    from repro_torch.core.mpgp import mpgp_partition
+    from repro_torch.graph.csr import CSRGraph
+
+    g = CSRGraph(indptr=torch.from_numpy(indptr), indices=torch.from_numpy(indices),
+                 edge_cm=torch.from_numpy(edge_cm))
+    t0 = time.perf_counter()
+    return mpgp_partition(g, k).assignment, time.perf_counter() - t0
+
+
+def device_graph(torch, arrays: dict, dev):
+    from repro_torch.graph.csr import CSRGraph
+
+    return CSRGraph(indptr=torch.from_numpy(arrays["indptr"]).to(dev),
+                    indices=torch.from_numpy(arrays["indices"]).to(dev))
+
+
+def refresh_phase(torch, np, counters, dev, flsim: dict) -> dict:
     """Dynamic graphs, in two cases run through ``refresh_case``: fl-sim
     (80,513 nodes at degree 146; 16 rounds fit the ring) under
     ``PAPER_EMBED``, and the reference's acceptance recipe (rmat 2,048 at
@@ -1077,27 +1164,33 @@ def refresh_phase(torch, np, counters, dev) -> dict:
     to the reference's acceptance, at most 30% of the vertices walked again
     and the refreshed AUC within 0.02 of scratch's: on fl-sim the pool's
     arcs lie on most walks, and the AUC does not rank a trained embedding
-    of its R-MAT graph above chance (PERF.md §6), so there it is printed."""
-    from repro_torch.configs.distger import GRAPH_PRESETS, PAPER_EMBED
+    of its R-MAT graph above chance (PERF.md §6), so there it is printed.
+    On fl-sim the base run is also the oracle of ``[elastic]``, and the
+    refresh is an ``IngestDriver`` drain (``[ingest fl-sim]``); the recipe's
+    refresh is the oracle of the ingest drills (``[ingest recipe]``).
+    ``flsim`` holds fl-sim's graph and churn, made by ``host_graph``."""
+    from repro_torch.configs.distger import PAPER_EMBED
     from repro_torch.core.api import EmbedConfig
     from repro_torch.graph.generators import rmat_graph
 
-    preset = GRAPH_PRESETS["fl-sim"]
-    runs = [refresh_case(torch, np, counters, dev, preset.name,
-                         rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev),
-                         PAPER_EMBED)]
+    log(f"[refresh fl-sim] graph ({flsim['graph_s']:.2f} s) and churn_batch "
+        f"({flsim['churn_s']:.2f} s) made on the host in a worker process")
+    runs = [refresh_case(torch, np, counters, dev, "fl-sim", device_graph(torch, flsim, dev),
+                         PAPER_EMBED, elastic=True, ingest=True,
+                         churn=(flsim["batch"], flsim["churn_s"]))]
     torch.cuda.empty_cache()
     runs.append(refresh_case(torch, np, counters, dev, "recipe",
                              rmat_graph(2048, 10, seed=3, device=dev),
                              EmbedConfig(dim=32, epochs=1, lr=0.05, delta=1e-3, max_len=40,
                                          min_len=10, window=6, negatives=4),
-                             acceptance=True))
+                             acceptance=True, drills=True))
     return {"launches": {k: v for run in runs for k, v in run["launches"].items()},
             "writebacks": sum(run["writebacks"] for run in runs),
             "replays": sum(run["replays"] for run in runs)}
 
 
-def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=False) -> dict:
+def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=False,
+                 elastic=False, ingest=False, drills=False, churn=None) -> dict:
     """``embed_graph(cfg, num_shards=2, return_state=True)`` on the graph, a
     5% ``churn_batch`` (seed 1) and ``refresh_embedding``, every launch count
     set to 0 before each and read after. Checks: every slot whose pre-update root
@@ -1112,32 +1205,31 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     50-step boundary; phi finite. With ``acceptance``, the reference's: at
     most 30% of the vertices walked again, and the refreshed AUC within 0.02
     of a from-scratch vertex-keyed ``embed_graph`` of the mutated graph's
-    (run only then: on fl-sim no AUC ranks the graph's edges, PERF.md §6)."""
+    (run only then: on fl-sim no AUC ranks the graph's edges, PERF.md §6).
+
+    With ``elastic``, ``elastic_case`` runs after the base run, against its
+    ring and phi. With ``ingest`` the churn goes through
+    ``IngestDriver.submit`` (``apply_every=1``): the drain is the refresh
+    every check above holds, and then the WAL must be truncated with
+    ``applied_seq == appended_seq == 1``, the snapshot's meta must carry
+    ``applied_seq``, and ``IngestDriver.recover`` on the root must end with
+    nothing pending and phi equal to the driven pipeline's. With ``drills``
+    the refreshed pipeline is the oracle of ``ingest_drills``."""
     import dataclasses
+    import shutil
+    import tempfile
 
     from repro_torch import prng
-    from repro_torch.core import dsgl, shard_engine
+    from repro_torch.core import dsgl
     from repro_torch.core.api import embed_graph, refresh_embedding
     from repro_torch.core.walker import VertexKeys, run_walk_batch
     from repro_torch.eval import link_prediction_auc
     from repro_torch.graph.csr import edge_common_neighbors
     from repro_torch.graph.generators import churn_batch
-    from repro_torch.kernels.sgns import ops
+    from repro_torch.runtime.ingest import IngestConfig, IngestDriver
 
-    def reset():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.LAUNCHES = 0
-        ops.WRITEBACKS = 0
-        dsgl.GRAPH_REPLAYS = 0
-        shard_engine.BATCHES = 0
-        return time.perf_counter()
-
-    def counts():
-        torch.cuda.synchronize()
-        return {"k1": ops.LAUNCHES, "writebacks": ops.WRITEBACKS,
-                "replays": dsgl.GRAPH_REPLAYS, "batches": shard_engine.BATCHES,
-                "others": {n: c.LAUNCHES for n, c in counters.items() if n != "sgns_lifetime"}}
+    reset = lambda: reset_counts(torch, counters)
+    counts = lambda: read_counts(torch, counters)
 
     tag = f"[refresh {name}]"
     t_phase = time.perf_counter()
@@ -1170,26 +1262,53 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     ocn_before = pipe.ring.ocn.clone()
     roots_before = pipe._slot_root.copy()
     rounds_before = pipe._slot_round.copy()
+    extra = {}                          # the launches of [elastic] and the ingest drills
+    if elastic:
+        extra["elastic"] = elastic_case(torch, np, counters, dev, pipe,
+                                        (walks_before, lengths_before, ocn_before,
+                                         pipe.phi_in.clone(), pipe.phi_out.clone()))
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_ingest_{name}_")
+    pre_root = os.path.join(tmp, "pre_churn")
+    if drills:                          # the drills start from the state before the churn
+        pipe.save(pre_root)
 
-    # 2. the churn (host numpy) ---------------------------------------------------
+    # 2. the churn (host numpy; ``churn`` when a worker process made it) ------------
     t0 = time.perf_counter()
-    batch = churn_batch(graph, REFRESH_CHURN, seed=1)
-    churn_s = time.perf_counter() - t0
+    batch, churn_s = churn if churn is not None else (
+        churn_batch(graph, REFRESH_CHURN, seed=1), None)
+    churn_s = time.perf_counter() - t0 if churn_s is None else churn_s
     log(f"{tag} churn_batch: +{len(batch.insert)} / -{len(batch.delete)} edges "
         f"({batch.num_changes / (graph.num_edges / 2):.6f} of the edges) in {churn_s:.2f} s "
-        f"on the host")
+        f"on the host{' (a worker process)' if churn is not None else ''}")
 
-    # 3. the refresh -----------------------------------------------------------
+    # 3. the refresh: refresh_embedding, or a drain of the ingest driver -------------
+    drv = None
+    if ingest:
+        t0 = time.perf_counter()
+        drv = IngestDriver(os.path.join(tmp, "ingest"), pipe, cfg=IngestConfig(apply_every=1))
+        snap0 = pipe.snapshot_log[-1]
+        log(f"[ingest {name}] the driver's first snapshot: {snap0['bytes']} bytes in "
+            f"{snap0['write_s']:.3f} s ({time.perf_counter() - t0:.2f} s with the driver)")
     g_step0, chunks0, syncs0 = pipe.global_step, pipe.chunks, pipe.syncs
     batches0 = len(pipe.batch_supersteps)
     torch.cuda.reset_peak_memory_stats()
     t0 = reset()
-    phi1, _, rs = refresh_embedding(state, batch)
+    if ingest:
+        drv.submit(batch)
+        rs = drv.refresher.last_stats
+        phi1 = pipe.embeddings()[0].clone()
+        refresher = drv.refresher
+    else:
+        phi1, _, rs = refresh_embedding(state, batch)
+        refresher = state.refresher
     refresh_wall = time.perf_counter() - t0
     ref_n = counts()
     refresh_peak = torch.cuda.max_memory_allocated() / 2**30
-    g2 = state.graph
+    g2 = pipe.graph
     ph = rs.phase_s
+    if ingest:
+        ingest_checks(torch, np, name, drv, pipe, refresh_wall, dev)
     log(f"{tag} affected {rs.affected} ({rs.affected_frac:.6f} of |V|), retained rounds "
         f"{rs.retained_rounds}, extra rounds {rs.extra_rounds}, re-walked walks "
         f"{rs.rewalk_walks}, re-walk supersteps {rs.rewalk_supersteps} (the base run's "
@@ -1218,7 +1337,7 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
 
     # Unaffected slots bit-identical; the mask against a recount on the host.
     t0 = time.perf_counter()
-    aff = state.refresher.last_affected_mask
+    aff = refresher.last_affected_mask
     written = roots_before >= 0
     host_aff = affected_on_host(np, walks_before.cpu().numpy()[written], roots_before[written],
                                 batch, n)
@@ -1310,7 +1429,7 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
 
     # 4. the AUCs; from scratch on the mutated graph where the acceptance needs it
     phis = {"stale": phi0, "refreshed": phi1}
-    runs = {"embed k=2": base_n, "refresh": ref_n}
+    runs = {"embed k=2": base_n, "ingest drain" if ingest else "refresh": ref_n}
     if acceptance:
         torch.cuda.empty_cache()
         t0 = reset()
@@ -1329,15 +1448,298 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
         + ", ".join(f"{which} {v:.6f}" for which, v in auc.items()))
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"phase {time.perf_counter() - t_phase:.2f} s")
+    if drills:
+        extra.update(ingest_drills(torch, np, counters, dev, pipe, batch, pre_root, tmp))
+    shutil.rmtree(tmp, ignore_errors=True)
     if acceptance and (rs.affected_frac > REFRESH_MAX_AFFECTED
                        or abs(auc["refreshed"] - auc["scratch"]) > REFRESH_AUC_GAP):
         raise AssertionError(f"{tag} the reference's acceptance: {rs.affected_frac} of the "
                              f"vertices walked again (at most {REFRESH_MAX_AFFECTED}), refreshed "
                              f"AUC {auc['refreshed']} against scratch's {auc['scratch']} (within "
                              f"{REFRESH_AUC_GAP})")
+    runs.update(extra)
     return {"launches": {f"{name} {run}": n["k1"] for run, n in runs.items()},
             "writebacks": sum(n["writebacks"] for n in runs.values()),
             "replays": sum(n["replays"] for n in runs.values())}
+
+
+def reset_counts(torch, counters) -> float:
+    """Every launch count to 0, the device drained; returns the host clock."""
+    from repro_torch.core import dsgl, shard_engine
+    from repro_torch.kernels.sgns import ops
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.LAUNCHES = 0
+    ops.WRITEBACKS = 0
+    dsgl.GRAPH_REPLAYS = 0
+    shard_engine.BATCHES = 0
+    return time.perf_counter()
+
+
+def read_counts(torch, counters) -> dict:
+    from repro_torch.core import dsgl, shard_engine
+    from repro_torch.kernels.sgns import ops
+
+    torch.cuda.synchronize()
+    return {"k1": ops.LAUNCHES, "writebacks": ops.WRITEBACKS, "replays": dsgl.GRAPH_REPLAYS,
+            "batches": shard_engine.BATCHES,
+            "others": {n: c.LAUNCHES for n, c in counters.items() if n != "sgns_lifetime"}}
+
+
+def check_k1(tag: str, n: dict, steps: int, chunks: int) -> None:
+    """K1 launches = write-backs = the steps trained, every chunk a graph
+    replay, and no other kernel launched."""
+    log(f"{tag} K1 launches {n['k1']}, write-backs {n['writebacks']}, graph replays "
+        f"{n['replays']} for {steps} steps in {chunks} chunks; walk batches on the sharded "
+        f"engine {n['batches']}; other kernels {n['others']}")
+    if n["k1"] != steps or n["writebacks"] != steps or n["replays"] != chunks \
+            or any(n["others"].values()):
+        raise AssertionError(f"{tag} every step must be a K1 launch in a graph replay: {n}, "
+                             f"{steps} steps in {chunks} chunks")
+
+
+#: ``[elastic]``'s outage: walk shard 1 misses the probe of round 1 and
+#: answers from round 2 on (misses_to_dead = hits_to_live = 1): k = 2 -> 1
+#: at round 1 (round 2 walks at k = 1), back to 2 at round 2.
+ELASTIC_DOWN = {1: (1, 2)}
+#: No cadence snapshot: one after each reconfiguration, and the final one.
+ELASTIC_CKPT_EVERY = 10**6
+
+
+def elastic_case(torch, np, counters, dev, base, oracle) -> dict:
+    """``[elastic]``: fl-sim's base run (``base``, ``PAPER_EMBED`` with vertex
+    keys at k = 2 under MPGP) again, on the same graph, Cm, partition and
+    config, with a ``LivenessProbe`` and an outage of walk shard 1
+    (ELASTIC_DOWN): one death (its nodes streamed into shard 0, its
+    resident walks walked again) and one re-join (a donor region streamed
+    into the returned shard), each followed by a snapshot; the death builds
+    the k = 1 partition-local store and the re-join rebuilds it through
+    ``reassign_partitioned_csr``. Checks: one death and one
+    re-join, k = 2 at the end; ring (walks, lengths, ocn) and phi equal
+    the base run's (``oracle``, copied before its refresh) bit for bit;
+    the snapshot after the re-join resumes at k = 2 with that moment's
+    assignment and phi; K1 launches = write-backs = the steps trained, in
+    graph replays. Right after that snapshot (a hook), every ring slot
+    rooted in the new shard 1 is zeroed through ``ring_replace`` and
+    ``recover_shard_loss(1)`` must restore ring and ocn bit for bit; the run
+    then goes on from the restored ring, so its end-state equality covers
+    the recovery too. (It runs there, on the 3 rounds walked by then, and
+    not on the finished run's 9: a re-walk costs its rounds' supersteps,
+    ~46-68 s for 9 on fl-sim.) Prints the seconds of the reassign, the
+    re-join, each partition rebuild, the orphans' re-walk and the recovery,
+    the moved roots, the slices reused and the snapshots' bytes and
+    seconds."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import shard_engine
+    from repro_torch.core.corpus import ring_replace
+    from repro_torch.runtime.faults import FaultInjector, LivenessProbe
+    from repro_torch.runtime.trainer import StreamingEmbedPipeline
+
+    tag = "[elastic]"
+    t_phase = time.perf_counter()
+    walks0, lengths0, ocn0, phi_in0, phi_out0 = oracle
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        log(f"{tag} fl-sim, the base run's graph, partition and config; outage {ELASTIC_DOWN}")
+        p = StreamingEmbedPipeline(base.graph, base.policy, base.spec, base._rounds_cfg,
+                                   base.cfg, assignment=base.assignment, num_shards=2)
+        seen = {}
+
+        def recover_check():
+            """Zero shard 1's resident slots, recover them, compare."""
+            ring = p.ring
+            before = (ring.walks.clone(), ring.lengths.clone(), ring.ocn.clone())
+            lost = np.asarray(p.assignment) == 1
+            bad = np.nonzero((p._slot_root >= 0) & lost[np.maximum(p._slot_root, 0)])[0]
+            ring_replace(ring, torch.from_numpy(bad).to(dev),
+                         torch.zeros(len(bad), ring.walks.shape[1], dtype=ring.walks.dtype,
+                                     device=dev),
+                         torch.ones(len(bad), dtype=torch.int32, device=dev))
+            damaged = not torch.equal(ring.walks, before[0])
+            info = p.recover_shard_loss(1)
+            restored = all(torch.equal(a, b) for a, b in
+                           zip((ring.walks, ring.lengths, ring.ocn), before))
+            return dict(info, zeroed=len(bad), damaged=damaged, restored=restored)
+
+        def hook(path, seq, meta):      # the state the snapshot after the re-join holds
+            if meta["walk_shards"] == 1:
+                seen.setdefault("death", seq)
+            elif "death" in seen and "rejoin" not in seen:
+                seen["rejoin"] = (seq, p.phi_in.clone(), p.phi_out.clone(), p.assignment.copy())
+                seen["recover"] = recover_check()
+
+        p.add_snapshot_hook(hook)
+        t0 = reset_counts(torch, counters)
+        res = p.run(ckpt_root=tmp, ckpt_every_rounds=ELASTIC_CKPT_EVERY,
+                    faults=FaultInjector(down_plan=ELASTIC_DOWN),
+                    liveness=LivenessProbe(num_shards=2, misses_to_dead=1, hits_to_live=1))
+        wall = time.perf_counter() - t0
+        n = read_counts(torch, counters)
+        recs = res["reconfigs"]
+        kinds = [r.get("kind", "death") for r in recs]
+        ws = res["stats"]
+        log(f"{tag} run wall {wall:.2f} s (the recovery's {seen['recover']['wall_s']:.2f} s "
+            f"included): walks {ws['phase_s']['walk']:.2f} s, training "
+            f"{ws['phase_s']['train']:.2f} s; rounds {res['rounds']}, steps {res['steps']}; "
+            f"reconfigurations {kinds}, walk shards at the end {p.walk_shards}")
+        for r in recs:
+            ph = r["phase_s"]
+            if r.get("kind") == "rejoin":
+                log(f"{tag} re-join to k = {r['walk_shards']}: rejoin_shard {ph['rejoin']:.3f} s "
+                    f"({r['moved_roots']} donor roots, {r['moved_frac']:.6f} of |V|), partition "
+                    f"rebuild {ph['partitions']:.3f} s ({r['reused_shards']} slices reused, "
+                    f"{r['rebuilt_shards']} rebuilt); {r['wall_s']:.3f} s in all")
+            else:
+                log(f"{tag} death of shard {r['dead_shard']} (launch id {r['launch_id']}) to "
+                    f"k = {r['walk_shards']}: reassign_dead_shard {ph['reassign']:.3f} s "
+                    f"({r['moved_roots']} orphan roots, {r['moved_frac']:.6f} of |V|), partition "
+                    f"rebuild {ph['partitions']:.3f} s ({r['reused_shards']} slices reused, "
+                    f"{r['rebuilt_shards']} rebuilt), the orphans' re-walk {ph['rewalk']:.3f} s "
+                    f"({r['rewalk_walks']} walks over {r['rounds_resident']} resident rounds); "
+                    f"{r['wall_s']:.3f} s in all")
+        for snap in p.snapshot_log:
+            log(f"{tag} snapshot {snap['seq']} ({snap['phase']}, step {snap['step']}): "
+                f"{snap['bytes']} bytes in {snap['write_s']:.3f} s")
+        check_k1(tag, n, p.steps_run, p.chunks)
+        if n["batches"] != len(p.batch_supersteps):
+            raise AssertionError(f"{tag} {n['batches']} sharded batches of "
+                                 f"{len(p.batch_supersteps)}")
+        same_ring = torch.equal(p.ring.walks, walks0) and torch.equal(p.ring.lengths, lengths0) \
+            and torch.equal(p.ring.ocn, ocn0)
+        same_phi = torch.equal(p.phi_in, phi_in0) and torch.equal(p.phi_out, phi_out0)
+        log(f"{tag} ring equals the base run's bit for bit {same_ring}; phi {same_phi}")
+        if kinds != ["death", "rejoin"] or p.walk_shards != 2 or not (same_ring and same_phi):
+            raise AssertionError(f"{tag} {kinds} at k = {p.walk_shards}: ring {same_ring}, "
+                                 f"phi {same_phi}")
+
+        seq, phi_i, phi_o, asn = seen["rejoin"]
+        t0 = time.perf_counter()
+        q = StreamingEmbedPipeline.resume(tmp, base.policy, base.spec, base.cfg, step=seq,
+                                          device=dev)
+        resumed = q.walk_shards == 2 and np.array_equal(q.assignment, asn) \
+            and torch.equal(q.phi_in, phi_i) and torch.equal(q.phi_out, phi_o)
+        log(f"{tag} the snapshot after the re-join ({seq}) resumed in "
+            f"{time.perf_counter() - t0:.2f} s: walk shards {q.walk_shards}, its assignment and "
+            f"phi bit for bit {resumed}")
+        del q, phi_i, phi_o
+        torch.cuda.empty_cache()
+        if not resumed:
+            raise AssertionError(f"{tag} the post-re-join snapshot resumed to another state")
+
+        info = seen["recover"]
+        log(f"{tag} recover_shard_loss(1) after the re-join's snapshot: {info['zeroed']} slots of "
+            f"{info['lost_roots']} roots zeroed (damaged {info['damaged']}), "
+            f"{info['rewalk_walks']} walks over {info['rounds_resident']} rounds walked again in "
+            f"{info['wall_s']:.2f} s; ring and ocn restored bit for bit {info['restored']}")
+        if not (info["damaged"] and info["restored"]):
+            raise AssertionError(f"{tag} recover_shard_loss did not restore the ring")
+        p._snapshot_hooks.clear()       # the hook refers to p: free the pipeline on return
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shard_engine._PCSR_CACHE.clear()
+    log(f"{tag} phase {time.perf_counter() - t_phase:.2f} s")
+    return n
+
+
+def ingest_checks(torch, np, name, drv, pipe, submit_wall: float, dev) -> None:
+    """After fl-sim's drain through the ingest driver: the WAL acknowledged
+    and truncated, ``applied_seq == appended_seq == 1``, the snapshot's
+    meta carrying ``applied_seq``; then ``IngestDriver.recover`` on the root
+    alone must end with nothing pending and phi equal to the driven
+    pipeline's bit for bit."""
+    from repro_torch.ckpt.checkpoint import read_meta
+    from repro_torch.runtime.ingest import IngestDriver
+
+    tag = f"[ingest {name}]"
+    st = drv.staleness()
+    wal = drv.wal.last_append
+    snap = pipe.snapshot_log[-1]
+    meta = read_meta(drv.ckpt_dir)[1]
+    truncated = drv.wal.replay() == ([], 0) and os.path.getsize(drv.wal.path) == 0
+    rs = drv.refresher.last_stats
+    log(f"{tag} WAL append {wal['bytes']} bytes: write {wal['write_s'] * 1e3:.3f} ms, fsync "
+        f"{wal['fsync_s'] * 1e3:.3f} ms; drain mode {drv.last_mode}, refresh {rs.wall_s:.2f} s, "
+        f"the drain's snapshot {snap['bytes']} bytes in {snap['write_s']:.3f} s; submit to "
+        f"applied {submit_wall:.2f} s; applied_seq {st['applied_seq']}, appended_seq "
+        f"{st['appended_seq']}, WAL truncated {truncated}, the snapshot's applied_seq "
+        f"{meta.get('applied_seq')}")
+    if not (st["applied_seq"] == st["appended_seq"] == 1 and st["pending_batches"] == 0
+            and truncated and meta.get("applied_seq") == 1 and drv.last_mode == "full"):
+        raise AssertionError(f"{tag} the drain's protocol: {st}, truncated {truncated}, "
+                             f"meta {meta.get('applied_seq')}")
+    t0 = time.perf_counter()
+    rec = IngestDriver.recover(drv.root, pipe.policy, pipe.spec, pipe.cfg, device=dev)
+    same = torch.equal(rec.pipeline.phi_in, pipe.phi_in) \
+        and torch.equal(rec.pipeline.phi_out, pipe.phi_out)
+    pending = rec.staleness()["pending_batches"]
+    log(f"{tag} IngestDriver.recover from the root alone in {time.perf_counter() - t0:.2f} s: "
+        f"applied_seq {rec.applied_seq}, pending {pending}, phi equals the driven pipeline's "
+        f"bit for bit {same}")
+    del rec
+    torch.cuda.empty_cache()
+    if not same or pending:
+        raise AssertionError(f"{tag} the recovered driver differs")
+
+
+def ingest_drills(torch, np, counters, dev, oracle, batch, pre_root, tmp) -> dict:
+    """``[ingest recipe]``: the recipe's churn from its pre-churn snapshot
+    through both drills in one refresh, held to the refreshed pipeline
+    ``oracle`` (``refresh_embedding``'s result; the driver's defaults are
+    its: the traversal detection and the refresh's own fine-tune steps) in
+    phi, ring and ocn bit for bit. A driver is killed after a durable
+    ``wal_append``; ``IngestDriver.recover`` rebuilds it from the disk
+    alone, and its drain's first attempt dies at ``refresh_splice``, so it
+    restores the snapshot in place and retries once, to land on the oracle.
+    K1 launches = write-backs = the steps trained, in graph replays."""
+    from repro_torch.runtime.faults import FaultInjector, SimulatedFailure
+    from repro_torch.runtime.ingest import IngestConfig, IngestDriver
+    from repro_torch.runtime.trainer import StreamingEmbedPipeline
+
+    tag = "[ingest recipe]"
+    t_phase = time.perf_counter()
+    plan = (oracle.policy, oracle.spec, oracle.cfg)
+    root = os.path.join(tmp, "crash")
+    drv = IngestDriver(root, StreamingEmbedPipeline.resume(pre_root, *plan, device=dev),
+                       cfg=IngestConfig(apply_every=1), faults=FaultInjector({"wal_append": [0]}))
+    crashed = False
+    try:
+        drv.submit(batch)
+    except SimulatedFailure:
+        crashed = True
+    durable = drv.appended_seq == 1 and drv.applied_seq == 0
+    del drv
+    torch.cuda.empty_cache()
+    delays = []
+    mem0 = torch.cuda.memory_allocated()
+    t0 = reset_counts(torch, counters)
+    rec = IngestDriver.recover(root, *plan, cfg=IngestConfig(apply_every=1, max_retries=1,
+                                                             backoff_s=0.01),
+                               faults=FaultInjector({"refresh_splice": [0]}),
+                               sleep=delays.append, device=dev)
+    wall = time.perf_counter() - t0
+    n = read_counts(torch, counters)
+    p = rec.pipeline
+    same = torch.equal(p.phi_in, oracle.phi_in) and torch.equal(p.phi_out, oracle.phi_out) \
+        and torch.equal(p.ring.walks, oracle.ring.walks) and torch.equal(p.ring.ocn, oracle.ring.ocn)
+    ok = crashed and durable and rec.retries == 1 and delays == [0.01] \
+        and rec.applied_seq == rec.appended_seq == 1 and same
+    log(f"{tag} a driver killed after a durable wal_append (crashed {crashed}, the batch "
+        f"durable {durable}) recovered from the disk alone; its drain died at "
+        f"refresh_splice[0], restored the snapshot in place and retried {rec.retries} time(s): "
+        f"{wall:.2f} s (mode {rec.last_mode}), device memory "
+        f"{(torch.cuda.memory_allocated() - mem0) / 2**20:+.1f} MiB (the recovered pipeline); "
+        f"phi, ring and ocn equal refresh_embedding's bit for bit {same}")
+    check_k1(tag, n, p.steps_run, p.chunks)
+    del rec, p
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{tag} the recovered, retried drain differs from "
+                             "refresh_embedding's")
+    log(f"{tag} drills {time.perf_counter() - t_phase:.2f} s")
+    return {"ingest recover + retry": n}
 
 
 # --- flash attention (K2) ---------------------------------------------------
@@ -2278,16 +2680,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    from repro_torch.configs import get_config
-    from repro_torch.configs.distger import GRAPH_PRESETS
-    from repro_torch.graph.generators import rmat_graph
-    from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.flash_attention import bench as fa_bench
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.sgns import ops, ref
+    from repro_torch.kernels.sgns import ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
-    from repro_torch.kernels.ssm_scan import ref as ssd_ref
     from repro_torch.kernels.ssm_scan import wide as ssd_wide
 
     counters = {"sgns_lifetime": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops,
@@ -2297,6 +2692,34 @@ def main() -> int:
 
     t_main = time.perf_counter()
     mark = lambda what: log(f"[elapsed] {what} done at {time.perf_counter() - t_main:.1f} s")
+    # One worker process makes the host-only inputs while the card works.
+    import concurrent.futures
+    import multiprocessing
+
+    host = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_paths(torch, np, dev, counters, libs, host, t_main, mark)
+    finally:
+        host.shutdown(wait=True, cancel_futures=True)
+
+
+def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
+    """The phases of ``main`` (the module's docstring), ``host`` a worker
+    pool for the host-only preparation."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.distger import GRAPH_PRESETS
+    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.flash_attention import bench as fa_bench
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.sgns import ops, ref
+    from repro_torch.kernels.ssm_scan import ops as ssd_ops
+    from repro_torch.kernels.ssm_scan import ref as ssd_ref
+    from repro_torch.kernels.ssm_scan import wide as ssd_wide
+
+    yt_job = host.submit(host_graph, "yt-sim")
+    fl_job = host.submit(host_graph, "fl-sim", churn=True)
 
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2327,8 +2750,9 @@ def main() -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg, hy_cfg, rec_cfg, mla_cfg, ds_cfg, moe_cfg = (get_config(a) for a in (
-        LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH, MLA_ARCH, MOE_MLA_ARCH, MOE_ARCH))
+    lm_cfg, hy_cfg, rec_cfg, mla_cfg, ds_cfg, moe_cfg = (
+        dataclasses.replace(get_config(a), num_layers=LM_LAYERS[a]) for a in (
+            LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH, MLA_ARCH, MOE_MLA_ARCH, MOE_ARCH))
     prompts = lm_prompts(np, lm_cfg.vocab_size)
     hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
     rec_prompts = lm_prompts(np, rec_cfg.vocab_size)
@@ -2400,10 +2824,12 @@ def main() -> int:
     # 3. the embedding path: k = 2 (the paper's regime), then k = 1 ---------------
     preset = GRAPH_PRESETS["yt-sim"]
     t0 = time.perf_counter()
-    graph = rmat_graph(preset.num_nodes, preset.avg_degree, seed=0, device=dev)
+    yt = yt_job.result()
+    graph = device_graph(torch, yt, dev)
     torch.cuda.synchronize()
-    log(f"[main] {preset.name}: |V|={graph.num_nodes} arcs={graph.num_edges} "
-        f"graph built in {time.perf_counter() - t0:.2f} s")
+    log(f"[main] {preset.name}: |V|={graph.num_nodes} arcs={graph.num_edges}; the graph built "
+        f"on the host in a worker process in {yt['graph_s']:.2f} s, waited for and moved to "
+        f"the card in {time.perf_counter() - t0:.2f} s")
     emb = {k: embedding_path(torch, np, counters, graph, k, dev) for k in (2, 1)}
     phi_in = torch.stack([emb[2].pop("phi_in"), emb[1].pop("phi_in")])      # (2, N, d)
     phi_out = torch.stack([emb[2].pop("phi_out"), emb[1].pop("phi_out")])
@@ -2414,15 +2840,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("[main]")
     mpgp2 = emb[2].pop("assignment")                # [main k=2]'s MPGP partition
+    cm = graph.with_edge_cm().edge_cm.cpu().numpy()  # [walk]'s k = 4 MPGP, made meanwhile
+    k4_job = host.submit(host_mpgp, yt["indptr"], yt["indices"], cm, 4)
+    del yt, cm
     durable = durable_phase(torch, np, counters, graph, mpgp2, want, dev)
     del want
     torch.cuda.empty_cache()
     mark("[durable]")
-    walk_phase(torch, np, graph, dev, {(2, "mpgp"): mpgp2})
+    mpgp4, mpgp4_s = k4_job.result()
+    log(f"[walk] mpgp k=4: partition {mpgp4_s:.2f} s in a worker process during [durable], "
+        f"nodes per part {np.bincount(mpgp4, minlength=4).tolist()}")
+    walk_phase(torch, np, graph, dev, {(2, "mpgp"): mpgp2, (4, "mpgp"): mpgp4})
     mark("[walk]")
     del graph
     torch.cuda.empty_cache()
-    refresh = refresh_phase(torch, np, counters, dev)
+    refresh = refresh_phase(torch, np, counters, dev, fl_job.result())
     torch.cuda.empty_cache()
     mark("[refresh]")
 

@@ -24,7 +24,8 @@ from repro_torch.graph.csr import CSRGraph
 
 
 def from_reference_state(tree: Dict[str, Any], device="cuda",
-                         d_history: Optional[Sequence[float]] = None) -> Dict[str, Any]:
+                         d_history: Optional[Sequence[float]] = None,
+                         walk_shards: Optional[int] = None) -> Dict[str, Any]:
     """Reference state (numpy) -> {"phi_in", "phi_out": (S, N, d) float32,
     "ring": CorpusRing, "key_walk", "key_train": prng keys, "stats": walk
     counters as ints, "assignment": the MPGP assignment as int32 numpy, or
@@ -32,7 +33,10 @@ def from_reference_state(tree: Dict[str, Any], device="cuda",
     where never written) or None, "d_history": the ΔD controller's history
     (``d_history``, read off the reference pipeline's
     ``controller.history``, which its state tree does not hold) or None,
-    "graph": CSRGraph (when the tree holds one)}. A port pipeline that
+    "walk_shards": the walk dispatch's shard count (``walk_shards``, read
+    off the reference pipeline, where an elastic reconfiguration or re-join
+    moved it from the replica count; the tree holds the assignment only) or
+    None, "graph": CSRGraph (when the tree holds one)}. A port pipeline that
     adopts it (``adopt_state``) can continue and refresh from it."""
     dev = resolve_device(device)
     f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
@@ -49,6 +53,7 @@ def from_reference_state(tree: Dict[str, Any], device="cuda",
         "slot_root": i64("slot_root"),
         "slot_round": i64("slot_round"),
         "d_history": None if d_history is None else [float(d) for d in d_history],
+        "walk_shards": None if walk_shards is None else int(walk_shards),
     }
     if tree.get("graph") is not None:
         state["graph"] = graph_from_arrays(tree["graph"], dev)

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -270,6 +270,174 @@ def mpgp_partition(
     _assign_stream(g, nodes, assignment, counts, num_parts, gamma, use_ps2, tau_weight)
     label = order if tau_weight == "nodes" else f"{order}:tau={tau_weight}"
     return _result(graph, assignment, num_parts, gamma, label, t0)
+
+
+# --- elastic reconfiguration: a shard's death and its re-join ----------------
+
+
+def _load_of(deg: np.ndarray, tau_weight: str) -> np.ndarray:
+    """The load each node adds to Eq. 15's capacity term."""
+    return deg + 1 if tau_weight == "degree" else np.ones(len(deg), dtype=np.int64)
+
+
+def reassign_dead_shard(
+    graph: CSRGraph,
+    assignment: np.ndarray,
+    dead: int,
+    *,
+    num_parts: Optional[int] = None,
+    gamma: float = 2.0,
+    use_ps2: bool = True,
+    tau_weight: str = "degree",
+) -> np.ndarray:
+    """Stream the nodes of a lost shard (the orphans) into the survivors by
+    the partition's own Eq. 14/15 argmax. The survivors' nodes stay where
+    they are; the orphans stream highest degree first, with Eq. 15's loads
+    primed from the survivors' current ones. Returns a new assignment over
+    the original ids with no node on ``dead`` (``compact_assignment`` makes
+    the ids dense). Bit-identical to the reference's."""
+    asn = np.asarray(assignment, dtype=np.int32)
+    if num_parts is None:         # a shard may own no node: callers that know k pass it
+        num_parts = int(asn.max()) + 1
+    if not 0 <= dead < num_parts:
+        raise ValueError(f"dead shard {dead} out of range for {num_parts}")
+    if num_parts <= 1:
+        raise ValueError("cannot reassign the only shard")
+    g = HostCSR.of(graph, with_cm=use_ps2)
+    deg = g.indptr[1:] - g.indptr[:-1]
+
+    new_asn = asn.copy()
+    orphans = np.flatnonzero(new_asn == dead)
+    new_asn[orphans] = -1
+    order = orphans[np.argsort(-deg[orphans], kind="stable")]
+    counts = np.zeros(num_parts, dtype=np.int64)
+    placed = np.flatnonzero(new_asn >= 0)
+    np.add.at(counts, new_asn[placed], _load_of(deg, tau_weight)[placed])
+    allowed = np.ones(num_parts, dtype=bool)
+    allowed[dead] = False
+    _assign_stream(g, order, new_asn, counts, num_parts, gamma, use_ps2, tau_weight,
+                   allowed=allowed)
+    assert not np.any(new_asn == dead) and not np.any(new_asn < 0)
+    return new_asn
+
+
+def compact_assignment(assignment: np.ndarray, dead: int, *,
+                       num_parts: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Shift the ids above ``dead`` down by one, after ``reassign_dead_shard``,
+    so the k-1 survivors are dense in [0, k-1). Returns ``(compacted,
+    old_of_new)``, ``old_of_new[i]`` survivor i's original id."""
+    asn = np.asarray(assignment, dtype=np.int32)
+    if np.any(asn == dead):
+        raise ValueError(f"assignment still references dead shard {dead}")
+    if num_parts is None:
+        num_parts = max(int(asn.max()) + 1 if asn.size else 0, dead + 1)
+    compacted = np.where(asn > dead, asn - 1, asn).astype(np.int32)
+    old_of_new = np.array([p for p in range(num_parts) if p != dead], dtype=np.int32)
+    return compacted, old_of_new
+
+
+def _bfs_donors(g: HostCSR, asn: np.ndarray, load_of: np.ndarray, surplus: np.ndarray,
+                seed: int, target: float) -> np.ndarray:
+    """The reference's donor search, a level at a time: a FIFO breadth-first
+    search from ``seed`` pops the nodes level by level, each level's nodes
+    in the order their parents popped and, under one parent, in row order,
+    so each level is its predecessor's unvisited neighbours, first
+    occurrences kept. A popped node donates while its shard's surplus is
+    positive (``surplus`` is updated in place); the search stops at the
+    first pop that brings the donated load to ``target``.
+
+    Within a level a shard's donors are a prefix of its nodes there (loads
+    are positive), so each node's test is its shard's surplus less the
+    loads of the shard's nodes before it in the level. Every such float64
+    value equals the reference's sequential one while it is positive (an
+    integer taken from a float below 2**53 leaves an exact result), so the
+    donors are the reference's, in its order."""
+    indptr, indices = g.indptr, g.indices
+    visited = np.zeros(len(asn), dtype=bool)
+    visited[seed] = True
+    level = np.array([seed], dtype=np.int64)
+    donors: List[np.ndarray] = []
+    donated = 0
+    while len(level) and donated < target:
+        part, load = asn[level], load_of[level]
+        by_part = np.argsort(part, kind="stable")
+        ps, ls = part[by_part], load[by_part]
+        before = np.cumsum(ls) - ls
+        first = np.r_[True, ps[1:] != ps[:-1]]
+        excl = np.empty_like(before)
+        excl[by_part] = before - before[first][np.cumsum(first) - 1]
+        gives = surplus[part] - excl > 0
+        given = donated + np.cumsum(np.where(gives, load, 0))
+        reached = np.flatnonzero(given >= target)
+        end = int(reached[0]) + 1 if len(reached) else len(level)
+        take = gives[:end]
+        donors.append(level[:end][take])
+        np.subtract.at(surplus, part[:end][take], load[:end][take].astype(np.float64))
+        donated = int(given[end - 1])
+        if len(reached):
+            break
+        starts = indptr[level]
+        width = indptr[level + 1] - starts
+        arcs = np.repeat(starts - (np.cumsum(width) - width), width) + np.arange(int(width.sum()))
+        nbr = indices[arcs]
+        nbr = nbr[~visited[nbr]]
+        _, at = np.unique(nbr, return_index=True)
+        level = nbr[np.sort(at)]
+        visited[level] = True
+    return np.concatenate(donors) if donors else np.zeros(0, dtype=np.int64)
+
+
+def rejoin_shard(
+    graph: CSRGraph,
+    assignment: np.ndarray,
+    *,
+    num_parts: Optional[int] = None,
+    gamma: float = 2.0,
+    tau_weight: str = "degree",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Grow a k-way assignment to k+1 when a lost shard returns; the new
+    shard takes id ``num_parts`` (survivors' ids never move). Donors are
+    found by a breadth-first search from the most loaded survivor's
+    highest-degree node: a node donates while its shard holds more than the
+    (k+1)-way share of the load, until the new shard holds one share. The
+    donors then stream, highest degree first, into the new shard alone
+    (``allowed`` admits it only; PS2 is skipped, the argmax having one
+    candidate). Returns ``(new_assignment, moved_mask)``, both bit-identical
+    to the reference's, whose search pops a ``deque`` one node at a time
+    (``_bfs_donors`` does it a level at a time)."""
+    asn = np.asarray(assignment, dtype=np.int32)
+    if num_parts is None:
+        num_parts = int(asn.max()) + 1
+    if np.any(asn < 0) or np.any(asn >= num_parts):
+        raise ValueError("assignment must be dense in [0, num_parts)")
+    k_new = num_parts + 1
+    g = HostCSR.of(graph, with_cm=False)
+    deg = g.indptr[1:] - g.indptr[:-1]
+    load_of = _load_of(deg, tau_weight)
+
+    counts = np.zeros(k_new, dtype=np.int64)
+    np.add.at(counts, asn, load_of)
+    target = counts.sum() / k_new
+    surplus = counts[:num_parts].astype(np.float64) - target
+    heavy = int(np.argmax(counts[:num_parts]))
+    members = np.flatnonzero(asn == heavy)
+    seed = int(members[np.argmax(deg[members])])
+    donor_ids = _bfs_donors(g, asn, load_of, surplus, seed, target)
+    if not len(donor_ids):
+        donor_ids = np.array([seed], dtype=np.int64)     # never re-open an empty shard
+
+    new_asn = asn.copy()
+    new_asn[donor_ids] = -1
+    counts2 = np.zeros(k_new, dtype=np.int64)
+    placed = np.flatnonzero(new_asn >= 0)
+    np.add.at(counts2, new_asn[placed], load_of[placed])
+    order = donor_ids[np.argsort(-deg[donor_ids], kind="stable")]
+    allowed = np.zeros(k_new, dtype=bool)
+    allowed[num_parts] = True
+    _assign_stream(g, order, new_asn, counts2, k_new, gamma, use_ps2=False,
+                   tau_weight=tau_weight, allowed=allowed)
+    assert not np.any(new_asn < 0) and np.any(new_asn == num_parts)
+    return new_asn, new_asn != asn
 
 
 def mpgp_partition_parallel(

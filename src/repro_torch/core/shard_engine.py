@@ -79,7 +79,8 @@ from repro_torch.core.transition import Policy
 from repro_torch.dist.collectives import (all_gather, axis_index, packed_all_gather,
                                           packed_all_to_all, psum, psum_union, row_cumsum,
                                           take_ranked)
-from repro_torch.graph.csr import CSRGraph, PartitionedCSR, build_partitioned_csr
+from repro_torch.graph.csr import (CSRGraph, PartitionedCSR, build_partitioned_csr,
+                                  reassign_partitioned_csr)
 from repro_torch.graph.delta import graph_version
 
 INFO_FIELDS = ("H", "L", "EH", "EL", "EHL", "EH2", "EL2")
@@ -639,6 +640,66 @@ def partitioned_csr_for(graph: CSRGraph, assignment: np.ndarray, num_shards: int
         _PCSR_CACHE.clear()
     _PCSR_CACHE[key] = (weakref.ref(key_obj), pcsr)
     return pcsr
+
+
+def reconfigure_partitions(graph: CSRGraph, old_assignment: np.ndarray,
+                           new_assignment: np.ndarray, num_shards_new: int, *,
+                           old_of_new: np.ndarray, num_shards_old: Optional[int] = None,
+                           key_obj: object = None) -> Dict:
+    """Swap the cached partition-local store to a new shard layout after an
+    elastic reconfiguration: a k -> k-1 shard death (``num_shards_old``
+    defaults to ``num_shards_new + 1``) or a k -> k+1 re-join (pass
+    ``num_shards_old``, and -1 in ``old_of_new`` for the returned shard).
+
+    The old store is looked up in ``_PCSR_CACHE``; when it is there (the
+    engine built it in an earlier round) the new one is assembled by
+    ``reassign_partitioned_csr``, the untouched shards' arc rows copied on
+    the device, else built afresh. Every entry keyed on the replaced
+    assignment, slices and learned pool sizes alike, is evicted (a k-way
+    pool size says nothing of k±1), and the new store is primed under the
+    new assignment's key, so the next walk round hits. Returns
+    ``{"reused_shards", "rebuilt_shards", "wall_s"}``."""
+    t0 = time.perf_counter()
+    key_obj = graph if key_obj is None else key_obj
+    old_asn = np.asarray(old_assignment)
+    new_asn = np.asarray(new_assignment)
+    gv = graph_version(key_obj)
+    k_old = num_shards_new + 1 if num_shards_old is None else int(num_shards_old)
+    h_old = hash(old_asn.tobytes())
+
+    # Reuse needs like-for-like rows: match the store's weights and Cm to
+    # the graph being sliced (the key's Cm flag names the slicing graph,
+    # which ``run_walk_sharded`` may have given Cm).
+    old_pcsr = None
+    for key, (ref, pcsr) in list(_PCSR_CACHE.items()):
+        if (key[0] == id(key_obj) and key[1] == gv and key[2] == k_old and key[4] == h_old
+                and ref() is key_obj
+                and (pcsr.slices.edge_cm is not None) == (graph.edge_cm is not None)
+                and (pcsr.slices.weights is not None) == (graph.weights is not None)):
+            old_pcsr = pcsr
+            break
+    if old_pcsr is not None:
+        new_pcsr, reused = reassign_partitioned_csr(graph, new_asn, num_shards_new, old=old_pcsr,
+                                                    old_assignment=old_asn,
+                                                    old_of_new=np.asarray(old_of_new))
+    else:
+        new_pcsr, reused = build_partitioned_csr(graph, new_asn, num_shards_new), 0
+
+    # The keys: (id, version, k, Cm, assignment hash) for slices and
+    # (id, version, k, B, spec, pool factor, assignment hash) for pools.
+    for key in [k for k in _PCSR_CACHE if k[0] == id(key_obj) and k[4] == h_old]:
+        del _PCSR_CACHE[key]
+    for key in [k for k in _POOL_CACHE if k[0] == id(key_obj) and k[-1] == h_old]:
+        del _POOL_CACHE[key]
+    if len(_PCSR_CACHE) >= 8:
+        _PCSR_CACHE.clear()
+    new_key = (id(key_obj), gv, num_shards_new, graph.edge_cm is not None,
+               hash(new_asn.tobytes()))
+    _PCSR_CACHE[new_key] = (weakref.ref(key_obj), new_pcsr)
+    if graph.device.type == "cuda":
+        torch.cuda.synchronize(graph.device)
+    return {"reused_shards": int(reused), "rebuilt_shards": int(num_shards_new - reused),
+            "wall_s": float(time.perf_counter() - t0)}
 
 
 def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,

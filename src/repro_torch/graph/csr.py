@@ -184,16 +184,12 @@ def subgraph_partition_pad(graph: CSRGraph, assignment: np.ndarray, num_parts: i
     return parts["indptr"], parts["indices"], parts["owned"], parts["max_nodes"]
 
 
-def _partition_slices(graph: CSRGraph, assignment: np.ndarray, num_parts: int) -> dict:
-    """Per-partition CSR slicing on the host, O(|V| + |E|). Within a
-    partition rows are in ascending global id and keep their sorted
-    neighbour lists, so the slice row of node v is its global row."""
-    indptr = graph.indptr.cpu().numpy().astype(np.int64)
-    indices = graph.indices.cpu().numpy().astype(np.int64)
-    n = len(indptr) - 1
-    asn = np.asarray(assignment, np.int64)
-    deg = indptr[1:] - indptr[:-1]
-
+def _node_layout(deg: np.ndarray, asn: np.ndarray, num_parts: int):
+    """The node-level layout of a partition, O(|V|) on the host: per part
+    node counts, the padded width, each node's local row at its owner, the
+    owned nodes by local row (-1 pad) and the local row offsets. Rows are
+    in ascending global id within a part."""
+    n = len(deg)
     counts = np.bincount(asn, minlength=num_parts)
     max_nodes = max(int(counts.max()), 1) if n else 1
     node_starts = np.zeros(num_parts + 1, np.int64)
@@ -208,6 +204,19 @@ def _partition_slices(graph: CSRGraph, assignment: np.ndarray, num_parts: int) -
         deg_p[asn, local_of[:n]] = deg
     indptr_p = np.zeros((num_parts, max_nodes + 1), np.int64)
     np.cumsum(deg_p, axis=1, out=indptr_p[:, 1:])
+    return counts, max_nodes, local_of, owned, indptr_p
+
+
+def _partition_slices(graph: CSRGraph, assignment: np.ndarray, num_parts: int) -> dict:
+    """Per-partition CSR slicing on the host, O(|V| + |E|). Within a
+    partition rows are in ascending global id and keep their sorted
+    neighbour lists, so the slice row of node v is its global row."""
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    indices = graph.indices.cpu().numpy().astype(np.int64)
+    n = len(indptr) - 1
+    asn = np.asarray(assignment, np.int64)
+    deg = indptr[1:] - indptr[:-1]
+    counts, max_nodes, local_of, owned, indptr_p = _node_layout(deg, asn, num_parts)
 
     # Arcs are src-major in ascending src, so a stable sort by partition
     # keeps each partition's arcs in its local-row order: the indptr_p layout.
@@ -313,3 +322,92 @@ def build_partitioned_csr(graph: CSRGraph, assignment: np.ndarray,
     return PartitionedCSR(slices=slices, local_of=as_dev(parts["local_of"], torch.int64),
                           owned=parts["owned"], num_owned=parts["num_owned"],
                           num_parts=num_parts)
+
+
+def reassign_partitioned_csr(graph: CSRGraph, new_assignment: np.ndarray, num_parts: int, *,
+                             old: PartitionedCSR, old_assignment: np.ndarray,
+                             old_of_new: np.ndarray) -> Tuple[PartitionedCSR, int]:
+    """Rebuild a ``PartitionedCSR`` after an elastic reconfiguration, on the
+    graph's device, reusing what did not change.
+
+    ``new_assignment`` is either a shard death's compacted k-1-way
+    assignment (``mpgp.reassign_dead_shard`` + ``compact_assignment``) or
+    a re-join's k+1-way one (``mpgp.rejoin_shard``); ``old`` is the store it
+    replaces and ``old_of_new[s]`` new shard s's old id, -1 for a new
+    shard. A shard that neither gained nor lost a node keeps its arc rows
+    (indices, neighbour degrees, weights, Cm), copied on the device from
+    the old slices and refit to the new padded width; a changed shard's
+    rows are scattered from the graph's arcs. ``nbr_owner`` is recomputed
+    for every shard (an arc into a moved node changes owner), and the
+    O(|V|) node layout outright. Returns ``(store, reused)``, ``reused`` the
+    shards whose rows were copied; the store equals
+    ``build_partitioned_csr(graph, new_assignment, num_parts)`` field for
+    field."""
+    dev = graph.device
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    n = len(indptr) - 1
+    asn = np.asarray(new_assignment, np.int64)
+    old_asn = np.asarray(old_assignment, np.int64)
+    old_of_new = np.asarray(old_of_new, np.int64)
+    deg = indptr[1:] - indptr[:-1]
+    counts, max_nodes, local_of, owned, indptr_p = _node_layout(deg, asn, num_parts)
+    e_counts = np.zeros(num_parts, np.int64)
+    np.add.at(e_counts, asn, deg)
+    max_edges = max(int(e_counts.max()), 1) if indptr[-1] else 1
+
+    # A node moved iff its old shard is not its new shard's old id (a new
+    # shard's -1 matches none). A shard is rebuilt iff it gained a moved
+    # node (a death's survivors) or, surviving, lost one (a re-join's donors).
+    changed = old_of_new < 0
+    if n:
+        moved = old_of_new[asn] != old_asn
+        if moved.any():
+            changed[np.unique(asn[moved])] = True
+            new_of_old = np.full(1 + int(max(old_asn.max(), old_of_new.max())), -1, np.int64)
+            keep = old_of_new >= 0
+            new_of_old[old_of_new[keep]] = np.flatnonzero(keep)
+            losers = new_of_old[old_asn[moved]]
+            changed[np.unique(losers[losers >= 0])] = True
+
+    s = old.slices
+    fields = ("indices", "nbr_deg", "weights", "edge_cm")
+    fill = {"indices": -1, "nbr_deg": 0, "weights": 0.0, "edge_cm": 0}
+    rows = {f: None if getattr(s, f) is None else
+            torch.full((num_parts, max_edges), fill[f], dtype=getattr(s, f).dtype, device=dev)
+            for f in fields}
+    reused = 0
+    width = min(max_edges, int(s.indices.shape[1]))     # only padding lies beyond
+    for p in np.flatnonzero(~changed):
+        o = int(old_of_new[p])
+        for f, t in rows.items():
+            if t is not None:
+                t[p, :width] = getattr(s, f)[o, :width]
+        reused += 1
+
+    asn_t = torch.from_numpy(asn).to(dev)
+    if n and changed.any():
+        deg_t = graph.degrees()
+        src = torch.repeat_interleave(torch.arange(n, device=dev), deg_t,
+                                      output_size=graph.num_edges)
+        arc = torch.nonzero(torch.from_numpy(changed).to(dev)[asn_t[src]]).squeeze(1)
+        src = src[arc]
+        part = asn_t[src]
+        # A node's row starts at its local row's offset in its owner's slice.
+        pos = (torch.from_numpy(indptr_p).to(dev)[part, torch.from_numpy(local_of[:n]).to(dev)[src]]
+               + arc - graph.indptr[src])
+        dst = graph.indices[arc]
+        rows["indices"][part, pos] = dst.to(rows["indices"].dtype)
+        rows["nbr_deg"][part, pos] = deg_t[dst].to(rows["nbr_deg"].dtype)
+        for f in ("weights", "edge_cm"):
+            if rows[f] is not None:
+                rows[f][part, pos] = getattr(graph, f)[arc].to(rows[f].dtype)
+
+    idx = rows["indices"]
+    nbr_owner = torch.where(idx >= 0, asn_t[idx.clamp(min=0).to(torch.int64)],
+                            -1).to(s.nbr_owner.dtype)
+    slices = ShardCSR(indptr=torch.from_numpy(indptr_p).to(s.indptr.dtype).to(dev),
+                      indices=idx, nbr_owner=nbr_owner, nbr_deg=rows["nbr_deg"],
+                      weights=rows["weights"], edge_cm=rows["edge_cm"])
+    store = PartitionedCSR(slices=slices, local_of=torch.from_numpy(local_of[:n]).to(dev),
+                           owned=owned, num_owned=counts.astype(np.int64), num_parts=num_parts)
+    return store, reused

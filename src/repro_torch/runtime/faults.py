@@ -18,7 +18,7 @@ boundary where a real crash can land:
     ``ckpt_write``  — immediately before a snapshot commits (the snapshot
                       is lost; recovery must fall back one snapshot);
     ``wal_append``  — after a WAL record is durable but before it applies
-                      (the ingest driver's; not ported yet).
+                      (``runtime.ingest.IngestDriver.submit``).
 
 Each point carries a cumulative occurrence counter (monotonic across
 supervisor restarts — the same injector object rides through the restart

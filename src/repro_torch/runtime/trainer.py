@@ -43,10 +43,22 @@ The run loop is a state machine over persisted cursors: ``save`` writes an
 atomic snapshot in the reference's on-disk layout (``ckpt.checkpoint``),
 ``resume`` continues a crashed run bit for bit from the port's or the
 reference's snapshot, and with a ``runtime.health.HealthMonitor`` attached
-a divergence rolls the run back to its newest snapshot in place. The
-``runtime.faults`` injection points fire where the reference's do, and the
-run reports to ``obs`` what the reference's does, from values it already
-holds on the host.
+a divergence rolls the run back to its newest snapshot in place. ``save``'s
+``meta_extra`` stamps the caller's fields into the snapshot's meta (the
+ingest driver's ``applied_seq``). The ``runtime.faults`` injection points
+fire where the reference's do, and the run reports to ``obs`` what the
+reference's does, from values it already holds on the host.
+
+Elastic walk shards: ``run(liveness=LivenessProbe(...))`` polls the
+shards at the top of every round; a shard that misses its probes is
+reassigned to the survivors (``elastic_reconfigure``: MPGP streams its
+nodes into them, its resident walks are walked again under their rounds'
+keys), and one that answers again grows the walk dispatch back
+(``elastic_rejoin``). With vertex keys a walk depends on neither the shard
+count nor the assignment, so ring and phi stay on the fault-free run's
+bits; the next round's walk is the first dispatched at the new k. The DSGL
+replica count and the training's CUDA graphs do not change.
+``recover_shard_loss`` walks a lost shard's resident walks again in place.
 """
 
 from __future__ import annotations
@@ -119,6 +131,7 @@ class StreamingEmbedPipeline:
         self._lr_scale = 1.0            # the watchdog's rollback backoff (persisted)
         self._faults: FaultInjector = NULL_INJECTOR
         self._snapshot_hooks: List[Callable] = []
+        self._reconfigs: List[Dict[str, Any]] = []   # elastic deaths and re-joins, in order
         self._rounds_cfg = dict(rounds_cfg)
         self.controller = WalkCountController(**rounds_cfg)
         self.degrees = graph.degrees().cpu().numpy()
@@ -186,8 +199,9 @@ class StreamingEmbedPipeline:
     def adopt_state(self, state: Dict[str, Any]) -> None:
         """Continue from imported state (``convert.from_reference_state``):
         the (S, N, d) replica matrices, the ring, both RNG keys, the MPGP
-        assignment when the state has one, and the ring's slot maps and the
-        ΔD history when it has them (a refresh needs both)."""
+        assignment and the walk shard count when the state has them, and
+        the ring's slot maps and the ΔD history when it has them (a refresh
+        needs both)."""
         if state["phi_in"].shape[0] != self.num_shards:
             raise ValueError(f"state has {state['phi_in'].shape[0]} replicas, the pipeline "
                              f"{self.num_shards}")
@@ -195,6 +209,8 @@ class StreamingEmbedPipeline:
         self.phi_out = state["phi_out"].to(self.device)
         if state.get("assignment") is not None:
             self.assignment = np.asarray(state["assignment"], dtype=np.int32)
+        if state.get("walk_shards") is not None:
+            self.walk_shards = int(state["walk_shards"])
         self.ring = state["ring"]
         self.key_walk, self.key_train = state["key_walk"], state["key_train"]
         if state.get("slot_root") is not None:
@@ -377,7 +393,7 @@ class StreamingEmbedPipeline:
 
     def run(self, *, ckpt_root: Optional[str] = None, ckpt_every_rounds: int = 0,
             ckpt_keep: Optional[int] = None,
-            faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
+            faults: FaultInjector = NULL_INJECTOR, liveness=None) -> Dict[str, Any]:
         """Run (or continue, after ``resume``) the walk -> train lifecycle:
         walk rounds gated by the ΔD controller, training each round, then
         the schedule-completion tail. Returns the run's summary.
@@ -401,7 +417,12 @@ class StreamingEmbedPipeline:
         pipeline back to the newest snapshot in place, backs the learning
         rate off by ``lr_backoff``, walks the offending chunk's roots again
         (vertex keys) and re-enters the loop, at most
-        ``HealthConfig.max_rollbacks`` times."""
+        ``HealthConfig.max_rollbacks`` times. With a
+        ``runtime.faults.LivenessProbe`` the top of every round polls the
+        walk shards: a shard dead by the probe is reassigned
+        (``elastic_reconfigure``) and a returned one re-joins
+        (``elastic_rejoin``), each followed by a snapshot when snapshots
+        are on."""
         t0 = time.perf_counter()
         self._ckpt_root, self._ckpt_every = ckpt_root, ckpt_every_rounds
         self._ckpt_keep = ckpt_keep
@@ -412,7 +433,7 @@ class StreamingEmbedPipeline:
                 self.save(ckpt_root, faults=faults)
             while True:
                 try:
-                    result = self._run_phases(faults)
+                    result = self._run_phases(faults, liveness)
                     break
                 except DivergenceError as err:
                     self._heal_divergence(err, faults)
@@ -421,7 +442,7 @@ class StreamingEmbedPipeline:
         result["wall_s"] = time.perf_counter() - t0
         return result
 
-    def _run_phases(self, faults: FaultInjector) -> Dict[str, Any]:
+    def _run_phases(self, faults: FaultInjector, liveness) -> Dict[str, Any]:
         n = len(self.sources)
         if self._phase == "rounds":
             if self._rounds_walked == 0:
@@ -430,6 +451,8 @@ class StreamingEmbedPipeline:
                 r = self._trained_rounds
                 with log_context(round=r):
                     faults.fire("round", r)
+                    # Rounds 0..r are walked: a new layout dispatches round r+1.
+                    self._poll_liveness(liveness, faults)
                     ocn_host = self.ring.ocn.cpu().numpy()            # per-round sync
                     cont = self.controller.update_d(
                         relative_entropy_dpq(self.degrees, ocn_host))
@@ -483,6 +506,7 @@ class StreamingEmbedPipeline:
             "stats": stats,
             "cm_s": self.cm_seconds,
             "health": self.health.report() if self.health is not None else None,
+            "reconfigs": list(self._reconfigs),
             "lr_scale": float(self._lr_scale),
         }
 
@@ -552,22 +576,25 @@ class StreamingEmbedPipeline:
             tree["assignment"] = np.asarray(self.assignment, np.int32)
         return tree
 
-    def save(self, root: str, *, faults: FaultInjector = NULL_INJECTOR) -> str:
+    def save(self, root: str, *, faults: FaultInjector = NULL_INJECTOR,
+             meta_extra: Optional[Dict[str, Any]] = None) -> str:
         """Snapshot the whole walk -> train state as one atomic checkpoint in
         the reference's layout (``ckpt.checkpoint``): the phi replicas, the
         ring (walks, lengths, ocn, cursor, total), the host slot maps, both
         RNG keys, the walk counters, the ΔD controller, the run's cursors,
         the MPGP assignment and the graph's CSR arrays, so a resume needs no
-        graph handle. Returns the committed path.
+        graph handle. ``meta_extra`` adds its fields to the snapshot's meta.
+        Returns the committed path.
 
         ``faults`` can crash the write two ways: ``ckpt_write`` fires before
         anything is written (the snapshot is lost), and ``torn("ckpt")``
         commits the directory, then corrupts its manifest and raises."""
         with obs.trace_span("ckpt.write", seq=self._ckpt_seq, round=self._trained_rounds,
                             step=self.global_step, phase=self._phase):
-            return self._save_inner(root, faults)
+            return self._save_inner(root, faults, meta_extra)
 
-    def _save_inner(self, root: str, faults: FaultInjector) -> str:
+    def _save_inner(self, root: str, faults: FaultInjector,
+                    meta_extra: Optional[Dict[str, Any]]) -> str:
         faults.fire("ckpt_write", self._ckpt_seq)
         torn = faults.torn("ckpt")
         t0 = time.perf_counter()
@@ -591,6 +618,8 @@ class StreamingEmbedPipeline:
             # The counters exactly (the float32 arrays round above 2**24).
             "walk_stats": {k: stats[k] for k in STAT_KEYS},
         }
+        if meta_extra:
+            meta.update(meta_extra)
         path = save_checkpoint(root, self._ckpt_seq, self._state_tree(), meta=meta)
         if torn:
             with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -716,14 +745,17 @@ class StreamingEmbedPipeline:
                     "quarantined %d resident walks", report.kind, report.step,
                     self.global_step, self._lr_scale, quarantined)
 
-    def _restore_in_place(self) -> int:
-        """Adopt the newest valid snapshot's state into THIS pipeline: the
-        in-place form of ``resume``. phi and the ring are copied into their
-        own storage, so the chunks' CUDA graphs stay valid and no second
-        pipeline is held; the graph is replaced only when the snapshot's
-        differs. Returns the restored global step."""
-        step_loaded, arrays, meta = load_checkpoint(self._ckpt_root)
-        _check_kind(meta, self._ckpt_root, step_loaded)
+    def _restore_in_place(self, root: Optional[str] = None) -> int:
+        """Adopt the newest valid snapshot's state (under ``root``, by default
+        the run's snapshot root) into THIS pipeline: the in-place form of
+        ``resume``. phi and the ring are copied into their own storage, so
+        the chunks' CUDA graphs stay valid and no second pipeline is held;
+        the graph is replaced only when the snapshot's differs. The run's
+        wiring (watchdog, snapshot hooks, the reconfiguration log) stays.
+        Returns the restored global step."""
+        root = self._ckpt_root if root is None else root
+        step_loaded, arrays, meta = load_checkpoint(root)
+        _check_kind(meta, root, step_loaded)
         g = self.graph
         same = all(name in arrays and np.array_equal(arrays[name], t.cpu().numpy())
                    for name, t in (("graph/indptr", g.indptr), ("graph/indices", g.indices))) \
@@ -732,10 +764,174 @@ class StreamingEmbedPipeline:
             self.adopt_graph(_snapshot_graph(arrays, self.device))
         if "assignment" in arrays:
             self.assignment = np.asarray(arrays["assignment"], np.int32)
-        self._adopt_snapshot(self._ckpt_root, step_loaded, arrays, meta)
+        self._adopt_snapshot(root, step_loaded, arrays, meta)
         self._ft = None
         self._ckpt_tick = 0
         return self.global_step
+
+    # --- elastic walk shards ------------------------------------------------
+    def _poll_liveness(self, liveness, faults: FaultInjector) -> None:
+        """One probe sweep at a round boundary: a shard dead by the probe is
+        reassigned to the survivors rather than stalling the round, and a
+        returned one grows the dispatch back. A snapshot follows each (when
+        snapshots are on), so a rollback never brings back a layout."""
+        if liveness is None:
+            return
+        snapshot = bool(self._ckpt_root and (self._ckpt_every or self.health))
+        for dead in liveness.poll(faults):
+            name = liveness.names[dead]
+            log.warning("walk shard %d (launch id %d) missed %d consecutive liveness probes: "
+                        "reconfiguring elastically", dead, name, liveness.misses_to_dead)
+            self.elastic_reconfigure(dead, faults=faults)["launch_id"] = int(name)
+            liveness.remove(dead)
+            if snapshot:
+                self.save(self._ckpt_root, faults=faults)
+        for name in liveness.rejoinable():
+            log.info("walk shard (launch id %d) answered %d consecutive liveness probes: "
+                     "growing back elastically", name, liveness.hits_to_live)
+            self.elastic_rejoin(faults=faults)["launch_id"] = int(name)
+            liveness.rejoin(name)
+            if snapshot:
+                self.save(self._ckpt_root, faults=faults)
+
+    def _check_elastic(self, what: str) -> None:
+        if self.assignment is None:
+            raise ValueError(f"elastic {what} needs a shard assignment")
+        if self.spec.rng_mode != "vertex":
+            raise ValueError(f"elastic {what} requires WalkSpec.rng_mode='vertex' (walks must "
+                             "not depend on the shard count or the assignment)")
+
+    def elastic_reconfigure(self, dead_shard: int, *,
+                            faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
+        """Continue at k-1 walk shards after shard ``dead_shard`` is lost.
+
+        Its nodes re-enter the MPGP stream, highest degree first, and go to
+        the surviving shards by the partition's own Eq. 14/15 argmax
+        (``mpgp.reassign_dead_shard``); the partition-local store is rebuilt
+        with the untouched survivors' rows reused
+        (``shard_engine.reconfigure_partitions``); the lost shard's resident
+        walks are walked again from their roots under their rounds' keys
+        and spliced back, bit-identical to what it had walked (vertex keys).
+        Walks rooted in the survivors are never touched. The DSGL replica
+        count does not change."""
+        from repro_torch.core.mpgp import compact_assignment, reassign_dead_shard
+        from repro_torch.core.shard_engine import reconfigure_partitions
+
+        self._check_elastic("reconfiguration")
+        k = self.walk_shards
+        if not 0 <= dead_shard < k:
+            raise ValueError(f"dead shard {dead_shard} not in [0, {k})")
+        if k <= 1:
+            raise ValueError("cannot reconfigure away the last walk shard")
+        t0 = time.perf_counter()
+        old_asn = np.asarray(self.assignment)
+        orphans = old_asn == dead_shard
+        new_full = reassign_dead_shard(self.graph, old_asn, dead_shard, num_parts=k,
+                                       tau_weight="degree")
+        compacted, old_of_new = compact_assignment(new_full, dead_shard, num_parts=k)
+        t1 = time.perf_counter()
+        eng = reconfigure_partitions(self.graph, old_asn, compacted, k - 1,
+                                     old_of_new=old_of_new, key_obj=self.graph)
+        self.assignment = compacted
+        self.walk_shards = k - 1
+        t2 = time.perf_counter()
+        rewalk, rounds = self._rewalk_resident(orphans, faults)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t3 = time.perf_counter()
+        stats = {
+            "dead_shard": int(dead_shard),
+            "walk_shards": int(self.walk_shards),
+            "moved_roots": int(orphans.sum()),
+            "moved_frac": float(orphans.mean()),
+            "rewalk_walks": int(rewalk),
+            "rounds_resident": int(rounds),
+            "reused_shards": int(eng["reused_shards"]),
+            "rebuilt_shards": int(eng["rebuilt_shards"]),
+            "wall_s": float(t3 - t0),
+            "phase_s": {"reassign": t1 - t0, "partitions": t2 - t1, "rewalk": t3 - t2},
+        }
+        self._reconfigs.append(stats)
+        obs.span_event("pipeline.reconfig", dead_shard=int(dead_shard),
+                       walk_shards=int(self.walk_shards), moved_roots=stats["moved_roots"],
+                       rewalk_walks=stats["rewalk_walks"])
+        obs.inc("pipeline.reconfigs")
+        obs.set_gauge("walk.shards", self.walk_shards)
+        with log_context(shard=dead_shard):
+            log.info("elastic reconfiguration: %d orphan roots -> %d survivors (%d/%d slices "
+                     "reused), %d resident walks migrated in %.3fs", stats["moved_roots"],
+                     self.walk_shards, stats["reused_shards"], k - 1, rewalk, stats["wall_s"])
+        return stats
+
+    def elastic_rejoin(self, *, faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
+        """Grow back from k to k+1 walk shards when capacity returns. The
+        returned shard takes the highest id (survivors' ids never move);
+        ``mpgp.rejoin_shard`` gives it a connected donor region of the
+        overloaded survivors, and the store is rebuilt with every other
+        shard's rows reused. No walk moves: vertex-keyed walks depend on
+        neither the shard count nor the assignment, so the next round
+        simply dispatches over k+1 shards."""
+        from repro_torch.core.mpgp import rejoin_shard
+        from repro_torch.core.shard_engine import reconfigure_partitions
+
+        self._check_elastic("re-join")
+        k = self.walk_shards
+        t0 = time.perf_counter()
+        old_asn = np.asarray(self.assignment)
+        new_asn, moved = rejoin_shard(self.graph, old_asn, num_parts=k, tau_weight="degree")
+        t1 = time.perf_counter()
+        eng = reconfigure_partitions(self.graph, old_asn, new_asn, k + 1,
+                                     old_of_new=np.concatenate([np.arange(k), [-1]]),
+                                     num_shards_old=k, key_obj=self.graph)
+        self.assignment = new_asn
+        self.walk_shards = k + 1
+        t2 = time.perf_counter()
+        stats = {
+            "kind": "rejoin",
+            "walk_shards": int(self.walk_shards),
+            "moved_roots": int(moved.sum()),
+            "moved_frac": float(moved.mean()),
+            "reused_shards": int(eng["reused_shards"]),
+            "rebuilt_shards": int(eng["rebuilt_shards"]),
+            "wall_s": float(t2 - t0),
+            "phase_s": {"rejoin": t1 - t0, "partitions": t2 - t1},
+        }
+        self._reconfigs.append(stats)
+        obs.span_event("pipeline.rejoin", walk_shards=int(self.walk_shards),
+                       moved_roots=stats["moved_roots"])
+        obs.inc("pipeline.rejoins")
+        obs.set_gauge("walk.shards", self.walk_shards)
+        log.info("elastic re-join: %d donor roots -> returned shard %d (%d/%d slices reused) "
+                 "in %.3fs", stats["moved_roots"], k, stats["reused_shards"], k + 1,
+                 stats["wall_s"])
+        return stats
+
+    def recover_shard_loss(self, shard_id: int, *,
+                           faults: FaultInjector = NULL_INJECTOR) -> Dict[str, Any]:
+        """Degraded-mode recovery of one lost walk shard: walk again only the
+        resident walks rooted in it, under their rounds' keys, and splice
+        them into their slots. With vertex keys they are bit-identical to
+        what the shard had walked, so the ring (and ocn) is restored exactly.
+        Needs ``WalkSpec.rng_mode == "vertex"``."""
+        if self.spec.rng_mode != "vertex":
+            raise ValueError("shard-loss recovery requires WalkSpec.rng_mode='vertex'")
+        n = len(self.sources)
+        if self.assignment is None:
+            if shard_id != 0:
+                raise ValueError(f"pipeline has no shard assignment (shard {shard_id})")
+            mask = np.ones(n, bool)              # one shard: every walk is resident there
+        else:
+            mask = np.asarray(self.assignment) == shard_id
+        t0 = time.perf_counter()
+        with log_context(shard=shard_id):
+            rewalk, rounds = self._rewalk_resident(mask, faults)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            log.info("shard-loss recovery re-walked %d walks over %d resident rounds",
+                     rewalk, rounds)
+        return {"shard": int(shard_id), "lost_roots": int(mask.sum()),
+                "rewalk_walks": int(rewalk), "rounds_resident": int(rounds),
+                "wall_s": float(time.perf_counter() - t0)}
 
     # --- incremental refresh (core.incremental drives this) ----------------
     def corpus_slots(self) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:

@@ -185,10 +185,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("name", ["obs", "ckpt", "common", "runtime.faults", "runtime.health"])
+@pytest.mark.parametrize("name", ["obs", "ckpt", "common", "runtime.faults", "runtime.health",
+                                  "runtime.ingest"])
 def test_durability_and_telemetry_modules_import_neither_jax_nor_reference(name):
-    """The telemetry, checkpoint, logging, fault and watchdog modules are
-    copies, not imports, of the JAX package's: no ``jax`` or ``repro``
+    """The telemetry, checkpoint, logging, fault, watchdog and ingest modules
+    are copies, not imports, of the JAX package's: no ``jax`` or ``repro``
     import in their source, and none loaded by importing them alone."""
     base = ROOT / "src" / "repro_torch" / Path(*name.split("."))
     files = sorted(base.rglob("*.py")) if base.is_dir() else [base.with_suffix(".py")]
