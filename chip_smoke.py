@@ -5,11 +5,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each failure raises and ends the run with a non-zero exit):
 
-1. Build the four kernel libraries with nvcc for sm_90a, one nvcc each,
+1. Build the five kernel libraries with nvcc for sm_90a, one nvcc each,
    started together: the SGNS lifetime kernel (``kernels/sgns/csrc``), the
-   flash attention kernel (``kernels/flash_attention/csrc``) and the
+   flash attention kernel (``kernels/flash_attention/csrc``), the
    chunked SSD scan's two routes (``kernels/ssm_scan/csrc``: ``ssd_scan.cu``
-   and the wide route, ``ssd_wide.cu``). Print the compiler's
+   and the wide route, ``ssd_wide.cu``) and the embedding server's
+   order-pinned scoring kernel (``kernels/chain_dot/csrc``). Print the compiler's
    register/shared-memory report and the card's name and power limit, and
    check in the flash library's SASS that every bf16 kernel
    (``flash_kernel_sm90`` up to head dim 128, ``flash_kernel_sm90_wide``
@@ -60,7 +61,24 @@ Phases (each failure raises and ends the run with a non-zero exit):
    crossed at k = 2; phi must be finite and the link-prediction AUC (of the
    replica mean) above 0.75. Then, on a batch of the k = 2 run at S = 2
    replicas (the two runs' embeddings, the k = 2 run's walks and
-   negatives): the batch's extents; the SGNS kernel's deltas against
+   negatives), first ``[serve]``, embedding serving: the scoring kernel
+   (``chain_dot``) against its plain versions on the card bit for bit at d
+   1, 7, 16, 17, 64, 128 and 129 and batches 1, 5, 32 and 40, and through a
+   server on the card (pair widths 0-1,024, padded; k 1, 10, 100 and N)
+   against the NumPy oracle, on rows with ties, signed zeros and
+   subnormals; then an ``EmbedServer`` on the card serving yt-sim: the two
+   replicas as version 1 (a snapshot in the reference's layout; the
+   replica mean taken on the host must equal NumPy's), waves of 32 top-K
+   (k 10, 100), pair (widths 1-1,024) and mixed queries, version 2 (the k
+   = 1 run's phi) swapped in past a torn step directory numbered above
+   both, a ``swap`` drill on version 3's offer that must leave version 2
+   serving, then version 3; every response equal to the plain versions on
+   the card for the version it is stamped with (a few also to the NumPy
+   oracle on the host), chain_dot launched once per top-K group and pair
+   bucket; the kernel's time at a 32-query top-K wave against its bound,
+   its plain version's, the library's (a matmul and ``torch.topk``) and the
+   top-K sort's, wave wall by kind, the snapshots' save, load, gate and
+   offer seconds and peak memory. Then the batch's extents; the SGNS kernel's deltas against
    ``lifetime_deltas_ref``, the write-back of those deltas against
    ``write_back_ref``, the fused step against ``sgns_step_ref`` and two
    50-step chunks (the second hub-heavy, thousands of slots of the hottest
@@ -128,10 +146,14 @@ Phases (each failure raises and ends the run with a non-zero exit):
    snapshot, ``recover_shard_loss(1)`` must restore a ring whose shard-1
    slots were zeroed, bit for bit (the run goes on from it). ``[ingest fl-sim]``: the churn goes through
    ``IngestDriver.submit``, so the drain is the refresh every check above
-   holds; the WAL must be truncated, ``applied_seq`` = ``appended_seq`` =
-   1 and in the snapshot's meta, and ``IngestDriver.recover`` must end on
-   the driven phi. ``[ingest recipe]``: from the recipe's pre-churn
-   snapshot, a driver killed after a durable WAL append is recovered from
+   holds; the ingest driver publishes to an ``EmbedServer`` on the card,
+   whose wave of 32 mixed queries before the submit must be served on the
+   ingest driver's first snapshot and after the drain on the drain's, every
+   response equal to that version's NumPy oracle bit for bit, chain_dot
+   launched once per group, availability 1.0; the WAL must be truncated,
+   ``applied_seq`` = ``appended_seq`` = 1 and in the snapshot's meta, and
+   ``IngestDriver.recover`` must end on the driven phi. ``[ingest
+   recipe]``: from the recipe's pre-churn snapshot, a driver killed after a durable WAL append is recovered from
    the disk, and its drain, failing once at ``refresh_splice`` (restored
    in place, retried), must end on ``refresh_embedding``'s phi, ring and
    ocn bit for bit. Each prints its seconds (reassign, re-join, partition
@@ -1186,7 +1208,8 @@ def refresh_phase(torch, np, counters, dev, flsim: dict) -> dict:
                              acceptance=True, drills=True))
     return {"launches": {k: v for run in runs for k, v in run["launches"].items()},
             "writebacks": sum(run["writebacks"] for run in runs),
-            "replays": sum(run["replays"] for run in runs)}
+            "replays": sum(run["replays"] for run in runs),
+            "serve_launches": sum(run["serve_launches"] for run in runs)}
 
 
 def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=False,
@@ -1225,8 +1248,10 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     from repro_torch.core.walker import VertexKeys, run_walk_batch
     from repro_torch.eval import link_prediction_auc
     from repro_torch.graph.csr import edge_common_neighbors
+    from repro_torch.ckpt.checkpoint import read_meta
     from repro_torch.graph.generators import churn_batch
     from repro_torch.runtime.ingest import IngestConfig, IngestDriver
+    from repro_torch.runtime.serve import EmbedServer, ServeConfig
 
     reset = lambda: reset_counts(torch, counters)
     counts = lambda: read_counts(torch, counters)
@@ -1283,13 +1308,18 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
         f"on the host{' (a worker process)' if churn is not None else ''}")
 
     # 3. the refresh: refresh_embedding, or a drain of the ingest driver -------------
-    drv = None
+    drv, serve_launches = None, 0
     if ingest:
         t0 = time.perf_counter()
-        drv = IngestDriver(os.path.join(tmp, "ingest"), pipe, cfg=IngestConfig(apply_every=1))
+        server = EmbedServer(ServeConfig(), device=dev)
+        drv = IngestDriver(os.path.join(tmp, "ingest"), pipe, cfg=IngestConfig(apply_every=1),
+                           server=server)
         snap0 = pipe.snapshot_log[-1]
         log(f"[ingest {name}] the driver's first snapshot: {snap0['bytes']} bytes in "
-            f"{snap0['write_s']:.3f} s ({time.perf_counter() - t0:.2f} s with the driver)")
+            f"{snap0['write_s']:.3f} s ({time.perf_counter() - t0:.2f} s with the IngestDriver and "
+            f"its offer to an EmbedServer on the card)")
+        v_pre, serve_launches = serve_ingest(torch, np, counters, server, "before the submit",
+                                             402, dev)
     g_step0, chunks0, syncs0 = pipe.global_step, pipe.chunks, pipe.syncs
     batches0 = len(pipe.batch_supersteps)
     torch.cuda.reset_peak_memory_stats()
@@ -1309,6 +1339,17 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     ph = rs.phase_s
     if ingest:
         ingest_checks(torch, np, name, drv, pipe, refresh_wall, dev)
+        v_post, n_post = serve_ingest(torch, np, counters, server, "after the drain", 403, dev)
+        serve_launches += n_post
+        published = read_meta(drv.ckpt_dir)[0]
+        st = server.stats()
+        log(f"[ingest {name}] the server: version {v_pre} before the submit, {v_post} after "
+            f"the drain (the IngestDriver's newest snapshot {published}); swaps {st['swaps']}, "
+            f"availability {st['availability']}, freshness {st['freshness']}")
+        if not (v_pre < v_post == published and st["availability"] == 1.0
+                and st["swaps"] == 2 and st["freshness"] == "fresh"):
+            raise AssertionError(f"[ingest {name}] the server did not move to the drain's "
+                                 f"snapshot: {v_pre} -> {v_post}, newest {published}, {st}")
     log(f"{tag} affected {rs.affected} ({rs.affected_frac:.6f} of |V|), retained rounds "
         f"{rs.retained_rounds}, extra rounds {rs.extra_rounds}, re-walked walks "
         f"{rs.rewalk_walks}, re-walk supersteps {rs.rewalk_supersteps} (the base run's "
@@ -1460,7 +1501,8 @@ def refresh_case(torch, np, counters, dev, name: str, graph, cfg, acceptance=Fal
     runs.update(extra)
     return {"launches": {f"{name} {run}": n["k1"] for run, n in runs.items()},
             "writebacks": sum(n["writebacks"] for n in runs.values()),
-            "replays": sum(n["replays"] for n in runs.values())}
+            "replays": sum(n["replays"] for n in runs.values()),
+            "serve_launches": serve_launches}
 
 
 def reset_counts(torch, counters) -> float:
@@ -1743,6 +1785,394 @@ def ingest_drills(torch, np, counters, dev, oracle, batch, pre_root, tmp) -> dic
 
 
 # --- flash attention (K2) ---------------------------------------------------
+
+# --- embedding serving: the order-pinned scoring kernel (chain_dot) ------------------------
+
+#: The kernel's cases held against ``ref.py`` on the card: every d it must
+#: take (below, at and above a float4 step, a 128-column chunk and its ragged
+#: successor), ragged batches, and through a server on the card candidate
+#: widths 0-1,024 (padded to powers of two) and k up to N.
+SERVE_DIMS = (1, 7, 16, 17, 64, 128, 129)
+SERVE_BATCHES = (1, 5, 32, 40)
+SERVE_WIDTHS = (0, 1, 2, 3, 5, 31, 32, 33, 100, 511, 512, 513, 1000, 1024)
+SERVE_CHECK_N = 3001
+#: yt-sim's waves, each a full slot pool (ServeConfig().batch_slots = 32).
+SERVE_SLOTS = 32
+SERVE_MAX_WIDTH = 1024
+#: How many yt-sim responses (top-K, pairs; the first served) the NumPy
+#: oracle re-scores on the host: each top-K there is a (1,138,499 x 128)
+#: chain, ~1 s.
+SERVE_ORACLE_TOPK, SERVE_ORACLE_PAIRS = 2, 8
+
+
+def hard_phi(np, n, d, seed):
+    """Random rows with three duplicated rows (tied scores), two zero rows
+    (scores of +0.0 and -0.0), a row and its negation, and two rows whose
+    products and sums are subnormal."""
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((n, d)).astype(np.float32)
+    phi[5] = phi[9] = phi[n - 1] = phi[3]
+    phi[2] = 0.0
+    phi[7] = -0.0
+    phi[11] = -phi[12]
+    phi[13] = np.float32(1e-20) * rng.standard_normal(d).astype(np.float32)
+    phi[14] = np.float32(3e-19) * rng.standard_normal(d).astype(np.float32)
+    return phi
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (signed zeros told apart), shapes included."""
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def chain_dot_checks(torch, np, dev) -> int:
+    """``all_scores`` and ``pair_scores`` against ``ref.py`` on the card bit
+    for bit at every SERVE_DIMS x SERVE_BATCHES (widths 1-1,024), then a
+    server on the card over each hard phi: pair queries at every
+    SERVE_WIDTHS (0 included) and top-K at k 1, 10, 100 and N, every
+    response equal to ``oracle_scores`` / ``oracle_topk`` on the host bit
+    for bit. Returns the number of cases."""
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.kernels.chain_dot import ops, ref
+    from repro_torch.runtime.serve import EmbedServer, ServeConfig, oracle_scores, oracle_topk
+
+    n, cases = SERVE_CHECK_N, 0
+    rng = np.random.default_rng(400)
+    for d in SERVE_DIMS:
+        host = hard_phi(np, n, d, seed=400 + d)
+        phi = torch.from_numpy(host).to(dev)
+        for b in SERVE_BATCHES:
+            u = torch.from_numpy(np.concatenate([[3, 2, 13], rng.integers(0, n, b)])[:b]).to(dev)
+            if not same_bits(torch, ops.all_scores(phi, u), ref.all_scores_ref(phi, u)):
+                raise AssertionError(f"[serve] all_scores d={d} B={b} differs from ref.py")
+            cases += 1
+            for width in (1, 3, 64, 1000, 1024):
+                cand = torch.from_numpy(rng.integers(0, n, (b, width))).to(dev)
+                if not same_bits(torch, ops.pair_scores(phi, u, cand),
+                                 ref.pair_scores_ref(phi, u, cand)):
+                    raise AssertionError(f"[serve] pair_scores d={d} B={b} C={width} differs "
+                                         "from ref.py")
+                cases += 1
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+            save_checkpoint(root, 0, {"phi_in": host}, meta={"graph_version": 0})
+            srv = EmbedServer(ServeConfig(), device=dev)
+            srv.offer_snapshot(root)
+            specs = [{"u": int(u), "candidates": rng.integers(0, n, w)}
+                     for u, w in zip([3, 2, 7, 13, 14, 11] * 3, SERVE_WIDTHS)] + \
+                [{"u": u, "k": k} for u in (3, 2, 13, 20) for k in (1, 10, 100, n)]
+            for spec, r in zip(specs, srv.serve(specs)):
+                if "k" in spec:
+                    vals, ids = oracle_topk(host, spec["u"], spec["k"])
+                else:
+                    vals, ids = oracle_scores(host, spec["u"], spec["candidates"]), \
+                        spec["candidates"]
+                if not (np.array_equal(r.ids, ids) and r.scores.dtype == np.float32
+                        and np.array_equal(r.scores.view(np.uint32), vals.view(np.uint32))):
+                    raise AssertionError(f"[serve] d={d}: a served response differs from the "
+                                         f"NumPy oracle: {spec if 'k' in spec else spec['u']}")
+                cases += 1
+    return cases
+
+
+def chain_dot_bound_ms(b: int, n: int, d: int) -> tuple:
+    """(ms, "bytes" | "operations") for scoring b query rows against every
+    row of an (n, d) phi: phi read once, the queries and their ids read,
+    the (b, n) scores written; the FP32 instructions are 2 b n d (a
+    multiply and an add each, which the order pin forbids to fuse) at
+    half the card's FP32 FLOP rate (an FMA counts two)."""
+    by_bytes = (n * d * 4 + b * d * 4 + b * 8 + b * n * 4) / H100_BYTES_PER_S * 1e3
+    by_ops = 2 * b * n * d / (H100_F32_FLOPS / 2) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def serve_waves(np, srv, rng, n: int, kinds) -> list:
+    """Submit and tick one wave per kind ("topk10", "topk100", "pairs",
+    "mixed"): each a full slot pool of SERVE_SLOTS queries. Returns (kind,
+    queries, responses, groups, wall seconds) per wave, groups being the
+    top-K k values plus the pair buckets the wave holds (a launch each)."""
+    out = []
+    for kind in kinds:
+        specs = []
+        for i in range(SERVE_SLOTS):
+            u = int(rng.integers(0, n))
+            if kind.startswith("topk") or (kind == "mixed" and i % 2 == 0):
+                specs.append({"u": u, "k": int(kind[4:]) if kind.startswith("topk") else 10})
+            else:
+                specs.append({"u": u, "candidates": rng.integers(
+                    0, n, int(rng.integers(1, SERVE_MAX_WIDTH + 1)))})
+        qids = [srv.submit(s["u"], s.get("candidates"), k=s.get("k")) for s in specs]
+        t0 = time.perf_counter()
+        resps = srv.tick()
+        wall = time.perf_counter() - t0
+        if [r.qid for r in resps] != qids or srv.stats()["queue_depth"]:
+            raise AssertionError(f"[serve] a {kind} wave did not answer its {SERVE_SLOTS} queries")
+        buckets = {max(1, 1 << (len(s["candidates"]) - 1).bit_length())
+                   for s in specs if "candidates" in s}
+        groups = len({s["k"] for s in specs if "k" in s}) + len(buckets)
+        out.append((kind, specs, resps, groups, wall))
+    return out
+
+
+def check_waves(torch, np, waves, phis: dict, host_phis: dict, dev, oracle_quota=(0, 0)) -> int:
+    """Every response equal, bit for bit, to ``ref.py`` on the card over the
+    phi of the version it is stamped with (top-K: the ids and values of
+    ``topk_from_scores`` on ``all_scores_ref``, eight queries at a time;
+    pairs: ``pair_scores_ref`` of its own candidates); the first
+    ``oracle_quota`` (top-K, pairs) of them also equal to the NumPy oracle
+    on the host. Returns how many responses the oracle re-scored."""
+    from repro_torch.kernels.chain_dot import ref
+    from repro_torch.runtime.serve import oracle_scores, oracle_topk
+
+    topk_left, pairs_left = oracle_quota
+    for kind, specs, resps, _, _ in waves:
+        for k in sorted({s["k"] for s in specs if "k" in s}):
+            idx = [i for i, s in enumerate(specs) if s.get("k") == k]
+            for lo in range(0, len(idx), 8):
+                part = idx[lo:lo + 8]
+                by_version = {}
+                for i in part:
+                    by_version.setdefault(resps[i].served_version, []).append(i)
+                for v, rows in by_version.items():
+                    u = torch.tensor([specs[i]["u"] for i in rows], device=dev)
+                    vals, ids = ref.topk_from_scores(ref.all_scores_ref(phis[v], u), u, k)
+                    vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+                    for j, i in enumerate(rows):
+                        r = resps[i]
+                        if not (np.array_equal(r.ids, ids[j]) and
+                                np.array_equal(r.scores.view(np.uint32), vals[j].view(np.uint32))):
+                            raise AssertionError(f"[serve] {kind} top-{k} of u={r.u} on version "
+                                                 f"{v} differs from ref.py on the card")
+                        if topk_left > 0:
+                            ov, oi = oracle_topk(host_phis[v], r.u, k)
+                            if not (np.array_equal(r.ids, oi) and
+                                    np.array_equal(r.scores.view(np.uint32), ov.view(np.uint32))):
+                                raise AssertionError(f"[serve] top-{k} of u={r.u} on version {v} "
+                                                     "differs from the NumPy oracle")
+                            topk_left -= 1
+        for s, r in zip(specs, resps):
+            if "candidates" not in s:
+                continue
+            phi = phis[r.served_version]
+            want = ref.pair_scores_ref(phi, torch.tensor([s["u"]], device=dev),
+                                       torch.from_numpy(s["candidates"][None]).to(dev))[0]
+            if not (np.array_equal(r.ids, s["candidates"]) and
+                    np.array_equal(r.scores.view(np.uint32), want.cpu().numpy().view(np.uint32))):
+                raise AssertionError(f"[serve] pair scores of u={r.u} ({len(r.ids)} candidates) "
+                                     f"on version {r.served_version} differ from ref.py")
+            if pairs_left > 0:
+                ov = oracle_scores(host_phis[r.served_version], r.u, s["candidates"])
+                if not np.array_equal(r.scores.view(np.uint32), ov.view(np.uint32)):
+                    raise AssertionError(f"[serve] pair scores of u={r.u} on version "
+                                         f"{r.served_version} differ from the NumPy oracle")
+                pairs_left -= 1
+    return oracle_quota[0] - topk_left + oracle_quota[1] - pairs_left
+
+
+class TimedGate:
+    """A ``SnapshotGate`` whose ``admit`` seconds are kept (``seconds``)."""
+
+    def __init__(self):
+        from repro_torch.runtime.health import SnapshotGate, SnapshotGateConfig
+
+        self.gate = SnapshotGate(SnapshotGateConfig())
+        self.seconds = []
+
+    def admit(self, phi, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.gate.admit(phi, **kw)
+        finally:
+            self.seconds.append(time.perf_counter() - t0)
+
+
+def serve_phase(torch, np, counters, replicas, dev) -> dict:
+    """``[serve]``: embedding serving on yt-sim at full size. ``replicas``
+    is [main]'s (2, N, d) phi_in ([main k=2]'s and [main k=1]'s), the
+    version-1 snapshot; version 2 is [main k=1]'s phi and version 3 [main
+    k=2]'s. First the kernel's checks (``chain_dot_checks``). Then, through
+    an ``EmbedServer`` on the card: version 1 offered from a snapshot in the
+    reference's layout (the replica mean at full size, taken on the host,
+    must equal NumPy's), waves of 32 top-K at k 10 and 100, of pairs at
+    widths 1-1,024 and mixed; version 2 swapped in past a torn step
+    directory numbered above both, its waves; an offer of version 3 under
+    a ``swap`` drill must leave version 2 serving, and the retried offer
+    must swap. Every response must equal ``ref.py`` on the card for the
+    version it is stamped with, a few of each version's the NumPy oracle,
+    and chain_dot must have launched once per top-K group and pair bucket
+    of the waves. Then the kernel's, ``ref.py``'s, the library's and the
+    sort's times at a 32-query top-K wave."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.kernels.chain_dot import ops, ref
+    from repro_torch.runtime.faults import NULL_INJECTOR, FaultInjector, SimulatedFailure
+    from repro_torch.runtime.serve import EmbedServer, ServeConfig
+
+    t_phase = time.perf_counter()
+    cases = chain_dot_checks(torch, np, dev)
+    log(f"[serve] chain_dot equals ref.py on the card bit for bit at {cases} cases (d "
+        f"{list(SERVE_DIMS)}, B {list(SERVE_BATCHES)}, widths 0-1,024, k 1 / 10 / 100 / N; ties, "
+        f"signed zeros, subnormals) and the NumPy oracle at every served response of them "
+        f"({time.perf_counter() - t_phase:.2f} s)")
+
+    s, n, d = replicas.shape
+    host = {1: replicas.cpu().numpy()}
+    host[2], host[3] = host[1][1], host[1][0]
+    mean = host[1].mean(axis=0)                     # NumPy's replica mean, the oracle's phi
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    gate = TimedGate()
+    srv = EmbedServer(ServeConfig(), gate=gate, device=dev)
+    if srv.cfg.batch_slots != SERVE_SLOTS:
+        raise AssertionError("[serve] the waves assume ServeConfig's 32 slots")
+    rng = np.random.default_rng(401)
+    torch.cuda.reset_peak_memory_stats()
+    phis, oracle_phis, seconds, waves = {}, {}, {}, []
+
+    def offer(v: int, expect: bool = True, save: bool = True) -> None:
+        if save:
+            t0 = time.perf_counter()
+            save_checkpoint(tmp, v, {"phi_in": host[v]},
+                            meta={"graph_version": v, "global_step": v})
+            seconds[f"save v{v}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        swapped = srv.offer_snapshot(tmp)
+        seconds[f"offer v{v}"] = time.perf_counter() - t0
+        seconds[f"gate v{v}"] = gate.seconds[-1]
+        if swapped != expect or (expect and srv.active_version() != v):
+            raise AssertionError(f"[serve] offer of version {v}: swapped {swapped}, active "
+                                 f"{srv.active_version()}")
+        if expect:
+            phis[v] = srv._active.phi
+            oracle_phis[v] = mean if v == 1 else host[v]
+
+    reset_counts(torch, counters)
+    offer(1)
+    t0 = time.perf_counter()
+    load_checkpoint(tmp, only=("phi_in",))
+    seconds["load v1"] = time.perf_counter() - t0
+    if not np.array_equal(srv.active_phi().view(np.uint32), mean.view(np.uint32)):
+        raise AssertionError("[serve] version 1's served phi is not NumPy's replica mean")
+    waves += serve_waves(np, srv, rng, n, ("topk10", "topk100", "pairs", "pairs", "mixed"))
+    torn = os.path.join(tmp, "step_00000099")
+    os.makedirs(torn)
+    with open(os.path.join(torn, "phi_in.npy"), "wb") as f:
+        f.write(b"\x93NUMPY torn candidate")
+    offer(2)
+    waves += serve_waves(np, srv, rng, n, ("topk10", "pairs"))
+    srv.faults = FaultInjector(plan={"swap": [0]})
+    try:
+        offer(3)
+        raise AssertionError("[serve] the swap drill did not fire")
+    except SimulatedFailure:
+        pass
+    if srv.active_version() != 2 or srv.faults.fired != [("swap", 0)]:
+        raise AssertionError(f"[serve] after the swap drill version {srv.active_version()} "
+                             "serves, not 2")
+    waves += serve_waves(np, srv, rng, n, ("mixed",))
+    srv.faults = NULL_INJECTOR
+    offer(3, save=False)
+    waves += serve_waves(np, srv, rng, n, ("topk10",))
+    counts = read_counts(torch, counters)
+    launches = counts["others"]["chain_dot"]
+    groups = sum(w[3] for w in waves)
+    stamped = [r.served_version for w in waves for r in w[2]]
+    st = srv.stats()
+    log(f"[serve] yt-sim |V|={n} d={d}: {len(waves)} waves of {SERVE_SLOTS} on versions "
+        f"{sorted(set(stamped))}; chain_dot launches {launches} for {groups} top-K groups and "
+        f"pair buckets; other kernels {dict(counts['others'], chain_dot=0)}, K1 {counts['k1']}; "
+        f"swaps {st['swaps']}, availability {st['availability']}, served by version "
+        f"{st['served_by_version']}")
+    if launches != groups or counts["k1"] or any(v for k, v in counts["others"].items()
+                                                 if k != "chain_dot"):
+        raise AssertionError(f"[serve] launches {counts}, expected chain_dot {groups}")
+    if st["availability"] != 1.0 or st["swaps"] != 3 or \
+            stamped != [1] * 5 * SERVE_SLOTS + [2] * 3 * SERVE_SLOTS + [3] * SERVE_SLOTS:
+        raise AssertionError(f"[serve] versions served {st['served_by_version']}, stats {st}")
+    t0 = time.perf_counter()
+    checked = check_waves(torch, np, waves, phis, oracle_phis, dev,
+                          (SERVE_ORACLE_TOPK, SERVE_ORACLE_PAIRS))
+    log(f"[serve] every response of {len(stamped)} equals ref.py on the card for its stamped "
+        f"version bit for bit, {checked} of them the NumPy oracle too "
+        f"({time.perf_counter() - t0:.2f} s)")
+    by_kind = {}
+    for kind, _, _, _, wall in waves:
+        by_kind.setdefault(kind, []).append(wall)
+    log("[serve] wave wall (host clock, the responses on the host) by kind, in serving order: "
+        + ", ".join(f"{k} {[round(t * 1e3, 3) for t in v]} ms" for k, v in by_kind.items()))
+    log("[serve] snapshot seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f" ({s} x {n} x {d} float32 replicas in version 1)")
+
+    # Times at a 32-query top-K wave on version 3's phi.
+    phi = phis[3]
+    u = torch.from_numpy(rng.integers(0, n, SERVE_SLOTS)).to(dev)
+    scores = ops.all_scores(phi, u)
+    err = float((scores - ref.all_scores_ref(phi, u)).abs().max())
+    ms = time_ms(torch, lambda: ops.all_scores(phi, u), 20)
+    plain_ms = time_ms(torch, lambda: ref.all_scores_ref(phi, u), 3)
+    sort_ms = time_ms(torch, lambda: ref.topk_from_scores(scores, u, 100), 10)
+    lib_ms = time_ms(torch, lambda: torch.topk(phi[u] @ phi.T, 100, dim=1), 20)
+    cand = torch.from_numpy(rng.integers(0, n, (SERVE_SLOTS, SERVE_MAX_WIDTH))).to(dev)
+    pair_ms = time_ms(torch, lambda: ops.pair_scores(phi, u, cand), 20)
+    pair_plain_ms = time_ms(torch, lambda: ref.pair_scores_ref(phi, u, cand), 10)
+    bound_ms, bound_by = chain_dot_bound_ms(SERVE_SLOTS, n, d)
+    by_bytes = chain_dot_bound_ms(1, n, d)[0]
+    ms1 = time_ms(torch, lambda: ops.all_scores(phi, u[:1]), 20)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[serve] chain_dot all_scores at B={SERVE_SLOTS}, N={n}, d={d}: {ms:.4f} ms a launch "
+        f"against its bound {bound_ms:.6f} ms (bound by {bound_by}: {2 * SERVE_SLOTS * n * d} "
+        f"FP32 instructions, no FMA; {(n + SERVE_SLOTS) * d * 4 + SERVE_SLOTS * (8 + 4 * n)} "
+        f"bytes), {bound_ms / ms * 100:.2f}% of it; at B=1 {ms1:.4f} ms against "
+        f"{by_bytes:.6f} (bytes); ref.py {plain_ms:.3f} ms; the library's scores up to "
+        f"rounding (phi[u] @ phi.T, TF32 off, and torch.topk k=100) {lib_ms:.4f} ms; the "
+        f"stable sort of the (32, N) scores for top-K {sort_ms:.4f} ms; pair_scores at "
+        f"({SERVE_SLOTS}, {SERVE_MAX_WIDTH}) {pair_ms:.4f} ms, ref.py {pair_plain_ms:.3f} ms; "
+        f"max abs err {err}; peak device memory {peak:.3f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del phis, scores
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms, "sort_ms": sort_ms,
+            "ms_b1": ms1, "bound_ms_b1": by_bytes, "pair_ms": pair_ms,
+            "pair_plain_ms": pair_plain_ms, "cases": cases}
+
+
+def serve_ingest(torch, np, counters, srv, stage: str, seed: int, dev) -> tuple:
+    """``[ingest fl-sim]``'s reads: one mixed wave of 32 (top-K at k = 10 and
+    pairs at widths 1-1,024) on the server the IngestDriver publishes to, every
+    launch count set to 0 before and read after; each response must equal
+    the NumPy oracle of the version it is stamped with, bit for bit.
+    Returns (version served, chain_dot launches)."""
+    from repro_torch.runtime.serve import oracle_scores, oracle_topk
+
+    reset_counts(torch, counters)
+    (kind, specs, resps, groups, wall), = serve_waves(np, srv, np.random.default_rng(seed),
+                                                      srv._active.phi.shape[0], ("mixed",))
+    counts = read_counts(torch, counters)
+    launches = counts["others"]["chain_dot"]
+    versions = {r.served_version for r in resps}
+    phi = srv.active_phi()
+    for s, r in zip(specs, resps):
+        if "k" in s:
+            vals, ids = oracle_topk(phi, s["u"], s["k"])
+        else:
+            vals, ids = oracle_scores(phi, s["u"], s["candidates"]), s["candidates"]
+        if not (np.array_equal(r.ids, ids) and
+                np.array_equal(r.scores.view(np.uint32), vals.view(np.uint32))):
+            raise AssertionError(f"[ingest fl-sim] {stage}: the response to u={r.u} differs "
+                                 "from the NumPy oracle of its version")
+    log(f"[ingest fl-sim] {stage}: a mixed wave of {len(resps)} served on version "
+        f"{sorted(versions)} in {wall * 1e3:.3f} ms, every response equal to that version's "
+        f"NumPy oracle; chain_dot launches {launches} for {groups} groups")
+    if len(versions) != 1 or launches != groups or counts["k1"] or \
+            any(v for k, v in counts["others"].items() if k != "chain_dot"):
+        raise AssertionError(f"[ingest fl-sim] {stage}: versions {versions}, launches {counts}, "
+                             f"expected chain_dot {groups}")
+    return versions.pop(), launches
+
 
 def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own") -> tuple:
     """Kernel against ``mha_reference`` on the card; raises outside the
@@ -2680,14 +3110,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    from repro_torch.kernels.chain_dot import ops as chain_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.sgns import ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan import wide as ssd_wide
 
     counters = {"sgns_lifetime": ops, "flash_attention": fa_ops, "ssd_scan": ssd_ops,
-                "ssd_scan_wide": ssd_wide}
-    libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY, ssd_wide.LIBRARY]
+                "ssd_scan_wide": ssd_wide, "chain_dot": chain_ops}
+    libs = [ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY, ssd_wide.LIBRARY, chain_ops.LIBRARY]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t_main = time.perf_counter()
@@ -2834,6 +3265,9 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     phi_in = torch.stack([emb[2].pop("phi_in"), emb[1].pop("phi_in")])      # (2, N, d)
     phi_out = torch.stack([emb[2].pop("phi_out"), emb[1].pop("phi_out")])
     want = (phi_in[0].cpu(), phi_out[0].cpu())      # [main k=2]'s, for [durable]
+    serve = serve_phase(torch, np, counters, phi_in, dev)
+    torch.cuda.empty_cache()
+    mark("[serve]")
     sgns = sgns_main_path(torch, np, phi_in, phi_out, emb[2].pop("corpus"), dev)
     sgns_err = max(sgns_err, sgns["max_abs_err"])
     del phi_in, phi_out, emb[1]["corpus"]
@@ -2899,9 +3333,11 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"] \
         + durable["launches"] + sum(refresh["launches"].values())
+    total["chain_dot"] += serve["launches"] + refresh["serve_launches"]
     log(f"[main] launches by path: sgns_lifetime yt-sim k=2 {emb[2]['launches']}, k=1 "
         f"{emb[1]['launches']}, durable {durable['launches']}, {refresh['launches']}; "
-        f"{launches}")
+        f"{launches}; chain_dot yt-sim {serve['launches']}, fl-sim ingest "
+        f"{refresh['serve_launches']}")
 
     by_path = lambda name: {path: n[name] for path, n in launches.items() if n[name]}
     flash = flash_shapes[LM_ARCH]      # the top-level numbers: qwen3-1.7b's prefill shape
@@ -2982,6 +3418,26 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
         "library_ms": None,
         "ms_by_kernel": wide_t["ms_by_kernel"],
         "shape": wide_t["shape"],
+    }, {
+        "name": "chain_dot",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/chain_dot/csrc/chain_dot.cu",
+        "replaces": "src/repro/runtime/serve.py:108-149 (XLA, no pallas_call)",
+        "launches": total["chain_dot"],
+        "launches_by_path": {"yt-sim serve": serve["launches"],
+                             "fl-sim ingest serve": refresh["serve_launches"]},
+        "max_abs_err": serve["max_abs_err"],
+        "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        "sort_ms": serve["sort_ms"],
+        "ms_b1": serve["ms_b1"],
+        "bound_ms_b1": serve["bound_ms_b1"],
+        "pair_ms": serve["pair_ms"],
+        "pair_plain_ms": serve["pair_plain_ms"],
+        "bit_exact_cases": serve["cases"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

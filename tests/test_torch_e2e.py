@@ -186,11 +186,14 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("name", ["obs", "ckpt", "common", "runtime.faults", "runtime.health",
-                                  "runtime.ingest"])
+                                  "runtime.ingest", "runtime.serve", "kernels.chain_dot",
+                                  "graph.io", "core.huge_d"])
 def test_durability_and_telemetry_modules_import_neither_jax_nor_reference(name):
-    """The telemetry, checkpoint, logging, fault, watchdog and ingest modules
-    are copies, not imports, of the JAX package's: no ``jax`` or ``repro``
-    import in their source, and none loaded by importing them alone."""
+    """The telemetry, checkpoint, logging, fault, watchdog, ingest and
+    serving modules, the scoring kernel's package, edge-list IO and the
+    HuGE-D configurations are copies, not imports, of the JAX package's: no
+    ``jax`` or ``repro`` import in their source, and none loaded by
+    importing them alone."""
     base = ROOT / "src" / "repro_torch" / Path(*name.split("."))
     files = sorted(base.rglob("*.py")) if base.is_dir() else [base.with_suffix(".py")]
     assert files and all(f in _port_sources() for f in files)
