@@ -236,13 +236,37 @@ layers served.
    cache faults of phase 4 and the MoE faults of phase 8. Each model is
    freed before the next is loaded.
 
+10. LM training (``[train]``): (a) each autograd wrapper on the card with
+   seeded inputs and one fixed upstream gradient (``kernels.grad_check``):
+   K2 at qwen3-1.7b's training shape (4 x 16 x 2,048, Hkv 8, D 128), at
+   zamba2's D 112, at MLA's latents (D 288 and 576, v = k); K3's first
+   route at zamba2's mixer shape, its wide route at the xLSTM's scan
+   (P 513, N 512, chunk 512) at S 600, and the 3-D form, each with and
+   without a gradient on the final state. The forward must lie within the
+   kernel's tolerance of the plain forward and every input gradient must
+   be bit-equal to the plain forward + backward(). (b) qwen3-1.7b at full
+   width and depth (28 layers, d 2,048, GQA 16/8, vocab 151,936, bf16
+   params, float32 AdamW moments, remat per block) takes TRAIN_STEPS steps
+   of batch 4 x seq 2,048 from ``TokenStream`` through
+   ``make_train_step``: every loss and gradient norm finite, the lr
+   cosine_warmup's, K2 launched exactly twice per layer and step (the
+   forward and the remat recompute; the backward is the plain version's)
+   and nothing else; prints step ms, tokens/s and peak memory. (c) The
+   restart drill at full width and ``LM_LAYERS``' depth:
+   ``Trainer.run_with_restarts`` crashed at step 1 (before the first
+   checkpoint) and at step 3 must end with params and moments bit-equal to
+   an uninterrupted ``Trainer.run`` from the same seeded state, the
+   restore adding no second state on the card; checkpoints in a temporary
+   directory removed after; prints a checkpoint's bytes and the save and
+   restore seconds.
+
 One worker process (spawned at the start, stopped at the end) makes the
 host-only inputs while the card runs the phases before them: the yt-sim
 and fl-sim graphs (numpy), fl-sim's churn batch and ``[walk]``'s k = 4
 MPGP partition. Each path runs with every launch count set to 0 just
 before it and read just after. Prints one JSON line with the kernels' numbers (flash
-attention's at qwen3-1.7b's prefill shape, and under ``by_shape`` at every
-model's) and, last, the device line.
+attention's at qwen3-1.7b's prefill shape, under ``by_shape`` at every
+model's, under ``train`` the training step's) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -3098,6 +3122,268 @@ def lm_path(torch, np, counters, cfg, prompts, device="cuda") -> dict:
     return launches
 
 
+# --- LM training ([train]) ----------------------------------------------------------
+#: Phase (b): qwen3-1.7b at full width and depth, batch x seq from TokenStream,
+#: AdamW with float32 moments, remat per block; the lr follows cosine_warmup
+#: over TRAIN_STEPS with TRAIN_WARMUP warm-up steps, so both of its pieces run.
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2, 4, 2048, 3e-4
+#: Phase (c): the restart drill at full width and LM_LAYERS' depth, crashed
+#: at each step of DRILL_FAIL_AT: at step 1, before the first checkpoint (every
+#: DRILL_CKPT_EVERY steps), it starts again from the seeded state; at step 3
+#: it resumes from step 2's checkpoint, loaded into the live state in place.
+DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_BATCH, DRILL_SEQ = 4, 2, 2, 512
+DRILL_FAIL_AT = (1, 3)
+
+
+def train_grad_checks(torch, cfgs: dict, dev) -> float:
+    """Phase (a): each autograd-wrapped route on the card with seeded inputs
+    and one fixed upstream gradient: the forward within the kernel's
+    tolerance of the plain forward, every input gradient bit-equal to the
+    plain forward + backward() (``kernels.grad_check``); one launch (scan)
+    each. K2 at qwen3-1.7b's training shape, at zamba2-7b's D 112, at MLA's
+    latents (D 288 and 576, v = k); K3's first route at zamba2's mixer
+    shape (one batch), its wide route at the xLSTM's (P 513, N 512, chunk
+    512) at a small S, and the 3-D form. Returns the largest forward error
+    of each kernel by its name in the kernels line."""
+    from repro_torch.kernels import grad_check
+    from repro_torch.kernels.ssm_scan import bench as ssd_bench
+    from repro_torch.models import mamba2, xlstm
+
+    gen = torch.Generator().manual_seed(27)
+    rnd = lambda *shape, dt=torch.float32: torch.randn(*shape, generator=gen).to(dev, dt)
+    bf16 = torch.bfloat16
+    qwen, zamba, mla, ds, xl = (cfgs[a] for a in (LM_ARCH, HYBRID_ARCH, MLA_ARCH, MOE_MLA_ARCH,
+                                                  RECURRENT_ARCH))
+    flash_cases = [
+        ("qwen3 training shape", (TRAIN_BATCH, qwen.num_heads, qwen.num_kv_heads, TRAIN_SEQ,
+                                  qwen.resolved_head_dim), None, False),
+        ("D 112", (1, zamba.num_heads, zamba.num_kv_heads, TRAIN_SEQ, zamba.resolved_head_dim),
+         None, False),
+        ("D 288, v = k", (1, mla.num_heads, 1, TRAIN_SEQ, mla.kv_lora_rank + mla.qk_rope_dim),
+         MLA_SCALE, True),
+        ("D 576, v = k", (1, ds.num_heads, 1, TRAIN_SEQ, ds.kv_lora_rank + ds.qk_rope_dim),
+         DEEPSEEK_SCALE, True)]
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "ssd_scan_wide": 0.0}
+    for name, (b, hq, hkv, s, d), scale, v_is_k in flash_cases:
+        q, k, v = rnd(b, hq, s, d, dt=bf16), rnd(b, hkv, s, d, dt=bf16), rnd(b, hkv, s, d, dt=bf16)
+        case = grad_check.flash_case(q, k, k if v_is_k else v, rnd(b, hq, s, d, dt=bf16),
+                                     sm_scale=scale)
+        err = case.forward_err()
+        tol = FLASH_TOL["bfloat16"]
+        if case.launches != 1 or not torch.allclose(case.outputs[0].float(),
+                                                    case.plain_outputs[0].float(),
+                                                    atol=tol, rtol=tol):
+            raise AssertionError(f"[train] K2 {name}: forward differs by {err:.3e} "
+                                 f"({case.launches} launches)")
+        if not case.grads_equal():
+            raise AssertionError(f"[train] K2 {name}: the wrapper's gradients are not the plain "
+                                 "version's bit for bit")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        log(f"[train] grad check K2 {name} {(b, hq, hkv, s, d)} bf16: forward max abs err "
+            f"{err:.3e}, {len(case.grads)} input gradients bit-equal to the plain version's")
+        del q, k, v, case
+        torch.cuda.empty_cache()
+    _, heads, head_dim, state = mamba2._dims(zamba)
+    _, xl_heads, xl_p = xlstm._mdims(xl)
+    scan_cases = [
+        ("ssd_scan", "first route, zamba2's mixer shape",
+         ssd_bench.heads_inputs(torch, 1, heads, 1, TRAIN_SEQ, head_dim, state, seed=271,
+                                device=dev), zamba.ssm_chunk),
+        ("ssd_scan_wide", "wide route, the xLSTM's scan at S 600",
+         ssd_bench.mlstm_inputs(torch, 1, xl_heads, 600, xl_p + 1, xl_p, seed=272,
+                                device=dev), xl.ssm_chunk),
+        ("ssd_scan", "3-D form", tuple(t[0] for t in ssd_bench.heads_inputs(
+            torch, 1, 16, 16, 300, 64, 32, seed=273, device=dev)), 128)]
+    for kernel, name, args, chunk in scan_cases:
+        y_shape = args[0].shape
+        st_shape = (*args[0].shape[:-2], args[2].shape[-1], args[0].shape[-1])
+        for with_state in (False, True):
+            case = grad_check.scan_case(*args, chunk, rnd(*y_shape),
+                                        rnd(*st_shape) if with_state else None)
+            err = case.forward_err()
+            close = all(torch.allclose(a, b, atol=SSD_TOL, rtol=SSD_TOL)
+                        for a, b in zip(case.outputs, case.plain_outputs))
+            if case.launches != 1 or not close:
+                raise AssertionError(f"[train] K3 {name}: forward differs by {err:.3e} "
+                                     f"({case.launches} scans)")
+            if not case.grads_equal():
+                raise AssertionError(f"[train] K3 {name}: the wrapper's gradients are not the "
+                                     "plain version's bit for bit")
+            worst[kernel] = max(worst[kernel], err)
+            log(f"[train] grad check K3 {name} {tuple(y_shape)}, upstream gradient on y"
+                f"{' and the final state' if with_state else ''}: forward max abs err "
+                f"{err:.3e}, 4 input gradients bit-equal to the plain version's")
+            del case
+        del args
+        torch.cuda.empty_cache()
+    return worst
+
+
+def train_steps(torch, np, counters, cfg, dev) -> dict:
+    """Phase (b): ``make_train_step`` on qwen3-1.7b at full width and depth,
+    every launch count set to 0 just before and read just after."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import zoo
+    from repro_torch.optim.optimizers import AdamWConfig, init_opt_state
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.runtime.trainer import make_train_step
+
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, {cfg.dtype} params ({n_params}), "
+        f"{opt_cfg.moment_dtype} AdamW moments, remat {cfg.remat}; state made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    schedule = cosine_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg, schedule)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch_per_shard=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    walls, metrics = [], []
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+                 for k, v in stream.batch_at(step).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, step)
+        m = {k: float(v) for k, v in m.items()}
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        log(f"[train] step {step}: loss {m['loss']:.6f}, grad norm {m['gnorm']:.6f}, lr "
+            f"{m['lr']:.9g}, {walls[-1] * 1e3:.1f} ms")
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kinds = block_kinds(cfg)
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = 2 * kinds.count("a") * TRAIN_STEPS   # forward + remat recompute
+    if launches != expected:
+        raise AssertionError(f"[train] launches {launches}, expected {expected}")
+    for step, m in enumerate(metrics):
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["gnorm"])):
+            raise AssertionError(f"[train] step {step}: non-finite loss or gradient norm {m}")
+        if m["lr"] != float(schedule(step)):
+            raise AssertionError(f"[train] step {step}: lr {m['lr']} is not cosine_warmup's")
+    if int(opt["count"]) != TRAIN_STEPS:
+        raise AssertionError(f"[train] the optimizer counted {int(opt['count'])} steps")
+    if not all(torch.isfinite(t.float()).all() for t in leaves(params) + leaves(opt["m"])):
+        raise AssertionError("[train] non-finite parameters or moments")
+    step_ms = float(np.median(walls[1:])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name} batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: step {step_ms:.1f} ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}; step 0 {walls[0] * 1e3:.1f} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, peak device memory {peak:.3f} GiB; "
+        f"launches {launches}")
+    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gib": peak}
+
+
+def restart_drill(torch, counters, cfg, dev) -> dict:
+    """Phase (c): ``Trainer.run_with_restarts`` crashed at each step of
+    DRILL_FAIL_AT must end on the bits of an uninterrupted ``Trainer.run``
+    from the same seeded state, params and moments, and a restore must load
+    into the live state (the card's allocated bytes grow by less than one
+    state); checkpoints in a temporary directory."""
+    import shutil
+    import tempfile
+
+    from repro_torch.optim.optimizers import leaves as opt_leaves
+    from repro_torch.runtime.faults import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    log(f"[train] restart drill checkpoints in a temporary directory, "
+        f"{shutil.disk_usage(root).free / 2**30:.1f} GiB free there")
+    try:
+        tcfg = lambda name, every: TrainerConfig(
+            steps=DRILL_STEPS, ckpt_every=every, batch=DRILL_BATCH, seq_len=DRILL_SEQ,
+            ckpt_dir=os.path.join(root, name))
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        clean = Trainer(cfg, tcfg("clean", DRILL_STEPS), device=dev).run()
+        clean_state = [t.detach().cpu() for t in opt_leaves(clean["state"])]
+        del clean
+        shutil.rmtree(os.path.join(root, "clean"))
+        t_clean = time.perf_counter() - t0
+
+        trainer = Trainer(cfg, tcfg("drill", DRILL_CKPT_EVERY),
+                          injector=FailureInjector(fail_at_steps=DRILL_FAIL_AT), device=dev)
+        saves, restores = [], []
+        save, restore = trainer.save, trainer.try_restore
+
+        def timed_save(state, step):
+            t = time.perf_counter()
+            save(state, step)
+            saves.append(time.perf_counter() - t)
+
+        def timed_restore(state):
+            torch.cuda.synchronize()
+            mem, t = torch.cuda.memory_allocated(), time.perf_counter()
+            step = restore(state)
+            torch.cuda.synchronize()
+            restores.append((time.perf_counter() - t, step, torch.cuda.memory_allocated() - mem))
+            return step
+
+        trainer.save, trainer.try_restore = timed_save, timed_restore
+        t0 = time.perf_counter()
+        out = trainer.run_with_restarts()
+        t_drill = time.perf_counter() - t0
+        launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+        step_dir = os.path.join(root, "drill", f"step_{DRILL_CKPT_EVERY:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        drill_state = opt_leaves(out["state"])
+        state_bytes = sum(t.numel() * t.element_size() for t in drill_state)
+        same = len(drill_state) == len(clean_state) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(drill_state, clean_state))
+        steps_run = [m["step"] for m in out["metrics"]]
+        log(f"[train] restart drill {cfg.name} at {cfg.num_layers} layers, batch {DRILL_BATCH} x "
+            f"seq {DRILL_SEQ}: crashes at steps {DRILL_FAIL_AT}, {out['restarts']} restart(s), "
+            f"steps run {steps_run}; a checkpoint {ckpt_bytes} bytes, saves "
+            f"{[round(t, 3) for t in saves]} s, restores "
+            f"{[(round(t, 3), step, grew) for t, step, grew in restores]} (s, step, allocated "
+            f"bytes added; the state {state_bytes} B); the drill {t_drill:.1f} s, "
+            f"the uninterrupted run {t_clean:.1f} s; params and moments bit-equal: {same}")
+        kinds = block_kinds(cfg)
+        expected = {name: 0 for name in counters}
+        expected["flash_attention"] = 2 * kinds.count("a") * (DRILL_STEPS + len(steps_run))
+        if launches != expected:
+            raise AssertionError(f"[train] drill launches {launches}, expected {expected}")
+        if any(grew >= state_bytes for _, _, grew in restores):
+            raise AssertionError(f"[train] a restore allocated a second state: {restores}")
+        if [step for _, step, _ in restores] != [None, None, DRILL_CKPT_EVERY]:
+            raise AssertionError(f"[train] the drill restored {restores}, expected no checkpoint "
+                                 f"twice, then step {DRILL_CKPT_EVERY}'s")
+        if out["restarts"] != len(DRILL_FAIL_AT) or out["final_step"] != DRILL_STEPS or not same:
+            raise AssertionError("[train] the restarted run did not end on the uninterrupted "
+                                 "run's bits")
+        return {"launches": launches, "ckpt_bytes": ckpt_bytes, "saves": saves,
+                "restores": restores}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_phase(torch, np, counters, cfgs: dict, dev) -> dict:
+    """The [train] phase: (a) the autograd wrappers' gradient checks, (b)
+    qwen3-1.7b's steps at full width and depth, (c) the restart drill at
+    LM_LAYERS' depth. Returns the launches of (b) and (c) and the numbers
+    for the kernels line."""
+    from repro_torch.configs import get_config
+
+    grad_err = train_grad_checks(torch, cfgs, dev)
+    torch.cuda.empty_cache()
+    steps = train_steps(torch, np, counters, get_config(LM_ARCH), dev)
+    torch.cuda.empty_cache()
+    drill = restart_drill(torch, counters, cfgs[LM_ARCH], dev)
+    torch.cuda.empty_cache()
+    return {"grad_err": grad_err, "steps": steps, "drill": drill}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3330,6 +3616,15 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mark(MOE_ARCH)
     torch.cuda.empty_cache()
     flash_shapes[MOE_ARCH] = flash_times(torch, fa_ops, fa_ref, moe_prefill_case)
+
+    # 10. LM training ------------------------------------------------------------------
+    train = train_phase(torch, np, counters, {
+        LM_ARCH: lm_cfg, HYBRID_ARCH: hy_cfg, RECURRENT_ARCH: rec_cfg, MLA_ARCH: mla_cfg,
+        MOE_MLA_ARCH: ds_cfg}, dev)
+    mark("[train]")
+    launches[f"{LM_ARCH} train"] = train["steps"]["launches"]
+    launches[f"{LM_ARCH} restart drill"] = train["drill"]["launches"]
+    flash_err = max(flash_err, train["grad_err"]["flash_attention"])
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"] \
         + durable["launches"] + sum(refresh["launches"].values())
@@ -3383,6 +3678,12 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "by_shape": flash_shapes,
+        "train": {"step_ms": train["steps"]["step_ms"],
+                  "tokens_per_s": train["steps"]["tokens_per_s"],
+                  "peak_gib": train["steps"]["peak_gib"],
+                  "shape": [TRAIN_BATCH, lm_cfg.num_heads, lm_cfg.num_kv_heads, TRAIN_SEQ,
+                            lm_cfg.resolved_head_dim],
+                  "backward": "plain (ref.mha_reference under autograd)"},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -3390,7 +3691,7 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:79",
         "launches": total["ssd_scan"],
         "launches_by_path": by_path("ssd_scan"),
-        "max_abs_err": ssd_err,
+        "max_abs_err": max(ssd_err, train["grad_err"]["ssd_scan"]),
         "ms": ssd["ms"],
         "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"],
@@ -3410,7 +3711,7 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
                              "src/repro/kernels/ssm_scan/kernel.py:27)",
         "launches": total["ssd_scan_wide"],
         "launches_by_path": by_path("ssd_scan_wide"),
-        "max_abs_err": wide_err,
+        "max_abs_err": max(wide_err, train["grad_err"]["ssd_scan_wide"]),
         "ms": wide_t["ms"],
         "plain_ms": wide_t["plain_ms"],
         "bound_ms": wide_t["bound_ms"],

@@ -214,27 +214,41 @@ def load_checkpoint(root: str, step: Optional[int] = None,
     return manifest["step"], arrays, manifest["meta"]
 
 
+def _loaded(arrays: Dict[str, np.ndarray], path: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The loaded leaf at ``path`` as a host tensor, checked against the
+    template's shape; bfloat16 from its raw bits."""
+    if path not in arrays:
+        raise KeyError(f"checkpoint missing leaf {path}")
+    arr = arrays[path]
+    if tuple(arr.shape) != tuple(leaf.shape):
+        raise ValueError(f"shape mismatch at {path}: ckpt {arr.shape} vs {tuple(leaf.shape)}")
+    if leaf.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _map_leaves(fn, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over a tree of nested dicts and lists, by the
+    paths ``flatten`` gives; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(prefix, tree)
+
+
 def restore_into(template: Any, arrays: Dict[str, np.ndarray]) -> Any:
     """Fill a structurally matching template tree (nested dicts and lists of
     tensors) with loaded leaves, each on its template's device and dtype."""
-    def fill(path, leaf):
-        if path not in arrays:
-            raise KeyError(f"checkpoint missing leaf {path}")
-        arr = arrays[path]
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"shape mismatch at {path}: ckpt {arr.shape} vs "
-                             f"{tuple(leaf.shape)}")
-        if leaf.dtype == torch.bfloat16:
-            bits = torch.from_numpy(arr.view(np.int16).copy())
-            return bits.view(torch.bfloat16).to(leaf.device)
-        return torch.from_numpy(np.array(arr)).to(leaf.device, leaf.dtype)
+    return _map_leaves(lambda path, leaf: _loaded(arrays, path, leaf).to(leaf.device, leaf.dtype),
+                       template)
 
-    def walk(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, f"{prefix}/{i}" if prefix else str(i))
-                              for i, v in enumerate(tree))
-        return None if tree is None else fill(prefix, tree)
 
-    return walk(template)
+def copy_into(tree: Any, arrays: Dict[str, np.ndarray]) -> None:
+    """Copy loaded leaves into a structurally matching tree's own tensors,
+    in place (leaves that require grad included): nothing the size of the
+    tree is allocated beside it."""
+    with torch.no_grad():
+        _map_leaves(lambda path, leaf: leaf.copy_(_loaded(arrays, path, leaf)), tree)

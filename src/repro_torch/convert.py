@@ -7,7 +7,9 @@ device, so that both packages can continue from the same state.
 
 ``lm_params_from_reference`` takes a language model's parameters from the
 reference's ``init_params`` (as numpy) and returns them in the port's
-layout, so that both packages compute with the same weights.
+layout, so that both packages compute with the same weights;
+``opt_state_from_reference`` does the same for the reference optimizer's
+state ({"m", "v", "count"}), so that both can train on from one state.
 """
 
 from __future__ import annotations
@@ -101,4 +103,15 @@ def lm_params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, A
             out[name] = [_map(sub, lambda a, r=r: _tensor(a[r], dev)) for r in range(n_rep)]
         else:
             out[name] = _map(sub, lambda a: _tensor(a, dev))
+    return out
+
+
+def opt_state_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The reference optimizer's state (numpy leaves: moment trees in the
+    parameters' stacked layout, "v" only for AdamW, a scalar int32 "count")
+    -> the port's: each moment tree in the port's parameter layout, dtypes
+    kept, and "count" a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    out = {name: lm_params_from_reference(tree[name], dev) for name in ("m", "v") if name in tree}
+    out["count"] = torch.tensor(int(np.asarray(tree["count"])), dtype=torch.int32, device=dev)
     return out

@@ -1,13 +1,22 @@
 """Training batches: indices over the device corpus ring (the streaming
-pipeline), and lifetime batches of a materialized corpus with a prefetch
-thread (the two-phase path)."""
+pipeline), lifetime batches of a materialized corpus with a prefetch
+thread (the two-phase path), and the LM trainer's token stream with its
+straggler policy.
+
+``TokenStream.batch_at(step)`` is a pure function of (seed, step, shard),
+bit for bit the reference's, so a restarted run re-reads the batches it
+lost and a backup replica produces the primary's bytes;
+``BackupShardFetcher`` races a primary fetch against such a backup once a
+deadline passes.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Callable, Sequence
+import time
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +39,38 @@ def ring_chunk_indices(key: prng.Key, base: int, pool: int, count: int,
     if need > pool:                         # np.resize: repeat cyclically
         perm = perm.repeat(-(-need // pool))
     return base + perm[:need].reshape(count, shards, groups, windows)
+
+
+# ---------------------------------------------------------------------------
+# Token stream (LM training)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Synthetic but deterministic LM token stream with next-token labels:
+    a batch depends only on (seed, step, shard_id), never on wall-clock or
+    fetch order. Host numpy, int32, as the reference's."""
+
+    vocab_size: int
+    batch_per_shard: int
+    seq_len: int
+    seed: int = 0
+    shard_id: int = 0
+    num_shards: int = 1
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 4096 + self.shard_id)
+        toks = rng.integers(0, self.vocab_size, size=(self.batch_per_shard, self.seq_len + 1),
+                            dtype=np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +158,48 @@ class Prefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=2.0)
+
+
+# ---------------------------------------------------------------------------
+# Straggler mitigation: backup-shard speculative fetch
+# ---------------------------------------------------------------------------
+
+
+class BackupShardFetcher:
+    """Race a primary fetch against a backup after ``deadline_s``.
+
+    Batches are pure functions of (step, shard), so the backup produces the
+    primary's bytes and speculation never changes the training data.
+    ``delay_injector(step) -> seconds`` simulates slow primaries in tests.
+    """
+
+    def __init__(self, primary: Callable[[int], object], backup: Callable[[int], object],
+                 deadline_s: float = 0.5,
+                 delay_injector: Optional[Callable[[int], float]] = None):
+        self.primary = primary
+        self.backup = backup
+        self.deadline_s = deadline_s
+        self.delay_injector = delay_injector
+        self.stats = {"primary": 0, "backup": 0}
+
+    def fetch(self, step: int):
+        result = {}
+        done = threading.Event()
+        lock = threading.Lock()
+
+        def offer(value, source: str) -> None:
+            with lock:
+                if not done.is_set():
+                    result["value"], result["source"] = value, source
+                    done.set()
+
+        def run_primary():
+            if self.delay_injector:
+                time.sleep(self.delay_injector(step))
+            offer(self.primary(step), "primary")
+
+        threading.Thread(target=run_primary, daemon=True).start()
+        if not done.wait(self.deadline_s):
+            offer(self.backup(step), "backup")      # deadline passed: speculative fetch
+        self.stats[result["source"]] += 1
+        return result["value"]

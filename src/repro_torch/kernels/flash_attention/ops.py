@@ -16,6 +16,15 @@ TMA's zero fill (wgmma), so the wrapper pads nothing; it still refuses what the 
 refuses (non-causal attention over a key length that is not a multiple
 of the reference's key tile), so the two stay interchangeable.
 
+On the card the kernel runs inside ``plain_backward.PlainBackward``:
+its backward is the plain version's vector-Jacobian product,
+``ref.mha_reference`` under autograd recomputed from the saved q, k and v
+(in the profiler range ``PLAIN_BACKWARD``), so gradients are exactly
+those of the plain forward (the reference trains on its plain attention
+too, and has no backward kernel). When the caller passes k as v, the
+kernel still sees one tensor, and autograd adds both uses' gradients into
+it, as the plain version's graph does.
+
 ``LAUNCHES`` counts kernel launches, so that a run can show it went
 through the kernel.
 """
@@ -23,14 +32,17 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.plain_backward import PlainBackward
 
 LAUNCHES = 0
+PLAIN_BACKWARD = "flash_attention.plain_backward"   # the backward's range in a profiler trace
 REF_BLOCK_K = 256                 # the reference wrapper's default key tile
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 288, 576)  # head dimensions the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,7 +78,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, bool(causal), float(sm_scale), int(q_offset))
+    return _on_card(q, k, v, bool(causal), float(sm_scale), int(q_offset))
+
+
+def _on_card(q, k, v, causal: bool, sm_scale: float, q_offset: int) -> torch.Tensor:
+    """K2 forward, the plain version's backward."""
+    kw = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+    return PlainBackward.apply(functools.partial(_launch, **kw),
+                               functools.partial(ref.mha_reference, **kw), PLAIN_BACKWARD,
+                               q, k, v)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

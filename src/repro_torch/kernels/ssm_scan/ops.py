@@ -30,7 +30,14 @@ nothing along S. Two routes, picked by shape:
   mLSTM: P = 513, N = 512, chunk 512); it reads xdt, b and c and writes y
   with every row on 16 bytes, through copies where they are not so.
 
-A shape beyond both is refused. ``LAUNCHES`` counts scans run on the
+A shape beyond both is refused. On the card each form runs inside
+``plain_backward.PlainBackward``, whose backward is the plain version's
+vector-Jacobian product, recomputed from the saved inputs (in the
+profiler range ``PLAIN_BACKWARD``), for whichever of y and the final
+state received a gradient: the gradients are exactly the plain version's
+(the reference has no backward kernel).
+
+``LAUNCHES`` counts scans run on the
 first route (each is two kernel launches), ``wide.LAUNCHES`` those on the
 wide one, so that a run can show which kernels it went through.
 """
@@ -38,6 +45,7 @@ wide one, so that a run can show which kernels it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Tuple
 
@@ -45,9 +53,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.plain_backward import PlainBackward
 from repro_torch.kernels.ssm_scan import ref, wide
 
 LAUNCHES = 0
+PLAIN_BACKWARD = "ssd_scan.plain_backward"   # the backward's range in a profiler trace
 MAX_CHUNK = 128          # the kernels' longest chunk (eight 16-row blocks)
 HEADS_PER_CTA = 8        # heads of one group per CTA (kHeads in the source)
 HEAD_DIM = 64            # the kernels' head dim P (kP): a smaller one is padded with zeros
@@ -105,7 +115,7 @@ def ssd_chunked_scan(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         return ref.ssd_chunked_ref(xdt, loga, b, c, chunk=chunk)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_chunked_scan: unsupported device {xdt.device}")
-    return _launch(xdt, loga, b, c, int(chunk))
+    return _on_card(_launch, ref.ssd_chunked_ref, int(chunk), xdt, loga, b, c)
 
 
 def ssd_scan_heads(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -124,8 +134,21 @@ def ssd_scan_heads(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor, c: to
         return _plain(xdt, loga, b, c, chunk)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan_heads: unsupported device {xdt.device}")
+    return _on_card(_launch_heads, _plain, int(chunk), xdt, loga, b, c)
+
+
+def _on_card(launch, plain, chunk: int, xdt, loga, b, c):
+    """K3 forward (``launch``), the plain version's (``plain``) backward."""
+    return PlainBackward.apply(functools.partial(launch, chunk=chunk),
+                               functools.partial(plain, chunk=chunk), PLAIN_BACKWARD,
+                               xdt, loga, b, c)
+
+
+def _launch_heads(xdt, loga, b, c, chunk: int):
+    """The heads form on the card: y written as a view of a (B, S, H, P) tensor."""
+    bsz, h, s, p = xdt.shape
     y = wide.empty_aligned((bsz, s, h, p), xdt.device).transpose(1, 2)
-    return _run(xdt, loga, b, c, int(chunk), y)
+    return _run(xdt, loga, b, c, chunk, y)
 
 
 def _launch(xdt, loga, b, c, chunk: int):

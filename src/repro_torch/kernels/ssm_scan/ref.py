@@ -52,7 +52,12 @@ def ssd_chunked_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     of q = min(chunk, S) steps at a time. S is padded to a multiple of q
     with loga = 0 and xdt = b = c = 0, which leaves the state as it is;
     y is cut back to S. The masked decay takes 0 above the diagonal by
-    selection, never by multiplying an overflowed exp."""
+    selection, never by multiplying an overflowed exp: the exponent is
+    selected (-inf above the diagonal) before the exp, so that neither the
+    decay nor its gradient meets exp(cum_i - cum_j) overflowed to inf. (The
+    reference selects after the exp: the same values, but 0 * inf = NaN in
+    its gradient wherever the decay overflows above the diagonal, which the
+    model's decay does within a chunk of 128 steps.)"""
     bh, s, p = xdt.shape
     n = b.shape[-1]
     q = min(chunk, s)
@@ -72,8 +77,8 @@ def ssd_chunked_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         cum = torch.cumsum(la_i, dim=-1)                       # (BH, Q)
         total = cum[:, -1]
         scores = torch.einsum("zqn,zkn->zqk", c_i, b_i)
-        decay = torch.exp(cum[:, :, None] - cum[:, None, :])
-        l_mask = torch.where(li >= lj, decay, torch.zeros((), device=xdt.device))
+        l_mask = torch.exp(torch.where(li >= lj, cum[:, :, None] - cum[:, None, :],
+                                       float("-inf")))
         y = torch.einsum("zqk,zkp->zqp", scores * l_mask, x_i)
         y = y + torch.einsum("zqn,znp->zqp", c_i * torch.exp(cum)[..., None], state)
         b_scaled = b_i * torch.exp(total[:, None, None] - cum[..., None])

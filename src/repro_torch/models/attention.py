@@ -1,8 +1,9 @@
 """GQA attention (optional qk_norm), with a KV cache for serving.
 
-The port of the JAX package's ``models/attention.py``. Prefill attention
-goes through ``kernels.flash_attention.flash_attention``: on the card that
-is the CUDA flash kernel, on the CPU its plain version. The tensors'
+The port of the JAX package's ``models/attention.py``. Training and
+prefill attention go through ``kernels.flash_attention.flash_attention``:
+on the card that is the CUDA flash kernel (its backward the plain
+version's), on the CPU its plain version. The tensors'
 device picks the route; ``cfg.attn_impl`` is the reference's switch and is
 not read here. Decode attends with a plain masked softmax over the whole
 ``max_len`` cache, as the reference's decode step does outside any kernel.

@@ -1,4 +1,4 @@
-"""Shared neural layers: RMSNorm, RoPE, SwiGLU, embeddings.
+"""Shared neural layers: RMSNorm, RoPE, SwiGLU, embeddings, the LM loss.
 
 The port of the JAX package's ``models/layers.py``. Parameters are plain
 nested dicts of tensors with the reference's names and layouts, so a
@@ -101,3 +101,15 @@ def unembed(x: torch.Tensor, p: Params) -> torch.Tensor:
     if "head" in p:
         return x @ p["head"]
     return x @ p["table"].T
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in float32; labels < 0 are masked. Written as
+    logsumexp minus the picked logit, as the reference writes it."""
+    mask = labels >= 0
+    safe = torch.clamp_min(labels, 0)
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - picked, 0.0)
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1)

@@ -16,14 +16,19 @@ krope}, the latent, for an MLA block), {conv, ssm} for a Mamba2 block, the
 (B, H, N, P + 1) matrix memory for an mLSTM block and {c, n, h} for an
 sLSTM block, all updated in place.
 ``repro_torch.convert.lm_params_from_reference`` unstacks a reference tree
-into this layout.
+into this layout. ``forward_loss`` (training) runs the blocks without
+caches, each under ``torch.utils.checkpoint`` when ``cfg.remat ==
+"full"``, and adds 0.01 times the MoE blocks' aux losses to the
+cross-entropy, as the reference does; serving drops the aux.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -33,7 +38,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
+    cross_entropy_loss, dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm,
+    unembed,
 )
 
 Params = Dict[str, Any]
@@ -102,16 +108,17 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtyp
 
 
 def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=None,
-                cache_len=None, causal: bool = True):
-    """Kind "a": pre-norm attention (MLA, always causal, when
-    ``cfg.use_mla``), then the pre-norm SwiGLU or, with ``cfg.moe``, the
-    mixture of experts (its aux loss is dropped, as the reference's
-    serving drops it). Kinds "m", "x"
-    and "s": the pre-norm Mamba2, mLSTM or sLSTM mixer (an mLSTM block with
-    ``d_ff`` adds a pre-norm SwiGLU). With ``cache`` and no ``cache_len``
-    (prefill) a recurrent block writes its final state into the cache;
-    with ``cache_len`` (decode) it steps the cached state, as the
-    reference's modes do. Caches change in place."""
+                cache_len=None, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux loss). Kind "a": pre-norm attention (MLA, always
+    causal, when ``cfg.use_mla``), then the pre-norm SwiGLU or, with
+    ``cfg.moe``, the mixture of experts, whose load-balancing loss is the
+    aux (0 for every other block). Kinds "m", "x" and "s": the pre-norm
+    Mamba2, mLSTM or sLSTM mixer (an mLSTM block with ``d_ff`` adds a
+    pre-norm SwiGLU). With ``cache`` and no ``cache_len`` (prefill) a
+    recurrent block writes its final state into the cache; with
+    ``cache_len`` (decode) it steps the cached state, as the reference's
+    modes do. Caches change in place."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("x", "s"):
         decode = cache_len is not None
         h = rmsnorm(x, p["ln"], cfg.norm_eps)
@@ -126,7 +133,7 @@ def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=N
         x = x + y
         if kind == "x" and cfg.d_ff:
             x = x + mlp(rmsnorm(x, p["ln2"], cfg.norm_eps), p["ffn"])
-        return x
+        return x, aux
     if kind == "m":
         decode = cache_len is not None
         h = rmsnorm(x, p["ln"], cfg.norm_eps)
@@ -136,7 +143,7 @@ def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=N
         if new_state is not None:
             cache["conv"].copy_(new_state["conv"])
             cache["ssm"].copy_(new_state["ssm"])
-        return x + y
+        return x + y, aux
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         x = x + mla_mod.mla_attention(h, p["attn"], cfg, positions, cache=cache,
@@ -146,8 +153,9 @@ def apply_block(x, p: Params, kind: str, cfg: ModelConfig, positions, *, cache=N
                                    cache=cache, cache_len=cache_len)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe:
-        return x + moe_mod.moe_ffn(h, p["ffn"], cfg)[0]
-    return x + mlp(h, p["ffn"])
+        y, aux = moe_mod.moe_ffn(h, p["ffn"], cfg)
+        return x + y, aux
+    return x + mlp(h, p["ffn"]), aux
 
 
 # ---------------------------------------------------------------------------
@@ -184,24 +192,48 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Pa
 
 
 def _run_groups(params: Params, x, cfg: ModelConfig, positions, *,
-                caches: Optional[Params] = None, cache_len=None, causal: bool = True):
+                caches: Optional[Params] = None, cache_len=None,
+                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block in order; returns (x, the aux losses summed over the
+    blocks). Serving passes ``caches`` (updated in place) and drops the
+    aux, which is then not summed. Training passes none: with
+    ``cfg.remat == "full"`` and gradients on, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward pass keeps
+    one block's activations at a time and runs each block's forward again,
+    as the reference's per-block ``jax.checkpoint`` does."""
+    remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, _) in enumerate(_groups(cfg)):
-        reps: List[Params] = params[f"group_{gi}"]
-        for r, rep in enumerate(reps):
+        for r, rep in enumerate(params[f"group_{gi}"]):
             for j, kind in enumerate(pattern):
                 cache = caches[f"group_{gi}"][r][f"b{j}"] if caches is not None else None
-                x = apply_block(x, rep[f"b{j}"], kind, cfg, positions, cache=cache,
-                                cache_len=cache_len, causal=causal)
-    return x
+                run = functools.partial(apply_block, kind=kind, cfg=cfg, positions=positions,
+                                        cache=cache, cache_len=cache_len, causal=causal)
+                if remat:
+                    x, aux = torch.utils.checkpoint.checkpoint(run, x, rep[f"b{j}"],
+                                                               use_reentrant=False)
+                else:
+                    x, aux = run(x, rep[f"b{j}"])
+                if caches is None:
+                    aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward_loss(params, cfg, tokens, labels):
-    raise NotImplementedError("training (forward_loss, K2's backward, the optimizer "
-                              "and Trainer) is not ported yet (ROADMAP.md queue 1, item 5)")
+def forward_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token loss (tokens (B, S) int64; labels < 0 masked) plus
+    0.01 times the blocks' aux losses, as the reference's: a float32 0-d
+    tensor to differentiate."""
+    x = embed(tokens, params["embed"])
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    x, aux = _run_groups(params, x, cfg, positions)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(x, params["embed"])
+    return cross_entropy_loss(logits, labels) + 0.01 * aux
 
 
 @torch.no_grad()
@@ -213,7 +245,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed(tokens, params["embed"])
     positions = torch.arange(s, device=x.device)
     caches = init_caches(cfg, b, max_len, x.device)
-    x = _run_groups(params, x, cfg, positions, caches=caches)
+    x, _ = _run_groups(params, x, cfg, positions, caches=caches)
     x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return unembed(x, params["embed"])[:, 0], caches
 
@@ -225,6 +257,6 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Params,
     The caches are updated in place and returned."""
     x = embed(token, params["embed"])
     positions = cache_len + torch.arange(1, device=x.device)
-    x = _run_groups(params, x, cfg, positions, caches=caches, cache_len=cache_len)
+    x, _ = _run_groups(params, x, cfg, positions, caches=caches, cache_len=cache_len)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, params["embed"])[:, 0], caches

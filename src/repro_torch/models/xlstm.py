@@ -26,8 +26,12 @@ before the sigmoid output gate and the RMSNorm.
 
 The sLSTM keeps per-unit scalar cells with recurrent gate connections (h
 @ R), a strict recurrence over time: a plain torch loop over
-``_slstm_step``, one step per token. The reference's ``custom_vjp`` (its
-backward) has no counterpart here: training is not ported.
+``_slstm_step``, one step per token, inside a ``torch.autograd.Function``
+(``_SLSTMScan``) whose backward is the reference's ``custom_vjp``: the
+gate activations recomputed batched over time, one reverse loop, and dR
+as one batched product over the whole series (autograd through the loop
+would keep a graph of S steps). The forward keeps the c and n series only
+when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -173,6 +177,59 @@ def _slstm_step(c, n, h, wx_t, r):
     return c, n, h
 
 
+class _SLSTMScan(torch.autograd.Function):
+    """(wx (B, S, 4d), r, c0, n0, h0) -> (hs (B, S, d), c, n, h), float32:
+    the loop forward, the reference's ``_slstm_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, wx, r, c, n, h):
+        bsz, s, _ = wx.shape
+        keep = any(ctx.needs_input_grad)
+        series = lambda: torch.empty(bsz, s, c.shape[-1], dtype=torch.float32, device=wx.device)
+        hs = series()
+        cs, ns = (series(), series()) if keep else (None, None)
+        init = (c, n, h)
+        for t in range(s):
+            c, n, h = _slstm_step(c, n, h, wx[:, t], r)
+            hs[:, t] = h
+            if keep:
+                cs[:, t], ns[:, t] = c, n
+        if keep:
+            ctx.save_for_backward(wx, r, *init, hs, cs, ns)
+        return hs, c, n, h
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh):
+        wx, r, c0, n0, h0, hs, cs, ns = ctx.saved_tensors
+        # the series one step back: the values feeding step t
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+        n_prev = torch.cat([n0[:, None], ns[:, :-1]], dim=1)
+        pre = wx + h_prev @ r
+        zp, ip, fp, op = torch.chunk(pre, 4, dim=-1)
+        z, i, f, o = torch.tanh(zp), torch.sigmoid(ip), torch.sigmoid(fp), torch.sigmoid(op)
+        dpres = torch.empty_like(wx)
+        for t in reversed(range(wx.shape[1])):
+            dh_t = dh + dhs[:, t]
+            c_t, n_t, o_t, f_t, i_t, z_t = cs[:, t], ns[:, t], o[:, t], f[:, t], i[:, t], z[:, t]
+            nmax = torch.clamp_min(n_t, EPS)
+            do = dh_t * c_t / nmax
+            dc_t = dc + dh_t * o_t / nmax
+            dn_t = dn - torch.where(n_t > EPS, dh_t * o_t * c_t / (nmax * nmax), 0.0)
+            # c_t = f c_{t-1} + i z ;  n_t = f n_{t-1} + i
+            df = dc_t * c_prev[:, t] + dn_t * n_prev[:, t]
+            di = dc_t * z_t + dn_t
+            dz = dc_t * i_t
+            dpre = torch.cat([dz * (1 - z_t * z_t), di * i_t * (1 - i_t),
+                              df * f_t * (1 - f_t), do * o_t * (1 - o_t)], dim=-1)
+            dpres[:, t] = dpre
+            dh = dpre @ r.T
+            dc = dc_t * f_t
+            dn = dn_t * f_t
+        dr = torch.einsum("bsd,bsk->dk", h_prev, dpres)
+        return dpres, dr, dc, dn, dh
+
+
 def slstm_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
                 state: Optional[Params] = None,
                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -187,9 +244,6 @@ def slstm_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
         c, n, h = init["c"], init["n"], init["h"]
     else:
         c, n, h = state["c"], state["n"], state["h"]
-    hs = torch.empty(bsz, s, d, dtype=torch.float32, device=x.device)
-    for t in range(s):
-        c, n, h = _slstm_step(c, n, h, wx[:, t], p["r"])
-        hs[:, t] = h
+    hs, c, n, h = _SLSTMScan.apply(wx, p["r"], c, n, h)
     keep = state is not None or return_state
     return hs.to(x.dtype), ({"c": c, "n": n, "h": h} if keep else None)

@@ -1,15 +1,19 @@
 """Uniform model facade: the decoder-only part of the JAX package's
 ``models/zoo.py``.
 
-Batch convention: {"tokens": (B, S) int64}. Encoder-decoder models (their
-"frames" batches) are not ported yet (ROADMAP.md queue 1, item 6).
+Batch convention: {"tokens": (B, S) int64, "labels": (B, S) int64, -1
+masked}. Encoder-decoder models (their "frames" batches) are not ported
+yet (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
+import torch
+
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as transformer_mod
 from repro_torch.models.config import ModelConfig
 
@@ -19,6 +23,28 @@ def model_module(cfg: ModelConfig):
         raise NotImplementedError("encoder-decoder models are not ported yet "
                                   "(ROADMAP.md queue 1, item 6)")
     return transformer_mod
+
+
+def train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """Uniform random tokens (a ``torch.Generator`` seeded with ``seed``)
+    and their next-token labels, the last position masked with -1, as the
+    reference's ``train_batch`` lays them out (its bits are JAX's)."""
+    model_module(cfg)                    # refuses encoder-decoder models
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+    labels = torch.cat([toks[:, 1:], torch.full((batch, 1), -1, dtype=toks.dtype,
+                                                device=dev)], dim=1)
+    return {"tokens": toks, "labels": labels}
+
+
+def loss_fn(cfg: ModelConfig) -> Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]:
+    mod = model_module(cfg)
+
+    def f(params, batch):
+        return mod.forward_loss(params, cfg, batch["tokens"], batch["labels"])
+    return f
 
 
 def prefill_fn(cfg: ModelConfig, max_len: int):

@@ -11,8 +11,9 @@ and the LM serving paths' two each — one prefill of 4 prompts of 2,048
 tokens and 10 decode steps after it, qwen3-1.7b, zamba2-7b, xlstm-350m,
 minicpm3-4b and then deepseek-v2-lite-16b (MLA + MoE at its published
 capacity factor) at full width over a 4,096-position cache, as
-``chip_smoke.py``'s server runs them — each first timed plainly and then
-under ``torch.profiler``.
+``chip_smoke.py``'s server runs them — and one LM training step of
+qwen3-1.7b at full width, each first timed plainly and then under
+``torch.profiler``.
 The training window runs the pipeline's path on the card: two chunks of
 50 steps, each one CUDA graph replay, after a warm-up call that captures
 the graph; each prefill window comes after an untimed prefill, which
@@ -29,10 +30,13 @@ with MLA's ``flash_kernel_sm90_wide`` at D = 288 and
 ``wide_cum``, ``wide_cb_state``, ``wide_chain`` and ``wide_out``) in the
 device time.
 
-    PYTHONPATH=src python3 -m repro_torch.profile [embed | ARCH ...]
+    PYTHONPATH=src python3 -m repro_torch.profile [embed | train | ARCH ...]
 
 With ``embed`` it profiles the embedding path only; with architecture
-names (of ``LM_ARCHS``) only those models' LM windows.
+names (of ``LM_ARCHS``) only those models' LM windows; with ``train`` only
+the LM training window: one step of qwen3-1.7b at full width and depth
+(batch 4 x seq 2,048), with the device time inside K2's backward (the
+plain version's, ``flash_attention.plain_backward``) printed apart.
 
 It needs a CUDA device.
 """
@@ -60,7 +64,19 @@ OWN_KERNELS = ("sgns_lifetime_kernel", "sgns_wb_keys_kernel", "RadixSort",
                "ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "wide_cum_kernel",
                "wide_cb_state_kernel", "wide_chain_kernel", "wide_out_kernel")
 SHARDS = 2
+# Named host ranges whose device time is printed apart (not counted as kernels):
+# K2's backward, the plain version's under autograd.
+RANGES = ("flash_attention.plain_backward",)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "qwen3-1.7b", 4, 2048
 SHARDED_WINDOWS = (("replicated", 2, "mpgp"), ("local", 2, "mpgp"), ("local", 4, "hash"))
+
+
+def _device_total_us(evt) -> float:
+    """Device time of the kernels launched inside a host range."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
 
 
 def _device_us(evt) -> float:
@@ -91,7 +107,9 @@ def profile_window(torch, label: str, fn, count: int, warmup: bool = False) -> N
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+    events = prof.key_averages()
+    kernels = [e for e in events if _device_us(e) > 0 and str(e.device_type).endswith("CUDA")
+               and e.key not in RANGES]
     busy_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"[{label}] wall {wall / count * 1e3:.4f} ms/step over {count} steps; "
@@ -107,6 +125,13 @@ def profile_window(torch, label: str, fn, count: int, warmup: bool = False) -> N
             us = sum(_device_us(e) for e in own)
             print(f"[{label}]   {name}: {us / count / 1e3:.4f} ms/step over "
                   f"{sum(e.count for e in own) / count:.1f} launches/step, "
+                  f"{us / busy_us * 100:.2f}% of the device-busy time", flush=True)
+    for name in RANGES:
+        spans = [e for e in events if e.key == name]
+        if spans:
+            us = max(max(_device_us(e), _device_total_us(e)) for e in spans)
+            print(f"[{label}]   {name}: {us / count / 1e3:.4f} ms/step of device time "
+                  f"in {max(e.count for e in spans) / count:.1f} ranges/step, "
                   f"{us / busy_us * 100:.2f}% of the device-busy time", flush=True)
 
 
@@ -127,6 +152,9 @@ def main(argv: list) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if "train" in argv:
+        train_window(torch, torch.device("cuda"))
+        return 0
     archs = [a for a in argv if a in LM_ARCHS]
     if archs:
         for arch in archs:
@@ -192,7 +220,33 @@ def main(argv: list) -> int:
     for arch in LM_ARCHS:
         lm_windows(torch, dev, arch)
         torch.cuda.empty_cache()
+    train_window(torch, dev)
     return 0
+
+
+def train_window(torch, dev) -> None:
+    """One LM training step of qwen3-1.7b at full width and depth (batch 4 x
+    seq 2,048, AdamW with float32 moments, remat per block), as
+    ``chip_smoke.py``'s [train] phase runs it, after an untimed step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import zoo
+    from repro_torch.optim.optimizers import AdamWConfig, init_opt_state
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime.trainer import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    step_fn = make_train_step(cfg, opt_cfg, constant(3e-4))
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in TokenStream(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0).items()}
+
+    def step_window():
+        state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], batch, 0)
+
+    profile_window(torch, f"{TRAIN_ARCH} train", step_window, 1, warmup=True)
 
 
 def lm_windows(torch, dev, arch: str) -> None:

@@ -1,6 +1,18 @@
-"""The embedding trainers: the fused walk -> train pipeline
-(``StreamingEmbedPipeline``) and the two-phase trainer over a materialized
-corpus (``DSGLTrainer``).
+"""The trainers: the LM trainer (``Trainer``: an autograd step,
+step-granular checkpoints, restarts, a straggler-mitigated input stream),
+the fused walk -> train embedding pipeline (``StreamingEmbedPipeline``)
+and the two-phase embedding trainer over a materialized corpus
+(``DSGLTrainer``).
+
+The LM trainer is the reference's: ``make_train_step`` takes the loss and
+its gradients by autograd (on the card K2 and K3 run the forward pass
+inside their autograd wrappers, whose backward is the plain versions'),
+then ``optim.opt_update`` in place; ``run`` checkpoints every
+``ckpt_every`` steps in the ``ckpt`` layout, ``FailureInjector`` raises a
+simulated node failure at a chosen step, and ``run_with_restarts`` resumes
+from the newest checkpoint, replaying nothing: the batches are pure
+functions of the step, so a restarted run ends bit-equal to an
+uninterrupted one.
 
 Walk rounds append into a device-resident ``CorpusRing``; DSGL training
 consumes ring slots through one device gather per chunk of lifetimes, so
@@ -63,7 +75,9 @@ replica count and the training's CUDA graphs do not change.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -71,7 +85,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs, prng
-from repro_torch.ckpt.checkpoint import latest_step, load_checkpoint, prune_steps, save_checkpoint
+from repro_torch.ckpt.checkpoint import (copy_into, latest_step, load_checkpoint, prune_steps,
+                                         save_checkpoint)
 from repro_torch.common.logging import get_logger, log_context
 from repro_torch.convert import graph_from_arrays
 from repro_torch.core.corpus import (Corpus, CorpusRing, FrequencyOrder, ring_append,
@@ -83,11 +98,16 @@ from repro_torch.core.sync import replica_mean, sample_hotness_rows
 from repro_torch.core.termination import WalkCountController
 from repro_torch.core.walker import (MAX_LANES, LaneKeys, VertexKeys, WalkerBatchState,
                                      run_walk_batch)
-from repro_torch.data.pipeline import ring_chunk_indices
+from repro_torch.data.pipeline import BackupShardFetcher, TokenStream, ring_chunk_indices
 from repro_torch.device import resolve_device, synced_clock
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.delta import graph_version
-from repro_torch.runtime.faults import NULL_INJECTOR, FaultInjector, SimulatedFailure
+from repro_torch.models import zoo
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import AdamWConfig, init_opt_state, leaves, opt_update
+from repro_torch.optim.schedules import cosine_warmup
+from repro_torch.runtime.faults import (NULL_INJECTOR, FailureInjector, FaultInjector,
+                                        SimulatedFailure)
 from repro_torch.runtime.health import DivergenceError
 
 log = get_logger("repro_torch.runtime.trainer")
@@ -96,6 +116,132 @@ log = get_logger("repro_torch.runtime.trainer")
 STAT_KEYS = ("supersteps", "accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic")
 #: The watchdog's reductions of a checked chunk (``dsgl.chunk_health``).
 HEALTH_KEYS = ("nonfinite", "loss_nonfinite", "loss_sum", "update_norm", "phi_norm")
+
+
+# ---------------------------------------------------------------------------
+# The LM trainer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 20
+    ckpt_every: int = 5
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    batch: int = 4
+    seq_len: int = 64
+    lr: float = 3e-4
+    warmup: int = 10
+    seed: int = 0
+    straggler_deadline_s: float = 5.0
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, schedule):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics): the
+    loss and the gradient of every parameter leaf by autograd, then one
+    optimizer step in place at ``schedule(step)``. ``metrics`` holds the
+    loss, the gradient's global norm (before the clip) and the lr as 0-d
+    float32 tensors."""
+    loss_of = zoo.loss_fn(cfg)
+
+    def step_fn(params, opt_state, batch, step):
+        lr = schedule(step)
+        flat = leaves(params)
+        with torch.enable_grad():
+            for p in flat:
+                p.requires_grad_(True)
+            loss = loss_of(params, batch)
+            grads = torch.autograd.grad(loss, flat)
+        params, opt_state, gnorm = opt_update(list(grads), opt_state, params, opt_cfg, lr)
+        return params, opt_state, {"loss": loss.detach(), "gnorm": gnorm, "lr": lr}
+
+    return step_fn
+
+
+class Trainer:
+    """The reference's LM trainer on ``device`` (the card unless the caller
+    asks for the CPU): ``init_state`` draws the parameters with a
+    ``torch.Generator`` seeded with ``tcfg.seed`` (not JAX's bits: a test
+    passes a converted reference state through ``run(start_state=...)``)."""
+
+    def __init__(self, model_cfg: ModelConfig, tcfg: TrainerConfig,
+                 injector: Optional[FailureInjector] = None,
+                 delay_injector: Optional[Callable[[int], float]] = None,
+                 device="cuda"):
+        self.model_cfg = model_cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.injector = injector or FailureInjector()
+        self.opt_cfg = AdamWConfig(moment_dtype=model_cfg.opt_state_dtype)
+        self.schedule = cosine_warmup(tcfg.lr, tcfg.warmup, tcfg.steps)
+        self.step_fn = make_train_step(model_cfg, self.opt_cfg, self.schedule)
+        stream = TokenStream(vocab_size=model_cfg.vocab_size, batch_per_shard=tcfg.batch,
+                             seq_len=tcfg.seq_len, seed=tcfg.seed)
+        self.fetcher = BackupShardFetcher(primary=stream.batch_at, backup=stream.batch_at,
+                                          deadline_s=tcfg.straggler_deadline_s,
+                                          delay_injector=delay_injector)
+        self.metrics_log: list = []
+
+    # --- state ----------------------------------------------------------------
+    def init_state(self):
+        params = zoo.init_params(self.model_cfg, seed=self.tcfg.seed, device=self.device)
+        return {"params": params, "opt": init_opt_state(params, self.opt_cfg)}
+
+    def save(self, state, step: int):
+        save_checkpoint(self.tcfg.ckpt_dir, step, state,
+                        meta={"data_step": step, "seed": self.tcfg.seed})
+
+    def try_restore(self, state) -> Optional[int]:
+        """Load the newest checkpoint into ``state``'s tensors in place and
+        return its data step; None when there is no checkpoint."""
+        last = latest_step(self.tcfg.ckpt_dir)
+        if last is None:
+            return None
+        _, arrays, meta = load_checkpoint(self.tcfg.ckpt_dir, last)
+        copy_into(state, arrays)
+        return int(meta["data_step"])
+
+    # --- loops ----------------------------------------------------------------
+    def run(self, start_state=None, start_step: int = 0) -> Dict[str, Any]:
+        """Run to completion or until an (injected) failure propagates. The
+        state's tensors are updated in place."""
+        state = start_state if start_state is not None else self.init_state()
+        step = start_step
+        while step < self.tcfg.steps:
+            self.injector.check(step)
+            batch = {k: torch.from_numpy(v).to(self.device, torch.int64)
+                     for k, v in self.fetcher.fetch(step).items()}
+            params, opt, metrics = self.step_fn(state["params"], state["opt"], batch, step)
+            state = {"params": params, "opt": opt}
+            self.metrics_log.append({k: float(v) for k, v in metrics.items()} | {"step": step})
+            step += 1
+            if step % self.tcfg.ckpt_every == 0 or step == self.tcfg.steps:
+                self.save(state, step)
+        return {"state": state, "final_step": step, "metrics": self.metrics_log,
+                "straggler_stats": self.fetcher.stats}
+
+    def run_with_restarts(self, max_restarts: int = 4) -> Dict[str, Any]:
+        """The cluster agent's loop: on a failure, restart from the newest
+        checkpoint, loaded into the live state's tensors (one state on the
+        device). ``run`` steps the state in place, so a failure before the
+        first checkpoint restarts from a fresh ``init_state``: seeded, the
+        same start."""
+        state, restarts = self.init_state(), 0
+        while True:
+            start = self.try_restore(state)
+            if start is None:
+                if restarts:
+                    state = None            # free the stepped state before drawing again
+                    state = self.init_state()
+                start = 0
+            try:
+                out = self.run(start_state=state, start_step=start)
+                out["restarts"] = restarts
+                return out
+            except SimulatedFailure:
+                restarts += 1
+                if restarts > max_restarts:
+                    raise
 
 
 class StreamingEmbedPipeline:

@@ -138,7 +138,9 @@ def test_fixed_mode_walks_at_two_shards_equal_sharded_engine(small_graph, method
 
 
 def test_torch_quickstart_runs_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One intra-op thread: under several test workers torch's default pool
+    # (one thread a core) made this run several times slower.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
                            "--device", "cpu", "--nodes", "300"], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
