@@ -26,9 +26,13 @@ Phases (each failure raises and ends the run with a non-zero exit):
    (the TPU kernel's buffer interface) at the paper width and three
    ragged shapes, one of W + K = 16 columns (5e-4); flash attention at the
    reference's test shapes, at every head dim, with GQA, ragged lengths,
-   ``q_offset`` and without the causal mask, and at the prefill shapes of
-   qwen3-1.7b, zamba2-7b and qwen2-moe-a2.7b (2e-3 in float32 against ``mha_reference``, through the
-   SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
+   ``q_offset`` and without the causal mask, at the prefill shapes of
+   qwen3-1.7b, zamba2-7b, qwen2-moe-a2.7b and chameleon-34b, and without
+   the mask at seamless-m4t-large-v2's encoder (4,096 keys) and
+   cross-attention (2,048 queries over 4,096 keys) and a ragged 300 over
+   1,100 keys (through ``ops.attend``, the model layers' entry, which takes
+   the key lengths the reference wrapper refuses) (2e-3 in float32 against
+   ``mha_reference``, through the SIMT kernel; 2e-2 in bfloat16, through the wgmma kernel, its error
    against ``mha_chunked`` printed beside); at MLA's latent head dim 288
    with one KV head and MLA's sm_scale, in both types: minicpm3-4b's
    prefill shape with v a tensor of its own, the zero-padded latent and k
@@ -160,7 +164,7 @@ Phases (each failure raises and ends the run with a non-zero exit):
    rebuilds, re-walks, WAL append and fsync, snapshots).
 Phases 4-9 serve each model at full width and a cut depth (``LM_LAYERS``:
 4, 27, 8, 8, 4 and 8 layers, an eighth of each model's but a third of
-zamba2's and qwen2-moe's): the layer counts below are the full
+zamba2's and qwen2-moe's; chameleon's 6 in phase 11): the layer counts below are the full
 configurations', and every count of launches per prefill scales with the
 layers served.
 
@@ -258,7 +262,32 @@ layers served.
    an uninterrupted ``Trainer.run`` from the same seeded state, the
    restore adding no second state on the card; checkpoints in a temporary
    directory removed after; prints a checkpoint's bytes and the save and
-   restore seconds.
+   restore seconds. Phase (a) also holds K2 without the mask at seamless's
+   cross-attention in training (2 x 16 x 2,048 queries over 1,024 frames,
+   D 64).
+11. Encoder-decoder models and front ends (``[encdec]``): (b)
+   seamless-m4t-large-v2 at full width and depth (24 encoder + 24 decoder
+   layers, d 1,024, 16 heads of 64, d_ff 8,192, vocab 256,208; seeded
+   random weights, bf16) through ``zoo.prefill_fn`` / ``zoo.decode_fn``
+   (the reference has no encoder-decoder server): two waves of 4 prompts,
+   2,048 tokens over ``audio_frames`` of 4,096 frames and 512 tokens over a
+   ragged 1,100, 32 greedy tokens each over a 4,096-position cache. K2
+   must launch 72 times a prefill (encoder, decoder self-attention and
+   cross-attention in every layer) and never in a decode step; decode step
+   n's logits and self k/v must match a fresh prefill over the same frames
+   and tokens (n = 1, 16, 31) within qwen3-1.7b's bounds, and the cross
+   k/v bit for bit (decode never writes them). (c) chameleon-34b at full
+   width and 6 of its 48 layers through ``lm_path`` (phase 4's checks and
+   faults), its prompts ``vq_token_stream`` ids. (d) Two ``Trainer`` steps
+   of seamless at full width and 2 + 2 layers, batch 2 x 2,048 target
+   tokens over 1,024 frames (the Trainer's frames branch; no checkpoint
+   written): losses finite, K2 launched 24 times (12 forward, 12 in the
+   remat recompute). (a) K2's check cases at the encoder's, the
+   cross-attention's and a ragged non-causal shape hold its error both at
+   ``FLASH_TOL`` and at ``bench.SCALED_TOL`` of the outputs' scale (those
+   outputs are as small as ``FLASH_TOL``). Then K2's times at the encoder, cross and chameleon
+   shapes against the plain version, the bound and SDPA (``is_causal``
+   as the call's).
 
 One worker process (spawned at the start, stopped at the end) makes the
 host-only inputs while the card runs the phases before them: the yt-sim
@@ -266,7 +295,8 @@ and fl-sim graphs (numpy), fl-sim's churn batch and ``[walk]``'s k = 4
 MPGP partition. Each path runs with every launch count set to 0 just
 before it and read just after. Prints one JSON line with the kernels' numbers (flash
 attention's at qwen3-1.7b's prefill shape, under ``by_shape`` at every
-model's, under ``train`` the training step's) and, last, the device line.
+model's, under ``train`` the training step's, under ``encdec`` seamless's
+prefill, decode and training times) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -333,6 +363,8 @@ RECURRENT_ARCH = "xlstm-350m"
 MLA_ARCH = "minicpm3-4b"
 MOE_MLA_ARCH = "deepseek-v2-lite-16b"
 MOE_ARCH = "qwen2-moe-a2.7b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "chameleon-34b"
 #: Phases 4-9 serve each model at full width and these depths, to keep the
 #: script inside its time limit on a slower host (PERF.md §5): an eighth of
 #: the layers (one block cycle at least), but a third of zamba2's and
@@ -340,7 +372,7 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 #: drifts past its logits bound; at 3 layers a skipped shared expert no
 #: longer moves qwen2-moe's cache and logits past theirs).
 LM_LAYERS = {LM_ARCH: 4, HYBRID_ARCH: 27, RECURRENT_ARCH: 8, MLA_ARCH: 8, MOE_MLA_ARCH: 4,
-             MOE_ARCH: 8}
+             MOE_ARCH: 8, VLM_ARCH: 6}
 LM_REQUESTS, LM_NEW_TOKENS, LM_SLOTS, LM_MAX_LEN = 8, 32, 4, 4096
 LM_PROMPT_LENS = (512, 2048)
 KV_CHECK_STEPS = (1, 16, 31)
@@ -397,7 +429,27 @@ BOUNDS = {"qwen3-1.7b": {"logits": 2e-2, "kv": 5e-2},
           "xlstm-350m": {"logits": 0.2, "mlstm": 0.5, "c": 0.5, "n": 0.4, "h": 0.9},
           "minicpm3-4b": {"logits": 5e-2, "ckv": 0.1, "krope": 0.1},
           "deepseek-v2-lite-16b": {"logits": 0.35, "ckv": 0.3, "krope": 0.3},
-          "qwen2-moe-a2.7b": {"logits": 0.35, "kv": 0.35}}
+          "qwen2-moe-a2.7b": {"logits": 0.35, "kv": 0.35},
+          # [encdec]: qwen3-1.7b's bounds, untightened (PERF.md §6 gives the
+          # measured drift)
+          "seamless-m4t-large-v2": {"logits": 2e-2, "kv": 5e-2},
+          "chameleon-34b": {"logits": 2e-2, "kv": 5e-2}}
+#: [encdec] (b): seamless-m4t-large-v2 at full width and depth, two waves of
+#: LM_SLOTS prompts through zoo.prefill_fn / decode_fn, LM_NEW_TOKENS greedy
+#: tokens each over a LM_MAX_LEN self cache: (prompt tokens, source frames);
+#: the first wave's source is zoo.CROSS_SRC_LEN frames, the second's ragged.
+ENCDEC_WAVES = ((2048, 4096), (512, 1100))
+#: [encdec] (d): Trainer steps of seamless at full width and a cut depth,
+#: batch x seq_len target tokens over seq_len // 2 source frames.
+ENCDEC_TRAIN_LAYERS, ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 2, 2, 2, 2048
+# [encdec] (a): K2 checks at the new routes' shapes, (B, Hq, Hkv, Sq, Skv, D,
+# causal, q_offset, dtype): seamless's encoder (non-causal over the whole
+# source) and cross-attention (a wave's prompt over its source), a ragged
+# non-causal one in both types; chameleon's prefill is added in main(). The
+# non-causal ones are also held to the outputs' scale (bench.SCALED_TOL).
+ENCDEC_FLASH_CASES = [(LM_SLOTS, 16, 16, 4096, 4096, 64, False, 0, "bfloat16"),
+                      (LM_SLOTS, 16, 16, 2048, 4096, 64, False, 0, "bfloat16")] + \
+                     [(2, 16, 16, 300, 1100, 64, False, 0, dt) for dt in ("float32", "bfloat16")]
 H100_F32_FLOPS = 67e12          # FP32 outside the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
@@ -2198,25 +2250,34 @@ def serve_ingest(torch, np, counters, srv, stage: str, seed: int, dev) -> tuple:
     return versions.pop(), launches
 
 
-def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own") -> tuple:
-    """Kernel against ``mha_reference`` on the card; raises outside the
-    tolerance. With ``v_mode`` "k" (MLA's call) the kernel's first 256
-    columns must also match ``mha_reference`` on the zero-padded latent
-    (the reference's v). Returns the max abs error against it and, in
-    bfloat16, against ``mha_chunked`` (which rounds P to bf16 for P.V, as
-    the wgmma kernel does), else None."""
+def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own",
+                scaled=False) -> tuple:
+    """Kernel (through ``ops.attend``, the model layers' entry, which takes
+    every key length) against ``mha_reference`` on the card; raises outside
+    the tolerance. With ``scaled`` (non-causal over many keys, where the
+    outputs are as small as the tolerance) the error must also be within
+    ``bench.SCALED_TOL`` of the outputs' scale. With ``v_mode`` "k" (MLA's
+    call) the kernel's first 256 columns must also match ``mha_reference``
+    on the zero-padded latent (the reference's v). Returns the max abs
+    error against it; in bfloat16 the one against ``mha_chunked`` (which
+    rounds P to bf16 for P.V, as the wgmma kernel does), else None; and
+    ``bench.scaled_errors`` against ``mha_reference``."""
     from repro_torch.kernels.flash_attention import bench as fa_bench
 
     b, hq, hkv, sq, skv, d, causal, q_offset, dtype = case
     q, k, v = fa_bench.inputs(torch, b, hq, hkv, sq, skv, d, seed, getattr(torch, dtype), v_mode)
     kw = dict(causal=causal, q_offset=q_offset, sm_scale=sm_scale)
-    got = fa_ops.flash_attention(q, k, v, **kw).float()
+    got = fa_ops.attend(q, k, v, **kw).float()
     want = fa_ref.mha_reference(q, k, v, **kw).float()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = FLASH_TOL[dtype]
     if not torch.allclose(got, want, atol=tol, rtol=tol):
         raise AssertionError(f"flash_attention {case}: differs by {err:.3e}")
+    rel = fa_bench.scaled_errors(got, want)
+    if scaled and any(r > lim for r, lim in zip(rel, fa_bench.SCALED_TOL[dtype])):
+        raise AssertionError(f"flash_attention {case}: scaled errors (max, mean) {rel} exceed "
+                             f"{fa_bench.SCALED_TOL[dtype]}")
     if v_mode == "k":
         rank = fa_bench.LATENTS[d][0]
         padded = torch.nn.functional.pad(k[..., :rank], (0, d - rank))
@@ -2230,7 +2291,7 @@ def flash_check(torch, fa_ops, fa_ref, case, seed, sm_scale=None, v_mode="own") 
     if dtype == "bfloat16":
         chunked = fa_ref.mha_chunked(q, k, v, **kw).float()
         chunked = (got - chunked).abs().max().item()
-    return err, chunked
+    return err, chunked, rel
 
 
 def sass_functions(lib) -> list:
@@ -2306,30 +2367,34 @@ def ssd_sass_check(lib, wide_lib) -> None:
 
 
 def flash_times(torch, fa_ops, fa_ref, case, sm_scale=None, v_mode="own") -> dict:
-    """Kernel, plain and SDPA ms and the bound at a causal prefill case
-    (with ``v_mode`` "k", MLA's call: v is k). At a head dim above 128 SDPA
-    is also timed with k and v expanded to every query head; the log names
-    the backend PyTorch picked for each call, and ``library_ms`` is the
-    faster."""
+    """Kernel, plain and SDPA ms and the bound at a prefill case (with
+    ``v_mode`` "k", MLA's call: v is k), causal or not (an encoder's or a
+    cross-attention's: SDPA with ``is_causal=False``). At a head dim above
+    128 SDPA is also timed with k and v expanded to every query head; the
+    log names the backend PyTorch picked for each call, and ``library_ms``
+    is the faster."""
     from repro_torch.kernels.flash_attention import bench as fa_bench
 
-    b, hq, hkv, s, _, d, _, _, dtype = case
-    q, k, v = fa_bench.inputs(torch, b, hq, hkv, s, s, d, 7, getattr(torch, dtype), v_mode)
-    kernel_ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, sm_scale=sm_scale), 20)
-    plain_ms = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v, sm_scale=sm_scale), 5)
+    b, hq, hkv, sq, skv, d, causal, _, dtype = case
+    q, k, v = fa_bench.inputs(torch, b, hq, hkv, sq, skv, d, 7, getattr(torch, dtype), v_mode)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    kernel_ms = time_ms(torch, lambda: fa_ops.attend(q, k, v, **kw), 20)
+    plain_ms = time_ms(torch, lambda: fa_ref.mha_reference(q, k, v, **kw), 5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    calls = {"enable_gqa": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True, scale=sm_scale)}
+    calls = {"enable_gqa": lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True,
+                                        scale=sm_scale)}
     if d > 128:
-        kx, vx = (t.expand(b, hq, s, d) for t in (k, v))
-        calls["expanded"] = lambda: sdpa(q, kx, vx, is_causal=True, scale=sm_scale)
+        kx, vx = (t.expand(b, hq, skv, d) for t in (k, v))
+        calls["expanded"] = lambda: sdpa(q, kx, vx, is_causal=causal, scale=sm_scale)
     library = {}
     for name, call in calls.items():
         backend = fa_bench.sdpa_backend(torch, call)
         library[name] = {"backend": backend, "ms": time_ms(torch, call, 20)}
     best = min(library, key=lambda name: library[name]["ms"])
-    bound, by = fa_bench.bound_ms(b, hq, hkv, s, d, q.element_size())
+    bound, by = fa_bench.bound_ms(b, hq, hkv, sq, d, q.element_size(), skv=skv, causal=causal)
     log(f"[time] flash_attention at the prefill shape q {tuple(q.shape)} kv {tuple(k.shape)} "
-        f"{dtype}" + (f", sm_scale {sm_scale:.6f}, v {v_mode}" if sm_scale else "")
+        f"{dtype}{'' if causal else ' non-causal'}"
+        + (f", sm_scale {sm_scale:.6f}, v {v_mode}" if sm_scale else "")
         + f": kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         + ", ".join(f"sdpa {name} ({lib['backend']}) {lib['ms']:.4f} ms"
                     for name, lib in library.items())
@@ -2337,10 +2402,11 @@ def flash_times(torch, fa_ops, fa_ref, case, sm_scale=None, v_mode="own") -> dic
     shapes = {"q": list(q.shape), "kv": list(k.shape)}
     del q, k, v, calls
     torch.cuda.empty_cache()
-    out = {**shapes, "dtype": dtype, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": by, "library_ms": library[best]["ms"]}
+    out = {**shapes, "dtype": dtype, "causal": causal, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": library[best]["ms"],
+           "library": f"sdpa {best} ({library[best]['backend']})"}
     if d > 128:
-        out.update(sm_scale=sm_scale, v=v_mode, library=f"sdpa {best} ({library[best]['backend']})",
+        out.update(sm_scale=sm_scale, v=v_mode,
                    library_ms_by_call={name: lib["ms"] for name, lib in library.items()})
     return out
 
@@ -3138,14 +3204,18 @@ DRILL_FAIL_AT = (1, 3)
 def train_grad_checks(torch, cfgs: dict, dev) -> float:
     """Phase (a): each autograd-wrapped route on the card with seeded inputs
     and one fixed upstream gradient: the forward within the kernel's
-    tolerance of the plain forward, every input gradient bit-equal to the
+    tolerance of the plain forward (and, without the mask, within
+    ``SCALED_TOL`` of its scale), every input gradient bit-equal to the
     plain forward + backward() (``kernels.grad_check``); one launch (scan)
     each. K2 at qwen3-1.7b's training shape, at zamba2-7b's D 112, at MLA's
-    latents (D 288 and 576, v = k); K3's first route at zamba2's mixer
+    latents (D 288 and 576, v = k), non-causal at seamless's cross-attention
+    (D 64, 2,048 queries over 1,024 frames); K3's first route at zamba2's mixer
     shape (one batch), its wide route at the xLSTM's (P 513, N 512, chunk
     512) at a small S, and the 3-D form. Returns the largest forward error
     of each kernel by its name in the kernels line."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import grad_check
+    from repro_torch.kernels.flash_attention import bench as fa_bench
     from repro_torch.kernels.ssm_scan import bench as ssd_bench
     from repro_torch.models import mamba2, xlstm
 
@@ -3154,6 +3224,7 @@ def train_grad_checks(torch, cfgs: dict, dev) -> float:
     bf16 = torch.bfloat16
     qwen, zamba, mla, ds, xl = (cfgs[a] for a in (LM_ARCH, HYBRID_ARCH, MLA_ARCH, MOE_MLA_ARCH,
                                                   RECURRENT_ARCH))
+    seamless = get_config(ENCDEC_ARCH)
     flash_cases = [
         ("qwen3 training shape", (TRAIN_BATCH, qwen.num_heads, qwen.num_kv_heads, TRAIN_SEQ,
                                   qwen.resolved_head_dim), None, False),
@@ -3163,24 +3234,36 @@ def train_grad_checks(torch, cfgs: dict, dev) -> float:
          MLA_SCALE, True),
         ("D 576, v = k", (1, ds.num_heads, 1, TRAIN_SEQ, ds.kv_lora_rank + ds.qk_rope_dim),
          DEEPSEEK_SCALE, True)]
+    # (name, (B, Hq, Hkv, Sq, D), sm_scale, v is k[, Skv, causal]): seamless's
+    # cross-attention in training, non-causal over half as many source frames
+    flash_cases.append(("D 64 non-causal, seamless's cross-attention",
+                        (ENCDEC_TRAIN_BATCH, seamless.num_heads, seamless.num_kv_heads,
+                         ENCDEC_TRAIN_SEQ, seamless.resolved_head_dim), None, False,
+                        ENCDEC_TRAIN_SEQ // 2, False))
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "ssd_scan_wide": 0.0}
-    for name, (b, hq, hkv, s, d), scale, v_is_k in flash_cases:
-        q, k, v = rnd(b, hq, s, d, dt=bf16), rnd(b, hkv, s, d, dt=bf16), rnd(b, hkv, s, d, dt=bf16)
+    for name, (b, hq, hkv, s, d), scale, v_is_k, *rest in flash_cases:
+        skv, causal = rest or (s, True)
+        q, k, v = (rnd(b, hq, s, d, dt=bf16), rnd(b, hkv, skv, d, dt=bf16),
+                   rnd(b, hkv, skv, d, dt=bf16))
         case = grad_check.flash_case(q, k, k if v_is_k else v, rnd(b, hq, s, d, dt=bf16),
-                                     sm_scale=scale)
+                                     causal=causal, sm_scale=scale)
         err = case.forward_err()
         tol = FLASH_TOL["bfloat16"]
+        rel = fa_bench.scaled_errors(case.outputs[0], case.plain_outputs[0])
         if case.launches != 1 or not torch.allclose(case.outputs[0].float(),
                                                     case.plain_outputs[0].float(),
-                                                    atol=tol, rtol=tol):
-            raise AssertionError(f"[train] K2 {name}: forward differs by {err:.3e} "
-                                 f"({case.launches} launches)")
+                                                    atol=tol, rtol=tol) or \
+                (not causal and any(r > lim for r, lim in
+                                    zip(rel, fa_bench.SCALED_TOL["bfloat16"]))):
+            raise AssertionError(f"[train] K2 {name}: forward differs by {err:.3e}, scaled "
+                                 f"(max, mean) {rel} ({case.launches} launches)")
         if not case.grads_equal():
             raise AssertionError(f"[train] K2 {name}: the wrapper's gradients are not the plain "
                                  "version's bit for bit")
         worst["flash_attention"] = max(worst["flash_attention"], err)
-        log(f"[train] grad check K2 {name} {(b, hq, hkv, s, d)} bf16: forward max abs err "
-            f"{err:.3e}, {len(case.grads)} input gradients bit-equal to the plain version's")
+        log(f"[train] grad check K2 {name} {(b, hq, hkv, s, skv, d)} bf16: forward max abs err "
+            f"{err:.3e}, scaled (max, mean) {rel[0]:.3e}, {rel[1]:.3e}, {len(case.grads)} input "
+            f"gradients bit-equal to the plain version's")
         del q, k, v, case
         torch.cuda.empty_cache()
     _, heads, head_dim, state = mamba2._dims(zamba)
@@ -3384,6 +3467,233 @@ def train_phase(torch, np, counters, cfgs: dict, dev) -> dict:
     return {"grad_err": grad_err, "steps": steps, "drill": drill}
 
 
+# --- encoder-decoder models and front ends ([encdec]) ----------------------------
+
+def vq_prompts(np, vocab: int):
+    """chameleon's traffic: ``lm_prompts``' lengths (numpy seed 0), each
+    prompt ``frontend.vq_token_stream`` of fold_in(PRNGKey(0), i): its first
+    half VQ image codes, the rest text ids."""
+    from repro_torch import prng
+    from repro_torch.models import frontend
+
+    lens = np.random.default_rng(0).integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                                             LM_REQUESTS)
+    return [frontend.vq_token_stream(prng.fold_in(prng.PRNGKey(0), i), 1, int(n), vocab,
+                                     device="cpu")[0].numpy().astype(np.int32)
+            for i, n in enumerate(lens)]
+
+
+def kv_rel_diff(served, fresh, rows: int) -> float:
+    """The largest |served - fresh| of each decoder layer's self k and v at
+    positions [0, rows), over that tensor's largest |fresh| entry."""
+    worst = 0.0
+    for got_layer, want_layer in zip(served, fresh):
+        for name in ("k", "v"):
+            want = want_layer["self"][name][:, :, :rows].float()
+            got = got_layer["self"][name][:, :, :rows].float()
+            worst = max(worst, (got - want).abs().max().item() / want.abs().max().item())
+    return worst
+
+
+def encdec_serve(torch, np, counters, cfg, dev) -> dict:
+    """[encdec] (b): seamless at full width and depth through
+    ``zoo.prefill_fn`` / ``zoo.decode_fn`` (the reference has no
+    encoder-decoder server): ENCDEC_WAVES' waves, LM_NEW_TOKENS greedy
+    tokens each, every launch count set to 0 just before and read just
+    after. K2 must launch once per encoder layer, decoder self-attention and
+    cross-attention in each prefill and never in a decode step. Then, for
+    each wave and n in KV_CHECK_STEPS, a fresh prefill over the wave's
+    frames and prompt plus its first n generated tokens must give decode
+    step n's logits and every layer's self k/v within BOUNDS, and every
+    layer's cross k/v bit for bit (decode reads the cross cache and never
+    writes it)."""
+    from repro_torch.models import frontend, zoo
+
+    if ENCDEC_WAVES[0][1] != zoo.CROSS_SRC_LEN:
+        raise AssertionError("the first wave's source is not zoo.CROSS_SRC_LEN frames")
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[encdec] {cfg.name}: {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, d "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} parameters (seed 0; "
+        f"the config's param_count() {cfg.param_count()}, which leaves out the decoder's "
+        f"cross-attention norms and the two final norms) in {time.perf_counter() - t0:.2f} s")
+    prefill, decode = zoo.prefill_fn(cfg, LM_MAX_LEN), zoo.decode_fn(cfg)
+    rng = np.random.default_rng(0)
+    waves = [(frontend.audio_frames(w, LM_SLOTS, src, cfg.d_model, device=dev),
+              torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_SLOTS, plen)), device=dev))
+             for w, (plen, src) in enumerate(ENCDEC_WAVES)]
+    fa = counters["flash_attention"]
+    per_prefill = cfg.enc_layers + 2 * cfg.dec_layers
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    served, prefill_s, decode_ms = [], [], []
+    for frames, toks in waves:
+        plen = toks.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = fa.LAUNCHES
+        logits, caches = prefill(params, {"frames": frames, "tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        if fa.LAUNCHES - before != per_prefill:
+            raise AssertionError(f"[encdec] a prefill launched K2 {fa.LAUNCHES - before} "
+                                 f"times, expected {per_prefill}")
+        calls, cur = [logits], logits.argmax(-1)[:, None]
+        gen = [cur]
+        t0 = time.perf_counter()
+        for step in range(LM_NEW_TOKENS - 1):
+            logits, caches = decode(params, caches, cur, plen + step)
+            cur = logits.argmax(-1)[:, None]
+            calls.append(logits)
+            gen.append(cur)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) / (LM_NEW_TOKENS - 1) * 1e3)
+        served.append({"calls": calls, "caches": caches, "gen": torch.cat(gen, dim=1)})
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = per_prefill * len(waves)
+    for (frames, toks), s_ms, p_s in zip(waves, decode_ms, prefill_s):
+        log(f"[encdec] {cfg.name} wave of {LM_SLOTS} x {toks.shape[1]} prompt tokens over "
+            f"{frames.shape[1]} frames: prefill {p_s:.4f} s, decode {s_ms:.3f} ms/step "
+            f"({LM_NEW_TOKENS - 1} steps)")
+    log(f"[encdec] {cfg.name} peak device memory {peak:.3f} GiB; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"[encdec] launches {launches}, expected {expected}")
+    if not all(torch.isfinite(c.float()).all() for sv in served for c in sv["calls"]):
+        raise AssertionError("[encdec] non-finite logits")
+    bounds = BOUNDS[cfg.name]
+    worst = {"logits": 0.0, "kv": 0.0}
+    warm_s = {}                          # each wave's first fresh prefill, timed
+    for w, ((frames, toks), sv) in enumerate(zip(waves, served)):
+        plen = toks.shape[1]
+        seq = torch.cat([toks, sv["gen"]], dim=1)
+        for n in KV_CHECK_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh, fresh_caches = prefill(params, {"frames": frames, "tokens": seq[:, :plen + n]})
+            torch.cuda.synchronize()
+            warm_s.setdefault(w, time.perf_counter() - t0)
+            step = sv["calls"][n].float()
+            fresh = fresh.float()
+            diff, scale = (fresh - step).abs().max().item(), step.abs().max().item()
+            kv = kv_rel_diff(sv["caches"], fresh_caches, plen + n)
+            cross_equal = all(torch.equal(a["cross"][name], b["cross"][name])
+                              for a, b in zip(sv["caches"], fresh_caches) for name in ("k", "v"))
+            log(f"[encdec] wave {w} step {n}: fresh prefill vs decode max |diff| {diff:.4f} (max "
+                f"|logit| {scale:.2f}; {diff / scale:.5f}, bound {bounds['logits']}); self k/v "
+                f"over positions 0..{plen + n - 1} {kv:.5f} of the largest entry (bound "
+                f"{bounds['kv']}); cross k/v bit-equal: {cross_equal}")
+            if not diff <= bounds["logits"] * scale:
+                raise AssertionError(f"[encdec] wave {w} step {n}: decode logits differ by "
+                                     f"{diff} > {bounds['logits']} x {scale}")
+            if not kv <= bounds["kv"]:
+                raise AssertionError(f"[encdec] wave {w} step {n}: self k/v differ by {kv}")
+            if not cross_equal:
+                raise AssertionError(f"[encdec] wave {w} step {n}: the served cross cache is "
+                                     "not the fresh prefill's bit for bit")
+            top2 = step.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > diff
+            if not torch.equal(fresh.argmax(-1)[sure], step.argmax(-1)[sure]):
+                raise AssertionError(f"[encdec] wave {w} step {n}: argmax differs where the "
+                                     f"top-2 margin exceeds {diff}")
+            worst = {"logits": max(worst["logits"], diff / scale), "kv": max(worst["kv"], kv)}
+            del fresh_caches
+    log(f"[encdec] {cfg.name} cache consistency: worst |diff| / max |logit| "
+        f"{worst['logits']:.5f}, self k/v {worst['kv']:.5f}; cross caches bit-equal; first "
+        f"request's tokens {served[0]['gen'][0].tolist()}")
+    log(f"[encdec] {cfg.name} a warm prefill (each wave's first fresh prefill, 1 token "
+        f"longer): {[round(warm_s[w], 4) for w in range(len(waves))]} s; the served ones "
+        f"{[round(t, 4) for t in prefill_s]} s")
+    return {"launches": launches, "prefill_s": prefill_s, "decode_ms": decode_ms,
+            "warm_prefill_s": [warm_s[w] for w in range(len(waves))], "peak_gib": peak,
+            "worst": worst}
+
+
+def encdec_train(torch, np, counters, cfg, dev) -> dict:
+    """[encdec] (d): ENCDEC_TRAIN_STEPS ``Trainer`` steps of seamless at full
+    width and ENCDEC_TRAIN_LAYERS + ENCDEC_TRAIN_LAYERS layers (frames from
+    the Trainer's frames branch), every launch count set to 0 just before
+    and read just after: losses and gradient norms finite, K2 twice per
+    attention a step (the forward and the remat recompute; 3 attentions a
+    decoder layer's pair, one an encoder layer's). The run writes no
+    checkpoint (``[train]``'s drill times them)."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(steps=ENCDEC_TRAIN_STEPS, ckpt_every=ENCDEC_TRAIN_STEPS,
+                         batch=ENCDEC_TRAIN_BATCH, seq_len=ENCDEC_TRAIN_SEQ)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    trainer.save = lambda state, step: None
+    walls, step_fn = [], trainer.step_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    trainer.step_fn = timed
+    t0 = time.perf_counter()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    log(f"[encdec] train {cfg.name} at {cfg.enc_layers} + {cfg.dec_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} params "
+        f"({sum(t.numel() for t in leaves(state['params']))}), float32 AdamW moments, remat "
+        f"{cfg.remat}: state made in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    out = trainer.run(start_state=state)
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m, wall in zip(out["metrics"], walls):
+        log(f"[encdec] train step {m['step']}: loss {m['loss']:.6f}, grad norm {m['gnorm']:.6f}, "
+            f"lr {m['lr']:.9g}, {wall * 1e3:.1f} ms")
+    tokens = ENCDEC_TRAIN_BATCH * ENCDEC_TRAIN_SEQ
+    log(f"[encdec] train batch {ENCDEC_TRAIN_BATCH} x {ENCDEC_TRAIN_SEQ} target tokens over "
+        f"{ENCDEC_TRAIN_SEQ // 2} frames: steps {[round(w * 1e3, 1) for w in walls]} ms "
+        f"({tokens / walls[-1]:.1f} target tokens/s at the last), peak device memory "
+        f"{peak:.3f} GiB; launches {launches}")
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = 2 * (cfg.enc_layers + 2 * cfg.dec_layers) * ENCDEC_TRAIN_STEPS
+    if launches != expected:
+        raise AssertionError(f"[encdec] train launches {launches}, expected {expected}")
+    if out["final_step"] != ENCDEC_TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["gnorm"]) for m in out["metrics"]):
+        raise AssertionError(f"[encdec] train: {out['final_step']} steps, metrics "
+                             f"{out['metrics']}")
+    return {"launches": launches, "step_ms": [w * 1e3 for w in walls], "peak_gib": peak,
+            "losses": [m["loss"] for m in out["metrics"]]}
+
+
+def encdec_phase(torch, np, counters, cfgs: dict, cases: dict, dev) -> dict:
+    """The [encdec] phase: (b) seamless serving at full width and depth, (c)
+    chameleon at full width and LM_LAYERS' depth through ``lm_path`` with
+    ``vq_prompts``, (d) seamless's Trainer steps, then K2's times at the
+    phase's shapes (``cases``: name -> case). Returns each path's launches
+    and the numbers for the kernels line."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    seamless, vlm = cfgs[ENCDEC_ARCH], cfgs[VLM_ARCH]
+    serve = encdec_serve(torch, np, counters, seamless, dev)
+    torch.cuda.empty_cache()
+    vlm_launches = lm_path(torch, np, counters, vlm, vq_prompts(np, vlm.vocab_size), dev)
+    torch.cuda.empty_cache()
+    train = encdec_train(torch, np, counters, dataclasses.replace(
+        seamless, enc_layers=ENCDEC_TRAIN_LAYERS, dec_layers=ENCDEC_TRAIN_LAYERS,
+        num_layers=2 * ENCDEC_TRAIN_LAYERS), dev)
+    torch.cuda.empty_cache()
+    times = {name: flash_times(torch, fa_ops, fa_ref, case) for name, case in cases.items()}
+    return {"serve": serve, "vlm_launches": vlm_launches, "train": train, "times": times}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3467,9 +3777,9 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
         sgns_err = max(sgns_err, err)
         log(f"[check] sgns_lifetime {shape}: max abs err {err:.3e}")
 
-    lm_cfg, hy_cfg, rec_cfg, mla_cfg, ds_cfg, moe_cfg = (
+    lm_cfg, hy_cfg, rec_cfg, mla_cfg, ds_cfg, moe_cfg, vlm_cfg = (
         dataclasses.replace(get_config(a), num_layers=LM_LAYERS[a]) for a in (
-            LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH, MLA_ARCH, MOE_MLA_ARCH, MOE_ARCH))
+            LM_ARCH, HYBRID_ARCH, RECURRENT_ARCH, MLA_ARCH, MOE_MLA_ARCH, MOE_ARCH, VLM_ARCH))
     prompts = lm_prompts(np, lm_cfg.vocab_size)
     hy_prompts = lm_prompts(np, hy_cfg.vocab_size)
     rec_prompts = lm_prompts(np, rec_cfg.vocab_size)
@@ -3492,21 +3802,34 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mla_prefill_case, ds_prefill_case = latent[MLA_ARCH], latent[MOE_MLA_ARCH]
     moe_prefill_case = (LM_SLOTS, moe_cfg.num_heads, moe_cfg.num_kv_heads, s_prefill, s_prefill,
                         moe_cfg.resolved_head_dim, True, 0, "bfloat16")
+    vlm_prefill_case = (LM_SLOTS, vlm_cfg.num_heads, vlm_cfg.num_kv_heads, s_prefill, s_prefill,
+                        vlm_cfg.resolved_head_dim, True, 0, "bfloat16")
+    ed_cfg = get_config(ENCDEC_ARCH)
+    ed_cases = {f"{ENCDEC_ARCH} encoder": ENCDEC_FLASH_CASES[0],
+                f"{ENCDEC_ARCH} cross": ENCDEC_FLASH_CASES[1], VLM_ARCH: vlm_prefill_case}
+    if ENCDEC_FLASH_CASES[0][1:6] != (ed_cfg.num_heads, ed_cfg.num_kv_heads, ENCDEC_WAVES[0][1],
+                                      ENCDEC_WAVES[0][1], ed_cfg.resolved_head_dim) or \
+            ENCDEC_FLASH_CASES[1][3:5] != (ENCDEC_WAVES[0][0], ENCDEC_WAVES[0][1]):
+        raise AssertionError("ENCDEC_FLASH_CASES are not seamless's first wave's shapes")
     mla_cases = [(*c[:8], dt, c[8]) for c in
                  [(*case[:8], v) for case in latent.values() for v in ("own", "padded", "k")]
                  + MLA_FLASH_CASES for dt in ("float32", "bfloat16")]
     flash_err = 0.0
     checks = [(case, None, "own") for case in [*FLASH_CASES, prefill_case, hy_prefill_case,
-                                                moe_prefill_case]] + \
+                                                moe_prefill_case, *ENCDEC_FLASH_CASES,
+                                                vlm_prefill_case]] + \
         [(case[:9], fa_bench.LATENTS[case[5]][1], case[9]) for case in mla_cases]
     for i, (case, scale, v_mode) in enumerate(checks):
-        err, chunked = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i, sm_scale=scale,
-                                   v_mode=v_mode)
+        scaled = case in ENCDEC_FLASH_CASES and not case[6]
+        err, chunked, rel = flash_check(torch, fa_ops, fa_ref, case, seed=100 + i,
+                                        sm_scale=scale, v_mode=v_mode, scaled=scaled)
         flash_err = max(flash_err, err)
         log(f"[check] flash_attention {case}"
             + (f" sm_scale {scale:.6f} v {v_mode}" if scale else "")
             + f": max abs err {err:.3e} against mha_reference"
-            + (f", {chunked:.3e} against mha_chunked" if chunked is not None else ""))
+            + (f", {chunked:.3e} against mha_chunked" if chunked is not None else "")
+            + f"; scaled (max, mean) {rel[0]:.3e}, {rel[1]:.3e}"
+            + (f" within {fa_bench.SCALED_TOL[case[8]]}" if scaled else ""))
         torch.cuda.empty_cache()
 
     hy_d_in = hy_cfg.ssm_expand * hy_cfg.d_model
@@ -3624,6 +3947,15 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mark("[train]")
     launches[f"{LM_ARCH} train"] = train["steps"]["launches"]
     launches[f"{LM_ARCH} restart drill"] = train["drill"]["launches"]
+
+    # 11. encoder-decoder models and front ends ----------------------------------------
+    encdec = encdec_phase(torch, np, counters, {ENCDEC_ARCH: ed_cfg, VLM_ARCH: vlm_cfg},
+                          ed_cases, dev)
+    mark("[encdec]")
+    launches[ENCDEC_ARCH] = encdec["serve"]["launches"]
+    launches[VLM_ARCH] = encdec["vlm_launches"]
+    launches[f"{ENCDEC_ARCH} train"] = encdec["train"]["launches"]
+    flash_shapes.update(encdec["times"])
     flash_err = max(flash_err, train["grad_err"]["flash_attention"])
     total = {name: sum(path[name] for path in launches.values()) for name in counters}
     total["sgns_lifetime"] += emb[2]["launches"] + emb[1]["launches"] \
@@ -3684,6 +4016,14 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
                   "shape": [TRAIN_BATCH, lm_cfg.num_heads, lm_cfg.num_kv_heads, TRAIN_SEQ,
                             lm_cfg.resolved_head_dim],
                   "backward": "plain (ref.mha_reference under autograd)"},
+        "encdec": {"prefill_s": encdec["serve"]["prefill_s"],
+                   "warm_prefill_s": encdec["serve"]["warm_prefill_s"],
+                   "decode_ms": encdec["serve"]["decode_ms"],
+                   "waves": [list(w) for w in ENCDEC_WAVES],
+                   "serve_peak_gib": encdec["serve"]["peak_gib"],
+                   "decode_vs_fresh_prefill": encdec["serve"]["worst"],
+                   "train_step_ms": encdec["train"]["step_ms"],
+                   "train_peak_gib": encdec["train"]["peak_gib"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -2,12 +2,13 @@
 
 ``get_config(name)`` returns the full published config, ``get_reduced(name)``
 the CPU-test version (same family, tiny dims), with the JAX package's names
-and aliases. The port serves the dense decoder-only ``qwen3-1.7b`` and
-``yi-6b``, the Mamba2 + attention hybrid ``zamba2-7b``, the mLSTM + sLSTM
-recurrent ``xlstm-350m``, the multi-head latent attention model
-``minicpm3-4b`` and the mixtures of experts ``qwen2-moe-a2.7b`` and
-``deepseek-v2-lite-16b`` (MLA + MoE) so far; any other architecture of
-the reference raises and names the ROADMAP item that ports it.
+and aliases. The port runs every architecture of the reference: the dense
+decoder-only ``qwen3-1.7b``, ``yi-6b`` and ``llama3-405b``, the Mamba2 +
+attention hybrid ``zamba2-7b``, the mLSTM + sLSTM recurrent ``xlstm-350m``, the
+multi-head latent attention model ``minicpm3-4b``, the mixtures of
+experts ``qwen2-moe-a2.7b`` and ``deepseek-v2-lite-16b`` (MLA + MoE), the
+encoder-decoder ``seamless-m4t-large-v2`` (audio frames in) and the
+early-fusion ``chameleon-34b`` (VQ image codes as tokens).
 ``distger`` holds the embedding system's own presets.
 """
 
@@ -19,7 +20,8 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = ["qwen3_1_7b", "zamba2_7b", "xlstm_350m", "minicpm3_4b",
-                       "deepseek_v2_lite_16b", "qwen2_moe_a2_7b", "yi_6b"]
+                       "deepseek_v2_lite_16b", "qwen2_moe_a2_7b", "yi_6b", "llama3_405b",
+                       "seamless_m4t_large_v2", "chameleon_34b"]
 
 # canonical external ids (grid spelling) -> module names, as in the reference
 ALIASES: Dict[str, str] = {
@@ -43,9 +45,7 @@ def normalize(name: str) -> str:
 def get_config(name: str) -> ModelConfig:
     arch = normalize(name)
     if arch not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: the port runs {ARCH_IDS}; "
-            "the rest of the LM harness is in ROADMAP.md's queue 1 (item 6)")
+        raise KeyError(f"unknown architecture {name!r}: the port runs {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
 
 

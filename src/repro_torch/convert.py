@@ -89,14 +89,16 @@ def _tensor(leaf, dev) -> torch.Tensor:
 def lm_params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Reference LM parameters (numpy leaves) -> the port's tree.
 
-    Every ``group_<i>`` of the reference stacks its repetitions on a
+    Every ``group_<i>`` of a decoder-only reference, and the ``enc`` and
+    ``dec`` stacks of an encoder-decoder one, stack their repetitions on a
     leading axis (``wq`` (L, d, H, hd), ``ln1.scale`` (L, d), ...); the port
     keeps a list with one dict per repetition. Other entries (``embed``,
-    ``final_norm``) carry over as they are. Dtypes are kept."""
+    ``enc_norm``, ``final_norm``, ``frontend``) carry over as they are.
+    Dtypes are kept."""
     dev = resolve_device(device)
     out = {}
     for name, sub in tree.items():
-        if name.startswith("group_"):
+        if name.startswith("group_") or name in ("enc", "dec"):
             lengths = set()
             _map(sub, lambda a: lengths.add(len(a)))
             (n_rep,) = lengths             # every leaf stacks the same repetitions

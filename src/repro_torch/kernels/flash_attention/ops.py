@@ -12,9 +12,11 @@ three at 576) and, when ``v is k``, load one tile for both products. A
 launch that fails raises —
 there is no fallback from one kernel to the other or to the plain
 version. The kernels read ragged lengths with bounds checks (SIMT) or
-TMA's zero fill (wgmma), so the wrapper pads nothing; it still refuses what the reference's wrapper
-refuses (non-causal attention over a key length that is not a multiple
-of the reference's key tile), so the two stay interchangeable.
+TMA's zero fill (wgmma), so the wrapper pads nothing. ``flash_attention``
+still refuses what the reference's wrapper refuses (non-causal attention
+over a key length that is not a multiple of the reference's key tile), so
+the two stay interchangeable; ``attend``, the same route without that
+refusal, is what the model layers call (an encoder over 300 frames).
 
 On the card the kernel runs inside ``plain_backward.PlainBackward``:
 its backward is the plain version's vector-Jacobian product,
@@ -67,10 +69,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """softmax(q kᵀ · sm_scale) v per query head, the query head h reading
     KV head h // (Hq / Hkv); with ``causal``, query i sees keys
-    j <= i + q_offset. sm_scale defaults to D ** -0.5. Returns q's dtype."""
+    j <= i + q_offset. sm_scale defaults to D ** -0.5. Returns q's dtype.
+    Refuses non-causal attention over a key length that is not a multiple
+    of the reference wrapper's key tile, as that wrapper does; ``attend``
+    is the same computation without the refusal."""
     skv = k.shape[2]
     if not causal and skv % min(REF_BLOCK_K, max(skv, 1)) != 0:
         raise ValueError("non-causal flash requires Skv % block_k == 0")
+    return attend(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+           sm_scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
+    """The model layers' entry to K2 (``flash_attention``'s function) at
+    every key length: the kernel reads ragged lengths itself, so a
+    non-causal call over any Skv runs, as the reference's default route
+    (``mha_reference`` / ``mha_chunked``) does. The plain version for CPU
+    tensors, the kernel for CUDA tensors."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":

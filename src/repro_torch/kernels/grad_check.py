@@ -1,8 +1,9 @@
 """Hold the kernels' autograd wrappers to their plain versions.
 
-K2 (``flash_attention``) and K3 (``ssd_scan_heads``, ``ssd_chunked_scan``)
-run their forward pass on the card through a hand-written kernel and their
-backward pass through the plain version's vector-Jacobian product. These
+K2 (``flash_attention``, through ``ops.attend``, the models' entry) and
+K3 (``ssd_scan_heads``, ``ssd_chunked_scan``) run their forward pass on
+the card through a hand-written kernel and their backward pass through
+the plain version's vector-Jacobian product. These
 helpers run one forward and one ``backward()`` with a given upstream
 gradient through the wrapper, and the same through the plain version
 (``ref.mha_reference``; ``ssd_chunked_ref``, in the heads form on B and C
@@ -61,7 +62,7 @@ def flash_case(q, k, v, grad_out, *, causal: bool = True,
     tie = (1, 2) if v is k else None
     kw = dict(causal=causal, sm_scale=sm_scale)
     before = fa_ops.LAUNCHES
-    outs, grads = _run(lambda q_, k_, v_: fa_ops.flash_attention(q_, k_, v_, **kw),
+    outs, grads = _run(lambda q_, k_, v_: fa_ops.attend(q_, k_, v_, **kw),
                        (q, k, v), (grad_out,), tie)
     launches = fa_ops.LAUNCHES - before
     plain, plain_grads = _run(lambda q_, k_, v_: fa_ref.mha_reference(q_, k_, v_, **kw),

@@ -1,12 +1,12 @@
 """Model configuration: a copy of the JAX package's ``models/config.py``.
 
 One frozen dataclass covers every family the reference supports; per-family
-fields default off. The port runs the dense decoder-only family, the
-Mamba2 + attention hybrid and the xLSTM so far
-(``repro_torch.configs`` lists what it runs); the other fields are kept so
-that configurations read the same in both packages. ``attn_impl``, ``remat``
-and ``fsdp`` are read by the reference only: on the port the tensors'
-device picks the attention route.
+fields default off, and configurations read the same in both packages
+(``repro_torch.configs`` lists them). ``param_count`` is the reference's
+analytic count: an encoder-decoder model's leaves out the decoder's
+cross-attention norms and the two final norms. ``attn_impl`` and
+``fsdp`` are read by the reference only: on the port the tensors' device
+picks the attention route.
 """
 
 from __future__ import annotations

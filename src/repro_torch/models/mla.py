@@ -14,7 +14,7 @@ kv_lora_rank + qk_rope_dim (288 for minicpm3-4b), scaled by
 {"ckv": (B, max_len, kv_lora_rank), "krope": (B, max_len, qk_rope_dim)},
 the sequence on axis 1 as in the reference, and is updated in place.
 
-Prefill goes through ``kernels.flash_attention.flash_attention`` with k
+Prefill goes through ``kernels.flash_attention.ops.attend`` (K2) with k
 itself as v. The reference's v is c_kv zero-padded to k's width and keeps
 y[..., :kv_lora_rank]; P.V is column by column, so those columns are the
 same sums, and on the card one tile then feeds both products. With
@@ -35,8 +35,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import _heads
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.attention import heads
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, init_rmsnorm, rmsnorm
 
@@ -75,9 +75,9 @@ def _queries(x, p: Params, cfg: ModelConfig, positions):
     (``wq_down``, RMSNorm, ``wq_up``) when q_lora_rank > 0, else ``wq``;
     rope on the last qk_rope_dim columns."""
     if cfg.q_lora_rank:
-        q = _heads(rmsnorm(x @ p["wq_down"], p["q_norm"], cfg.norm_eps), p["wq_up"])
+        q = heads(rmsnorm(x @ p["wq_down"], p["q_norm"], cfg.norm_eps), p["wq_up"])
     else:
-        q = _heads(x, p["wq"])
+        q = heads(x, p["wq"])
     qn = q[..., :cfg.qk_nope_dim]
     qr = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return qn, qr
@@ -124,7 +124,7 @@ def mla_attention(
             cache["ckv"][:, :s] = ckv
             cache["krope"][:, :s] = krope
         k_mqa = torch.cat([ckv, krope], dim=-1)[:, None]                     # (B, 1, S, rank + rope)
-        y_lat = flash_attention(q_mqa, k_mqa, k_mqa, causal=True, sm_scale=sm_scale)[..., :rank]
+        y_lat = fa_ops.attend(q_mqa, k_mqa, k_mqa, causal=True, sm_scale=sm_scale)[..., :rank]
 
     # Un-absorb: y_h = y_lat W_uv_h, then the output projection.
     y = torch.matmul(y_lat, p["wv_up"].permute(1, 0, 2))                     # (B, H, S, vh)

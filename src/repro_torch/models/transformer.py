@@ -14,7 +14,10 @@ stack under ``lax.scan``: ``params["group_0"][r]["b0"]`` is layer r's block.
 Caches mirror the same structure: {k, v} for an attention block ({ckv,
 krope}, the latent, for an MLA block), {conv, ssm} for a Mamba2 block, the
 (B, H, N, P + 1) matrix memory for an mLSTM block and {c, n, h} for an
-sLSTM block, all updated in place.
+sLSTM block, all updated in place. A config with the ``"audio"`` front end
+gets the reference's identity ``frontend.proj`` leaf, which no forward pass
+reads; ``"vision"`` changes nothing (chameleon's image codes are tokens).
+An encoder-decoder config belongs to ``models/encdec.py``.
 ``repro_torch.convert.lm_params_from_reference`` unstacks a reference tree
 into this layout. ``forward_loss`` (training) runs the blocks without
 caches, each under ``torch.utils.checkpoint`` when ``cfg.remat ==
@@ -37,6 +40,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontend import frontend_kind
 from repro_torch.models.layers import (
     cross_entropy_loss, dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm,
     unembed,
@@ -46,14 +50,15 @@ Params = Dict[str, Any]
 
 
 def _check(cfg: ModelConfig) -> None:
-    """Refuse what this slice does not run, naming where it is planned."""
-    if cfg.encdec or cfg.frontend != "none":
-        raise NotImplementedError("encoder-decoder models and frontends are not "
-                                  "ported yet (ROADMAP.md queue 1, item 6)")
+    """Refuse an encoder-decoder config (``models/encdec.py`` builds it;
+    ``zoo`` picks the module) and block kinds the reference has no block
+    for."""
+    if cfg.encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: use models.encdec "
+                         "(zoo.model_module picks it)")
     kinds = set(cfg.block_cycle) - {"a", "m", "x", "s"}
     if kinds:
-        raise NotImplementedError(f"block kinds {sorted(kinds)} are not ported yet "
-                                  "(ROADMAP.md queue 1)")
+        raise ValueError(f"unknown block kinds {sorted(kinds)}")
 
 
 def _groups(cfg: ModelConfig):
@@ -176,6 +181,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                 cfg.tie_embeddings),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
     }
+    if frontend_kind(cfg) == "audio":
+        # the reference's stub projection for precomputed frames: an identity
+        # leaf that no forward pass reads (a "vision" front end adds none)
+        p["frontend"] = {"proj": torch.eye(cfg.d_model, dtype=dtype, device=dev)}
     for gi, (pattern, n_rep) in enumerate(_groups(cfg)):
         p[f"group_{gi}"] = [{f"b{j}": init_block(gen, kind, cfg, dtype, dev)
                              for j, kind in enumerate(pattern)} for _ in range(n_rep)]

@@ -50,8 +50,11 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig, device="cuda"):
         if cfg.encdec:
-            raise NotImplementedError("encoder-decoder serving is not ported yet "
-                                      "(ROADMAP.md queue 1, item 6)")
+            # as the reference's, which names an encoder-decoder server that
+            # neither package has
+            raise NotImplementedError(f"{cfg.name} is an encoder-decoder model: serve it "
+                                      "through zoo.prefill_fn and zoo.decode_fn, whose "
+                                      "batches carry the source frames")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

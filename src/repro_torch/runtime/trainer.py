@@ -4,10 +4,12 @@ the fused walk -> train embedding pipeline (``StreamingEmbedPipeline``)
 and the two-phase embedding trainer over a materialized corpus
 (``DSGLTrainer``).
 
-The LM trainer is the reference's: ``make_train_step`` takes the loss and
-its gradients by autograd (on the card K2 and K3 run the forward pass
-inside their autograd wrappers, whose backward is the plain versions'),
-then ``optim.opt_update`` in place; ``run`` checkpoints every
+The LM trainer is the reference's: an encoder-decoder model's batch adds
+the step's source frames, (batch, seq_len // 2, d_model) float32 from
+``np.random.default_rng(step)`` as the reference's; ``make_train_step``
+takes the loss and its gradients by autograd (on the card K2 and K3 run
+the forward pass inside their autograd wrappers, whose backward is the
+plain versions'), then ``optim.opt_update`` in place; ``run`` checkpoints every
 ``ckpt_every`` steps in the ``ckpt`` layout, ``FailureInjector`` raises a
 simulated node failure at a chosen step, and ``run_with_restarts`` resumes
 from the newest checkpoint, replaying nothing: the batches are pure
@@ -211,6 +213,11 @@ class Trainer:
             self.injector.check(step)
             batch = {k: torch.from_numpy(v).to(self.device, torch.int64)
                      for k, v in self.fetcher.fetch(step).items()}
+            if self.model_cfg.encdec:
+                # the reference's stub source for the step: numpy, so the same bits
+                frames = np.random.default_rng(step).normal(
+                    size=(self.tcfg.batch, self.tcfg.seq_len // 2, self.model_cfg.d_model))
+                batch["frames"] = torch.from_numpy(frames.astype(np.float32)).to(self.device)
             params, opt, metrics = self.step_fn(state["params"], state["opt"], batch, step)
             state = {"params": params, "opt": opt}
             self.metrics_log.append({k: float(v) for k, v in metrics.items()} | {"step": step})

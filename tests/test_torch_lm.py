@@ -71,10 +71,13 @@ def test_reduced_config_and_params_match_reference(models):
     assert shapes(own) == shapes(params)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "chameleon-34b", "llama3-405b"])
 def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+    """The three architectures the port once refused: each config, reduced
+    config and parameter count now equal the reference's."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+    assert dataclasses.asdict(get_reduced(arch)) == dataclasses.asdict(jax_get_reduced(arch))
+    assert get_config(arch).param_count() == jax_get_config(arch).param_count()
 
 
 def test_rmsnorm_within_a_few_ulp():

@@ -56,15 +56,21 @@ def test_forward_loss_and_gradients_match_reference(arch):
     jcfg, cfg = jax_get_reduced(arch), get_reduced(arch)
     jparams = jax_zoo.init_params(jax.random.PRNGKey(0), jcfg)
     toks, labels = _batch(cfg.vocab_size)
+    frames = {}
+    if cfg.encdec:      # an encoder-decoder model also takes the source frames
+        frames = {"frames": np.random.default_rng(2).standard_normal(
+            (2, 7, cfg.d_model)).astype(np.float32)}
     jloss, jgrads = jax.jit(jax.value_and_grad(jax_zoo.loss_fn(jcfg)))(
-        jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+        jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+                  **{k: jnp.asarray(v) for k, v in frames.items()}})
 
     params = lm_params_from_reference(_numpy(jparams), device="cpu")
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
     batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64),
-             "labels": torch.as_tensor(labels, dtype=torch.int64)}
+             "labels": torch.as_tensor(labels, dtype=torch.int64),
+             **{k: torch.from_numpy(v) for k, v in frames.items()}}
     loss = zoo.loss_fn(cfg)(params, batch)
     grads = torch.autograd.grad(loss, flat)
 
@@ -196,5 +202,18 @@ def test_ssd_gradient_matches_reference_and_stays_finite(decay):
 
 
 def test_encoder_decoder_training_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.loss_fn(jax_get_reduced("seamless-m4t-large-v2"))
+    """What the reference's ``train_batch`` gives an encoder-decoder model,
+    the port's gives too: frames (B, S // 2, d) float32 and S // 2 tokens
+    whose labels equal the tokens (the reference draws both from one key),
+    a batch ``loss_fn`` takes."""
+    jcfg, cfg = jax_get_reduced("seamless-m4t-large-v2"), get_reduced("seamless-m4t-large-v2")
+    want = jax_zoo.train_batch(jcfg, 3, 10, jax.random.PRNGKey(0))
+    got = zoo.train_batch(cfg, 3, 10, seed=0, device="cpu")
+    assert sorted(got) == sorted(want) == ["frames", "labels", "tokens"]
+    for k, v in want.items():
+        assert tuple(got[k].shape) == v.shape
+    assert got["frames"].dtype == torch.float32 and want["frames"].dtype == jnp.float32
+    assert np.array_equal(np.asarray(want["labels"]), np.asarray(want["tokens"]))
+    assert torch.equal(got["labels"], got["tokens"])
+    params = zoo.init_params(cfg, seed=0, device="cpu")
+    assert torch.isfinite(zoo.loss_fn(cfg)(params, got))

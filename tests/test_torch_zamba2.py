@@ -254,9 +254,26 @@ def test_flash_plain_version_at_head_dim_112():
 
 @pytest.mark.parametrize("feature", [{"encdec": True}, {"frontend": "vision"}])
 def test_unported_block_features_raise(feature):
+    """The features the port once refused on zamba2's reduced config, held
+    to what the reference does with the same config: ``encdec`` with no
+    encoder or decoder layer raises in both (the reference stacks zero
+    layers), and a vision front end changes nothing (the same tree)."""
+    jcfg = dataclasses.replace(jax_zoo.reduce_config(jax_get_config(ARCH)), **feature)
     cfg = dataclasses.replace(get_reduced(ARCH), **feature)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.init_params(cfg, device="cpu")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    if cfg.encdec:
+        assert cfg.enc_layers == cfg.dec_layers == 0
+        with pytest.raises(TypeError):
+            jax.eval_shape(lambda: jax_zoo.init_params(jax.random.PRNGKey(0), jcfg))
+        with pytest.raises(ValueError, match="enc_layers"):
+            zoo.init_params(cfg, device="cpu")
+        return
+    want = jax.eval_shape(lambda: jax_zoo.init_params(jax.random.PRNGKey(0), jcfg))
+    got = zoo.init_params(cfg, device="cpu")
+    assert sorted(got) == sorted(want)
+    n_rep = len(got["group_0"])
+    assert [jax.tree_util.tree_map(lambda a: tuple(a.shape), r) for r in got["group_0"]] == \
+        [jax.tree_util.tree_map(lambda a: tuple(a.shape[1:]), want["group_0"])] * n_rep
 
 
 @pytest.mark.cuda
