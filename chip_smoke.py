@@ -114,6 +114,31 @@ Phases (each failure raises and ends the run with a non-zero exit):
    at the analytic bytes; each prints its wall time, supersteps, host
    reads, exchange rounds, pool, lane occupancy, CSR bytes per shard and
    peak memory, and MPGP's hand-offs are printed against hash's at k = 4.
+   Then ``[spmd]``: (a) the walk engine across processes: two ranks of
+   a gloo group (``dist.spawn.run_ranks``) share the card, each loading
+   the yt-sim arrays, Cm and the k = 2 MPGP partition that the script
+   wrote to a temporary directory, and run the first ``SPMD_WALKS`` of
+   ``[walk]``'s k = 2 walks (its sources and round-0 keys; a cut, PERF.md
+   §7) through ``run_walk_sharded(mesh=make_walk_mesh(2))``, replicated
+   under MPGP (the whole CSR on each rank) and then partition-local under
+   ``a2a`` and the hash partition (the graph left on the host, the rank's
+   slice on the card): MPGP's k = 2 partition of yt-sim cuts no arc, so
+   only under hash do walkers cross ranks (its hand-offs must be > 0).
+   Every rank's merged state (paths, info, cur,
+   prev, active, h series and ring, accepts, rejects, hand-offs, bytes)
+   must hash equal to a stacked run of the same walks in this process,
+   its lanes to ``[walk]``'s first lanes of that engine, and each rank's
+   SPMD batch counter must read 2; each rank prints wall, supersteps,
+   host reads, the backend, its collectives and the bytes staged through
+   the host, CSR bytes and peak memory. (b) ``launch.steps.build_train_step`` on a
+   one-rank (data, model) ``DeviceMesh`` over NCCL: qwen3-1.7b at full
+   width and ``LM_LAYERS`` depth with ``grad_accum`` 2, its parameters,
+   moments and batch DTensors and its layers run on DTensors; K2 launched
+   2 x (4 forward + 4 recompute) times; its loss, gradient norm, first
+   moments (the clipped gradients) and updated parameters against a
+   ``grad_accum`` 1 step of the same state and batch on one process,
+   within ``SPMD_LOSS_TOL``, ``SPMD_GNORM_TOL``, ``SPMD_MOMENT_TOL`` /
+   ``SPMD_LEAF_TOL`` and ``SPMD_MOVED_TOL``.
    Then ``[refresh]``, dynamic graphs in two cases: the ``fl-sim`` preset
    (80,513 nodes at degree 146, 16 rounds resident in the ring) under
    ``PAPER_EMBED``, and the reference's acceptance recipe (rmat 2,048 at
@@ -304,8 +329,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -817,7 +844,27 @@ def walk_hops(np, paths, part) -> int:
     return hops
 
 
-def walk_phase(torch, np, graph, dev, parts=None) -> None:
+def state_digest(np, st, lanes=None) -> str:
+    """sha256 over a merged walk state: with ``lanes`` the first ``lanes``
+    lanes' fields (paths, info, cur, prev, active, h series, ring), else
+    every lane's and the batch's counts (supersteps, accepts, rejects,
+    hand-offs, bytes). Equal digests are equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    cut = slice(None) if lanes is None else slice(0, lanes)
+    fields = [getattr(st, n) for n in ("cur", "prev", "path", "h_series", "hring", "active")]
+    fields += [getattr(st.info, f) for f in ("H", "L", "EH", "EL", "EHL", "EH2", "EL2")]
+    for t in fields:
+        h.update(np.ascontiguousarray(t[cut].cpu().numpy()).tobytes())
+    if lanes is None:
+        for name in ("accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic"):
+            h.update(np.ascontiguousarray(getattr(st, name).cpu().numpy()).tobytes())
+        h.update(str(int(st.supersteps)).encode())
+    return h.hexdigest()
+
+
+def walk_phase(torch, np, graph, dev, parts=None) -> dict:
     """Round 0's first 1 / WALK_SHARE of the sources' walks on the graph,
     ``PAPER_EMBED``'s spec and the k = 2 pipeline's round-0 keys, five times: the dense engine, then the sharded
     engine replicated at k = 2 (MPGP), partition-local at k = 2 and 4
@@ -828,7 +875,9 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
     the host) and measure the bytes the closed form gives. Prints each
     run's wall time, supersteps, host reads, exchange and spill rounds,
     pool, lane occupancy, CSR bytes per shard and peak memory, and MPGP's
-    hand-offs against the hash partition's at k = 4."""
+    hand-offs against the hash partition's at k = 4. Returns the digests
+    of the k = 2 MPGP runs' first ``SPMD_WALKS`` lanes by engine, for
+    ``[spmd]``."""
     from repro_torch import prng
     from repro_torch.configs.distger import PAPER_EMBED
     from repro_torch.core import incom, mpgp
@@ -864,7 +913,7 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
         f"host reads {dense.supersteps + 1}, accepts {int(dense.accepts)}, rejects "
         f"{int(dense.rejects)}, mean length {float(dense.info.L.mean()):.4f}, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    handoffs = {}
+    handoffs, digests = {}, {}
     for engine, k, name in WALK_RUNS:
         part = parts[k, name]
         torch.cuda.empty_cache()
@@ -895,6 +944,8 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
             f"measured {sent!r}, analytic {analytic!r}")
         if not same:
             raise AssertionError(f"{tag}: the walks differ from the dense engine's")
+        if (k, name) == (2, "mpgp"):
+            digests[engine] = state_digest(np, st, SPMD_WALKS)
         if count != hops or sent != analytic or \
                 abs(sent - incom.MSG_BYTES * count) > 1e-5 * incom.MSG_BYTES * count:
             raise AssertionError(f"{tag}: {count} hand-offs for {hops} hops, {sent!r} bytes "
@@ -905,6 +956,283 @@ def walk_phase(torch, np, graph, dev, parts=None) -> None:
         f"({(1 - m / max(h, 1)) * 100:.4f}% fewer, {m * incom.MSG_BYTES} against "
         f"{h * incom.MSG_BYTES} bytes)")
     log(f"[walk] phase {time.perf_counter() - t0:.2f} s")
+    return digests
+
+
+# --- [spmd]: the walk engine across processes, the step builder on a mesh -------
+
+SPMD_RANKS = 2
+SPMD_TIMEOUT_S = 300.0
+#: [spmd] (a) walks the first SPMD_WALKS of [walk]'s sources (each lane draws
+#: what it draws there): over gloo with the host staging, a superstep costs
+#: ~21-26 ms at 32,768 walks on the card (PERF.md §5), and [walk]'s ~570,000
+#: would not fit the script's time (PERF.md §7: the cut).
+SPMD_WALKS = 16_384
+#: (engine, partition) of [spmd] (a)'s runs. MPGP's k = 2 partition of
+#: yt-sim cuts no arc, so under it no walker crosses; the local engine runs
+#: under the hash partition, which ships records between the ranks.
+SPMD_RUNS = (("replicated", "part"), ("local", "hash"))
+#: [spmd] (b): the grad_accum 2 step on the mesh against a grad_accum 1 step
+#: of the same state and batch (bf16 parameters and gradients, float32
+#: accumulators and moments). Adam's first update is nearly the same for
+#: any gradient (m / sqrt(v) is sign(g)), and the clip divides the moments
+#: by the norm, so the norm holds the gradient's size and the first moments
+#: ((1 - b1) times the clipped gradient) its direction. The limits are
+#: relative errors (SPMD_MOVED_TOL the share of parameter elements whose
+#: update differs), set from the readings of PERF.md §6 on an H100: loss
+#: 7.709e-08, grad norm 3.098e-06, moments 2.879e-03 over all leaves and
+#: 3.077e-03 at the worst leaf (each microbatch's bf16 gradient rounded once
+#: more than the whole batch's), 5.289e-04 of the elements moved apart.
+SPMD_ACCUM = 2
+SPMD_STEP = 1                   # lr 0.5 * 3e-4: build_train_step(total_steps=10) warms up 2 steps
+SPMD_LOSS_TOL = 1e-6
+SPMD_GNORM_TOL = 1e-5
+SPMD_MOMENT_TOL = 6e-3          # over all leaves
+SPMD_LEAF_TOL = 6e-3            # the worst leaf
+SPMD_MOVED_TOL = 1e-3
+
+
+def spmd_walk_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of ``[spmd]`` (a): load the host arrays, run the replicated
+    and the partition-local a2a engines on the walk mesh and return each
+    run's state digest, counts and costs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.distger import PAPER_EMBED
+    from repro_torch.core import shard_engine
+    from repro_torch.core.api import make_walk_plan
+    from repro_torch.core.shard_engine import make_walk_mesh, run_walk_sharded
+    from repro_torch.core.walker import LaneKeys
+    from repro_torch.dist import collectives as col
+    from repro_torch.graph.csr import CSRGraph
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    load = lambda name: np.load(os.path.join(job["dir"], f"{name}.npy"))
+    host = CSRGraph(indptr=torch.from_numpy(load("indptr")),
+                    indices=torch.from_numpy(load("indices")),
+                    edge_cm=torch.from_numpy(load("edge_cm")))
+    mesh = make_walk_mesh(world)
+    policy, spec, _ = make_walk_plan(PAPER_EMBED)
+    key_walk = prng.split(prng.PRNGKey(PAPER_EMBED.seed), 2 + 2)[0]
+    keys = lambda: LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, job["walks"], dev)
+    sources = torch.arange(job["walks"], device=dev)
+    out = {"load_s": time.perf_counter() - t0, "runs": {}}
+    for engine, part_name in SPMD_RUNS:
+        # The replicated engine reads the whole CSR on the card; the local
+        # one is given the host graph and moves only its slice there.
+        graph = host.to(dev) if engine == "replicated" else host
+        csr = sum(t.numel() * t.element_size() for t in (graph.indptr, graph.indices,
+                                                         graph.edge_cm))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        col.reset_pg_stats()
+        torch.distributed.barrier()
+        t1 = time.perf_counter()
+        st, stats = run_walk_sharded(graph, sources, keys(), policy, spec, load(part_name),
+                                     world, mesh,
+                                     engine=engine, with_stats=True,
+                                     transport="a2a" if engine == "local" else None)
+        torch.cuda.synchronize()
+        out["runs"][engine, part_name] = {
+            "wall_s": time.perf_counter() - t1, "digest": state_digest(np, st),
+            "lanes_digest": state_digest(np, st, job["walks"]),
+            "supersteps": int(st.supersteps), "msg_count": int(st.msg_count),
+            "host_reads": stats["host_reads"], "exchange_rounds": stats.get("exchange_rounds"),
+            "spill_rounds": stats.get("spill_rounds"), "pool": stats.get("pool_slots"),
+            "retries": stats.get("pool_retries"),
+            "csr_bytes": csr if engine == "replicated" else stats["csr_bytes_per_shard"][rank],
+            "collectives": col.PG_STATS["collectives"],
+            "staged_bytes": col.PG_STATS["staged_bytes"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del st, graph
+    out.update(backend=torch.distributed.get_backend(), spmd_batches=shard_engine.SPMD_BATCHES,
+               device=str(dev))
+    return out
+
+
+def _clone_tree(tree):
+    """Fresh local storage for every DTensor leaf (the mesh step updates its
+    own copy in place)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(tree.to_local().clone(), tree.device_mesh, tree.placements,
+                              run_check=False)
+
+
+def spmd_step_check(torch, np, counters, cfg, dev) -> dict:
+    """``[spmd]`` (b): ``build_train_step`` with ``grad_accum`` 2 on a
+    one-rank (data, model) mesh against a ``grad_accum`` 1 step on one
+    process, from one state and batch; K2's launches counted over the mesh
+    step alone."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import reshard_to_mesh
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import zoo
+    from repro_torch.optim.optimizers import init_opt_state, opt_specs
+    from repro_torch.optim.schedules import cosine_warmup
+
+    cfg2 = dataclasses.replace(cfg, grad_accum=SPMD_ACCUM)
+    opt_cfg = steps.default_opt(cfg2)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch_per_shard=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in stream.batch_at(0).items()}
+    base = zoo.init_params(cfg, seed=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = make_host_mesh(1, 1, "cuda")
+            pspecs = zoo.param_specs(cfg2)
+            params = _clone_tree(reshard_to_mesh(base, mesh, pspecs))
+            opt = reshard_to_mesh(init_opt_state(base, opt_cfg), mesh, opt_specs(pspecs, opt_cfg))
+            step = steps.build_train_step(cfg2, total_steps=10, mesh=mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(torch, counters)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch, SPMD_STEP)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = [p.to_local() for p in leaves(params)]
+            got_m = [t.to_local() for t in leaves(opt["m"])]
+            loss, gnorm = float(m["loss"]), float(m["gnorm"])
+            del opt, params
+        finally:
+            dist.destroy_process_group()
+    one = steps.build_train_step(cfg, total_steps=10)
+    base, opt1, m1 = one(base, init_opt_state(base, opt_cfg), batch, SPMD_STEP)
+    lr = float(cosine_warmup(3e-4, 2, 10)(SPMD_STEP))
+    worst, over, n, changed = 0.0, 0, 0, 0
+    for a, b in zip(got, leaves(base)):
+        d = (a.detach().float() - b.detach().float()).abs()
+        # Adam's first step moves an element by about lr (m / sqrt(v) is
+        # sign(g)): a gradient whose sign the accumulation's rounding flips
+        # moves it by up to 2 lr; plus one bf16 rounding of the parameter.
+        bound = 2 * lr + b.float().abs() * 2.0 ** -7 + 1e-7
+        worst = max(worst, float(d.max()))
+        over += int((d > bound).sum())
+        changed += int((d > 0).sum())
+        n += d.numel()
+    num = den = 0.0
+    leaf_rel = []
+    for a, b in zip(got_m, leaves(opt1["m"])):
+        dd = float(torch.sum(torch.square(a.float() - b.float())))
+        nn = float(torch.sum(torch.square(b.float())))
+        num, den = num + dd, den + nn
+        leaf_rel.append((dd / nn) ** 0.5 if nn else (0.0 if dd == 0 else float("inf")))
+    del got, got_m, opt1
+    rel = abs(loss - float(m1["loss"])) / abs(float(m1["loss"]))
+    g_rel = abs(gnorm - float(m1["gnorm"])) / float(m1["gnorm"])
+    m_rel, m_leaf = (num / den) ** 0.5, max(leaf_rel)
+    moved = changed / n
+    expected = {name: 0 for name in counters}
+    expected["flash_attention"] = SPMD_ACCUM * 2 * block_kinds(cfg).count("a")
+    log(f"[spmd] step builder: {cfg.name} {cfg.num_layers} layers on a one-rank (data, model) "
+        f"mesh over nccl, grad_accum {SPMD_ACCUM}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, step "
+        f"{SPMD_STEP} (lr {lr:.6g}), against grad_accum 1 (relative errors, each with its "
+        f"limit): loss {loss:.6f} / {float(m1['loss']):.6f} {rel:.3e} ({SPMD_LOSS_TOL}), grad "
+        f"norm {gnorm:.6f} / {float(m1['gnorm']):.6f} {g_rel:.3e} ({SPMD_GNORM_TOL}), first "
+        f"moments {m_rel:.3e} over all leaves ({SPMD_MOMENT_TOL}), worst leaf {m_leaf:.3e} "
+        f"({SPMD_LEAF_TOL}); parameters: {changed} of {n} elements differ ({moved:.3e}, "
+        f"{SPMD_MOVED_TOL}), max |diff| {worst:.3e}, {over} past 2 lr + |p| 2^-7; step wall "
+        f"{wall * 1e3:.1f} ms, peak device memory {peak:.3f} GiB; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"[spmd] step builder launches {launches}, expected {expected}")
+    if not (np.isfinite(loss) and rel <= SPMD_LOSS_TOL and g_rel <= SPMD_GNORM_TOL and
+            m_rel <= SPMD_MOMENT_TOL and m_leaf <= SPMD_LEAF_TOL and moved <= SPMD_MOVED_TOL
+            and not over):
+        raise AssertionError("[spmd] the grad_accum 2 step on the mesh is off the grad_accum 1 "
+                             "step")
+    return {"launches": launches, "wall_ms": wall * 1e3, "loss_rel": rel, "gnorm_rel": g_rel,
+            "moment_rel": m_rel, "moment_leaf_rel": m_leaf, "moved": moved, "max_abs": worst}
+
+
+def spmd_stacked(torch, np, graph, parts: dict, walks: int, dev) -> dict:
+    """The stacked engine's k = 2 runs of ``[spmd]``'s walks in this
+    process: {(engine, partition): (digest with the counts, digest of the
+    lanes)}."""
+    from repro_torch import prng
+    from repro_torch.configs.distger import PAPER_EMBED
+    from repro_torch.core.api import make_walk_plan
+    from repro_torch.core.shard_engine import run_walk_sharded
+    from repro_torch.core.walker import LaneKeys
+
+    policy, spec, _ = make_walk_plan(PAPER_EMBED)
+    key_walk = prng.split(prng.PRNGKey(PAPER_EMBED.seed), 2 + 2)[0]
+    out = {}
+    for engine, part_name in SPMD_RUNS:
+        t0 = time.perf_counter()
+        st = run_walk_sharded(graph, torch.arange(walks, device=dev),
+                              LaneKeys.for_round(prng.fold_in(key_walk, 0), 0, walks, dev),
+                              policy, spec, parts[part_name], SPMD_RANKS, engine=engine)
+        out[engine, part_name] = (state_digest(np, st), state_digest(np, st, walks))
+        log(f"[spmd] stacked {engine} k={SPMD_RANKS} {part_name}, {walks} walks: "
+            f"{time.perf_counter() - t0:.3f} s, supersteps {st.supersteps}, hand-offs "
+            f"{int(st.msg_count)}")
+    return out
+
+
+def spmd_phase(torch, np, counters, arrays_dir: str, graph, parts: dict, walk_lanes: dict,
+               cfg, dev) -> dict:
+    """``[spmd]``: (a) two ranks on the card against the stacked engine's
+    runs of the same walks and against ``[walk]``'s first lanes
+    (``walk_lanes``), (b) the step builder on a one-rank mesh."""
+    from repro_torch.dist.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    walks = SPMD_WALKS
+    stacked = spmd_stacked(torch, np, graph, parts, walks, dev)
+    for (engine, part_name), (_, lanes) in stacked.items():
+        # Walks do not depend on the partition: every run draws [walk]'s lanes.
+        if lanes != walk_lanes[engine]:
+            raise AssertionError(f"[spmd] stacked {engine} {part_name}: the first {walks} "
+                                 "lanes differ from [walk]'s")
+    t1 = time.perf_counter()
+    out = run_ranks(spmd_walk_rank, SPMD_RANKS, "gloo", "cuda", SPMD_TIMEOUT_S,
+                    {"dir": arrays_dir, "walks": walks})
+    log(f"[spmd] {SPMD_RANKS} ranks on {out[0]['device']} over {out[0]['backend']} (NCCL "
+        f"refuses two ranks on one device; the collectives stage CUDA tensors through the "
+        f"host), the first {walks} of [walk]'s walks, {len(SPMD_RUNS)} runs: "
+        f"{time.perf_counter() - t1:.2f} s with the ranks' start")
+    for rank, r in enumerate(out):
+        for (engine, part_name), run in r["runs"].items():
+            log(f"[spmd] rank {rank} {engine}{' a2a' if engine == 'local' else ''} {part_name}: "
+                f"wall "
+                f"{run['wall_s']:.3f} s, supersteps {run['supersteps']}, host reads "
+                f"{run['host_reads']}, exchange rounds {run['exchange_rounds']} (spill "
+                f"{run['spill_rounds']}), pool {run['pool']} retries {run['retries']}, "
+                f"hand-offs {run['msg_count']}, {run['collectives']} collectives, "
+                f"{run['staged_bytes']} bytes staged through the host, CSR bytes on the card "
+                f"{run['csr_bytes']}, peak device memory {run['peak_gib']:.3f} GiB; state "
+                f"equal to the stacked run's {run['digest'] == stacked[engine, part_name][0]}, "
+                f"lanes equal to [walk]'s {run['lanes_digest'] == walk_lanes[engine]}")
+            if run["digest"] != stacked[engine, part_name][0] or \
+                    run["lanes_digest"] != walk_lanes[engine]:
+                raise AssertionError(f"[spmd] rank {rank} {engine}: the merged state differs "
+                                     "from the stacked run's")
+        if r["runs"]["local", "hash"]["msg_count"] == 0:
+            raise AssertionError(f"[spmd] rank {rank}: no walker crossed under the hash "
+                                 "partition")
+        if r["spmd_batches"] != len(SPMD_RUNS) or r["backend"] != "gloo":
+            raise AssertionError(f"[spmd] rank {rank}: {r['spmd_batches']} SPMD batches over "
+                                 f"{r['backend']}")
+        log(f"[spmd] rank {rank}: arrays loaded in {r['load_s']:.2f} s, SPMD batches "
+            f"{r['spmd_batches']}")
+    step = spmd_step_check(torch, np, counters, cfg, dev)
+    log(f"[spmd] phase {time.perf_counter() - t0:.2f} s")
+    return {"walk_ranks": out, "step": step}
 
 
 # --- dynamic graphs: the refresh on fl-sim and on the reference's recipe --------
@@ -3885,6 +4213,13 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mpgp2 = emb[2].pop("assignment")                # [main k=2]'s MPGP partition
     cm = graph.with_edge_cm().edge_cm.cpu().numpy()  # [walk]'s k = 4 MPGP, made meanwhile
     k4_job = host.submit(host_mpgp, yt["indptr"], yt["indices"], cm, 4)
+    spmd_dir = tempfile.mkdtemp(prefix="chip_smoke_spmd_")     # [spmd]'s ranks load these
+    # MPGP's k = 2 partition, and the hash partition (node mod k, as
+    # mpgp.hash_partition), under which walkers cross ranks.
+    spmd_parts = {"part": mpgp2, "hash": (np.arange(len(mpgp2)) % 2).astype(mpgp2.dtype)}
+    for name, arr in (("indptr", yt["indptr"]), ("indices", yt["indices"]), ("edge_cm", cm),
+                      *spmd_parts.items()):
+        np.save(os.path.join(spmd_dir, f"{name}.npy"), arr)
     del yt, cm
     durable = durable_phase(torch, np, counters, graph, mpgp2, want, dev)
     del want
@@ -3893,8 +4228,17 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mpgp4, mpgp4_s = k4_job.result()
     log(f"[walk] mpgp k=4: partition {mpgp4_s:.2f} s in a worker process during [durable], "
         f"nodes per part {np.bincount(mpgp4, minlength=4).tolist()}")
-    walk_phase(torch, np, graph, dev, {(2, "mpgp"): mpgp2, (4, "mpgp"): mpgp4})
+    stacked = walk_phase(torch, np, graph, dev, {(2, "mpgp"): mpgp2, (4, "mpgp"): mpgp4})
     mark("[walk]")
+    try:
+        cm = torch.from_numpy(np.load(os.path.join(spmd_dir, "edge_cm.npy"))).to(dev)
+        spmd = spmd_phase(torch, np, counters, spmd_dir, dataclasses.replace(graph, edge_cm=cm),
+                          spmd_parts, stacked, lm_cfg, dev)
+        del cm
+    finally:
+        shutil.rmtree(spmd_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("[spmd]")
     del graph
     torch.cuda.empty_cache()
     refresh = refresh_phase(torch, np, counters, dev, fl_job.result())
@@ -3947,6 +4291,7 @@ def run_paths(torch, np, dev, counters, libs, host, t_main, mark) -> int:
     mark("[train]")
     launches[f"{LM_ARCH} train"] = train["steps"]["launches"]
     launches[f"{LM_ARCH} restart drill"] = train["drill"]["launches"]
+    launches[f"{LM_ARCH} [spmd] step builder"] = spmd["step"]["launches"]
 
     # 11. encoder-decoder models and front ends ----------------------------------------
     encdec = encdec_phase(torch, np, counters, {ENCDEC_ARCH: ed_cfg, VLM_ARCH: vlm_cfg},

@@ -24,7 +24,8 @@ checkpoint costs one snapshot of progress, not the whole run.
 Leaves are saved as whole host arrays; tensors on the card are copied to
 the host first. Types numpy cannot save portably (bfloat16) are stored as
 their raw bits with the true dtype in the manifest, as the JAX package
-stores them.
+stores them. ``reshard_to_mesh`` places a restored host tree onto any
+device mesh as ``DTensor`` leaves.
 """
 
 from __future__ import annotations
@@ -252,3 +253,24 @@ def copy_into(tree: Any, arrays: Dict[str, np.ndarray]) -> None:
     tree is allocated beside it."""
     with torch.no_grad():
         _map_leaves(lambda path, leaf: leaf.copy_(_loaded(arrays, path, leaf)), tree)
+
+
+def reshard_to_mesh(tree: Any, mesh, specs: Any, device=None) -> Any:
+    """Elastic re-shard: place a host tree (numpy arrays or tensors, whole
+    on every rank) onto ``mesh`` as ``DTensor`` leaves, each by its spec in
+    ``specs`` (a tree of ``dist.sharding.P`` mirroring ``tree``) resolved
+    against the mesh and the leaf's shape. A tree read back from another
+    mesh (``full_tensor()``) lands on the new one bit for bit. ``device``
+    defaults to the mesh's current device."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.collectives import mesh_device
+    from repro_torch.dist.sharding import placements, tree_map_specs
+
+    device = mesh_device(mesh) if device is None else device
+
+    def put(spec, leaf):
+        t = torch.as_tensor(leaf).to(device)
+        return distribute_tensor(t, mesh, placements(spec, mesh, tuple(t.shape)))
+
+    return tree_map_specs(put, specs, tree)

@@ -37,14 +37,24 @@ Two engines realize the per-shard program:
   ghosts and finished walkers retire into lane-indexed stores once every
   ``compact_every`` supersteps.
 
-Here the k shards are a leading axis of every tensor on one device
-(``dist.collectives``: the reference's stacked ``vmap`` emulation). The
-reference's ``lax.while_loop`` conditions are host reads: the replicated
+Without a mesh the k shards are a leading axis of every tensor on one
+device (``dist.collectives``: the reference's stacked ``vmap`` emulation).
+With ``mesh`` (``make_walk_mesh``: k ranks of a ``torch.distributed``
+group) each rank runs one shard, the reference's ``shard_map``: the same
+code with a shard axis of length 1 and the collectives over the group.
+Under the local engine a rank's device holds only its slice; under the
+replicated one the whole CSR (the reference's ``P()``). Every rank then
+all-gathers the per-shard outputs and merges them as the stacked driver
+does, so every rank returns the stacked run's state bit for bit.
+The reference's ``lax.while_loop`` conditions are host reads: the replicated
 engine reads once a superstep, the local engine once a block of
 ``compact_every`` supersteps (supersteps after the last live walker are
 frozen on the device, as the reference's are) and once per exchange round
 under the ``gather`` and ``a2a`` transports, whose spill loop runs while a
-shard has more than ``cap`` migrants queued.
+shard has more than ``cap`` migrants queued. On a mesh each read is one
+decision that all ranks share (``collectives.host_read``: the flags'
+maximum over the ranks), as is the overflow retry's, so the ranks run the
+same supersteps and rounds and double the pool together.
 
 Arrivals claim slots in (source shard, record) order, and a returning
 walker finds its ghost through a per-shard lane -> ghost-slot index built
@@ -64,6 +74,7 @@ as the reference's; counts are exact.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 import weakref
@@ -71,22 +82,34 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core import incom
 from repro_torch.core import walker as wk
 from repro_torch.core.transition import Policy
-from repro_torch.dist.collectives import (all_gather, axis_index, packed_all_gather,
-                                          packed_all_to_all, psum, psum_union, row_cumsum,
-                                          take_ranked)
-from repro_torch.graph.csr import (CSRGraph, PartitionedCSR, build_partitioned_csr,
+from repro_torch.dist.collectives import (all_gather_tree, axis_index, host_read, local_mesh,
+                                          mesh_device, packed_all_gather, packed_all_to_all,
+                                          psum, psum_union, row_cumsum, take_ranked)
+from repro_torch.graph.csr import (CSRGraph, PartitionedCSR, ShardCSR, build_partitioned_csr,
                                   reassign_partitioned_csr)
 from repro_torch.graph.delta import graph_version
 
 INFO_FIELDS = ("H", "L", "EH", "EL", "EHL", "EH2", "EL2")
+AXIS = "shards"   # the walk-shard mesh axis
 # Walk batches run on this engine, either engine (``chip_smoke.py`` reads it
-# to show the k > 1 path walks here).
+# to show the k > 1 path walks here), and those of them run over a mesh, one
+# shard a process (``SPMD_BATCHES``: a run that meant to be SPMD and took
+# the stacked engine leaves it at 0).
 BATCHES = 0
+SPMD_BATCHES = 0
+
+
+def make_walk_mesh(num_shards: int, device_type: str = "cuda"):
+    """A ("shards",) ``DeviceMesh`` over the first ``num_shards`` ranks of
+    the default group, or None when there is no group of that many ranks
+    (callers then run the stacked engine, the same program)."""
+    return local_mesh(num_shards, AXIS, device_type)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -112,17 +135,22 @@ def _info_of(rows: torch.Tensor) -> incom.InfoState:
 
 
 def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
-                    keys: wk.Keys, policy: Policy, spec: wk.WalkSpec, k: int) -> Dict:
+                    keys: wk.Keys, policy: Policy, spec: wk.WalkSpec, k: int,
+                    group=None) -> Dict:
+    """One batch on the replicated engine: all k shards stacked, or over
+    ``group`` this rank's shard (outputs with a leading axis of the shards
+    held)."""
     b, dev = sources.shape[0], sources.device
-    n, L = k * b, spec.max_len
+    kl = k if group is None else 1                            # shards held here
+    n, L = kl * b, spec.max_len
     fullpath = spec.info_mode == "fullpath"
-    sid = axis_index(k, dev)                                  # (k, 1)
-    ids = torch.arange(b, device=dev).repeat(k)               # lane id of each (shard, lane)
+    sid = axis_index(k, dev, group)                           # (kl, 1)
+    ids = torch.arange(b, device=dev).repeat(kl)              # lane id of each (shard, lane)
     pos = torch.arange(L, device=dev)[None, :]
     step_cap = spec.supersteps_cap()
 
     resident = (owner[sources][None, :] == sid).reshape(n)
-    cur = sources.repeat(k)
+    cur = sources.repeat(kl)
     prev = cur.clone()
     active = torch.ones(n, dtype=torch.bool, device=dev)
     info = incom.InfoState.init(n, dev)
@@ -131,22 +159,22 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
     path[:, 0] = torch.where(resident, cur, -1).to(torch.int32)
     h = torch.zeros(n, spec.h_len(), device=dev)
     ring = torch.zeros(n, spec.ring_len(), device=dev)
-    zeros = lambda dtype: torch.zeros(k, dtype=dtype, device=dev)
+    zeros = lambda dtype: torch.zeros(kl, dtype=dtype, device=dev)
     acc = {"accepts": zeros(torch.int64), "rejects": zeros(torch.int64),
            "msg_count": zeros(torch.int64), "msg_bytes": zeros(torch.float32),
            "msg_bytes_analytic": zeros(torch.float32)}
     t = reads = 0
     while t < step_cap:
         reads += 1
-        if not bool((resident & active).any()):             # host sync
+        if not host_read([(resident & active).any()], group)[0]:   # host sync
             break
         u1, u2 = keys.uniforms(t)
         cand, _, accept_raw, has_nbrs = wk.propose(graph, policy, cur, prev,
-                                                   u1.repeat(k), u2.repeat(k))
+                                                   u1.repeat(kl), u2.repeat(kl))
         live = resident & active
         accept = live & accept_raw
         dead_end = live & ~has_nbrs
-        mig = accept & (owner[cand].reshape(k, b) != sid).reshape(n)
+        mig = accept & (owner[cand].reshape(kl, b) != sid).reshape(n)
         stay = accept & ~mig
         if fullpath:
             # The HuGE-D message carries the walk including the accepted
@@ -159,22 +187,23 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
         # ---- pack + hand off (the measured exchange) ----------------------
         msg_i = torch.stack([ids, cur, cand], 1)
         msg_f = _info_rows(info)
-        payload = {"i": msg_i, "f": msg_f}
+        # "one" marks the lanes that arrived: a count of their senders.
+        payload = {"i": msg_i, "f": msg_f, "one": torch.ones_like(ids)}
         if spec.reg_window:
             payload["ring"] = ring
         if fullpath:
             payload.update(path=path, h=h)
-        arrivals = psum_union({name: x.reshape((k, b) + x.shape[1:])
-                               for name, x in payload.items()}, mig.reshape(k, b))
+        arrivals = psum_union({name: x.reshape((kl, b) + x.shape[1:])
+                               for name, x in payload.items()}, mig.reshape(kl, b), group)
         arr_i = arrivals["i"]
-        arrived = psum(mig.reshape(k, b).to(torch.int64)) > 0          # (B,)
+        arrived = arrivals["one"] > 0                                   # (B,)
         shipped_fields = msg_i.shape[1] + msg_f.shape[1] + (
             arrivals["ring"].shape[1] if spec.reg_window else 0)
         incoming = (arrived[None, :] & (owner[arr_i[:, 2]][None, :] == sid)).reshape(n)
         proc = stay | incoming
 
         # ---- merge arrivals into the local lane state ----------------------
-        tiled = lambda x: x.repeat((k,) + (1,) * (x.dim() - 1))
+        tiled = lambda x: x.repeat((kl,) + (1,) * (x.dim() - 1))
         sel = lambda a, o: torch.where(incoming.reshape((n,) + (1,) * (o.dim() - 1)),
                                        tiled(a), o)
         cand_b = sel(arr_i[:, 2], cand)
@@ -192,7 +221,7 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
         active = torch.where(proc, ~done_now, active & ~dead_end)
 
         # ---- measured + analytic traffic ----------------------------------
-        per_shard = lambda x: x.reshape(k, -1).sum(1)
+        per_shard = lambda x: x.reshape(kl, -1).sum(1)
         n_out = per_shard(mig.to(torch.int64))
         if fullpath:
             shipped = per_shard(((path >= 0) & mig[:, None]).to(torch.int64))
@@ -208,19 +237,17 @@ def _run_replicated(graph: CSRGraph, owner: torch.Tensor, sources: torch.Tensor,
         acc["msg_bytes"] += add_meas
         acc["msg_bytes_analytic"] += add_an
         t += 1
-    return dict(acc, cur=cur.reshape(k, b), prev=prev.reshape(k, b),
-                resident=resident.reshape(k, b), active=active.reshape(k, b),
-                info=info, path=path.reshape(k, b, L), h=h.reshape(k, b, -1),
-                ring=ring.reshape(k, b, -1), t=t, host_reads=reads)
+    return dict(acc, cur=cur.reshape(kl, b), prev=prev.reshape(kl, b),
+                resident=resident.reshape(kl, b), active=active.reshape(kl, b),
+                info=_info_of(_info_rows(info).reshape(kl, b, -1)), path=path.reshape(kl, b, L),
+                h=h.reshape(kl, b, -1), ring=ring.reshape(kl, b, -1), t=t, host_reads=reads)
 
 
 def _merge(out: Dict, spec: wk.WalkSpec, keys: wk.Keys) -> wk.WalkerBatchState:
     """Combine the (k, ...) replicated-engine outputs into one state: every
     lane is resident on exactly one shard at the end."""
     res = out["resident"]
-    k, b = res.shape
-    info = incom.InfoState(**{f: getattr(out["info"], f).reshape(k, b) for f in INFO_FIELDS})
-    return _combine(out, spec, keys, res, out["path"], out["cur"], out["prev"], info,
+    return _combine(out, spec, keys, res, out["path"], out["cur"], out["prev"], out["info"],
                     out["h"], out["ring"], res & out["active"])
 
 
@@ -253,7 +280,7 @@ def _combine(out: Dict, spec: wk.WalkSpec, keys: wk.Keys, holder: torch.Tensor,
 
 def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
                keys: wk.Keys, policy: Policy, spec: wk.WalkSpec, k: int, pool: int,
-               cap: int, compact_every: int, transport: str) -> Dict:
+               cap: int, compact_every: int, transport: str, group=None) -> Dict:
     """One batch on the partition-local engine.
 
     Slot j of shard s holds the global lane id in ``lane[s, j]`` (-1 =
@@ -267,71 +294,79 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
     slots not retired) and packs the live slots to the front. A walker
     that finds no free slot counts in ``overflow``: the driver re-runs the
     batch with a doubled pool (at P = B none can overflow, since a lane
-    holds at most one slot a shard)."""
+    holds at most one slot a shard).
+
+    Stacked, ``pcsr.slices`` holds all k slices; over ``group`` it holds
+    this rank's one, and every per-shard tensor has one row. The records
+    then carry their fields through the collectives, and every host read
+    is one decision that all ranks share (``host_read``)."""
     b, dev = sources.shape[0], sources.device
     p, L = pool, spec.max_len
     fullpath = spec.info_mode == "fullpath"
     shards, local_of = pcsr.slices, pcsr.local_of
+    kl = shards.indptr.shape[0]                                # shards held here
+    first = 0 if group is None else dist.get_rank(group)       # the first one's id
     max_nodes = shards.indptr.shape[1] - 1
     max_edges = shards.indices.shape[1]
     step_cap = spec.supersteps_cap()
-    sid = axis_index(k, dev)                                   # (k, 1)
-    slot_id = torch.arange(k * p, device=dev).reshape(k, p)    # flat (shard, slot) id
+    sid = axis_index(k, dev, group)                            # (kl, 1) shard ids
+    rows = sid - first                                         # (kl, 1) rows here
+    slot_id = sid * p + torch.arange(p, device=dev)            # flat (shard, slot) id
     store = b + 1                                              # lane-indexed rows + a spill row
-    store_row = lambda lane_or_b: (sid * store + lane_or_b).reshape(-1)
+    store_row = lambda lane_or_b: (rows * store + lane_or_b).reshape(-1)
     lpos = torch.arange(L, device=dev)[None, None, :]
     r_cap = p if transport == "pool" else cap
     counts = {"host_reads": 0, "exchange_rounds": 0, "spill_rounds": 0}
-    zk = lambda dtype: torch.zeros(k, dtype=dtype, device=dev)
-    flat = lambda x: x.reshape((k * p,) + x.shape[2:])
-    shaped = lambda x: x.reshape((k, p) + x.shape[1:])
+    zk = lambda dtype: torch.zeros(kl, dtype=dtype, device=dev)
+    flat = lambda x: x.reshape((kl * p,) + x.shape[2:])
+    shaped = lambda x: x.reshape((kl, p) + x.shape[1:])
 
     # ---- pool init: resident source lanes claim slots in lane order -------
-    resident0 = owner[sources][None, :] == sid                 # (k, B)
-    packed, valid0 = take_ranked({"lane": torch.arange(b, device=dev).expand(k, b)},
+    resident0 = owner[sources][None, :] == sid                 # (kl, B)
+    packed, valid0 = take_ranked({"lane": torch.arange(b, device=dev).expand(kl, b)},
                                  resident0, p)
     lane0 = torch.where(valid0, packed["lane"], -1)
     occ0 = lane0 >= 0
     cur0 = torch.where(occ0, sources[lane0.clamp_min(0)], 0)
-    prow0 = torch.full((k, p, L), -1, dtype=torch.int32, device=dev)
+    prow0 = torch.full((kl, p, L), -1, dtype=torch.int32, device=dev)
     prow0[:, :, 0] = torch.where(occ0, cur0, -1).to(torch.int32)
-    info0 = incom.InfoState.init(k * p, dev)
+    info0 = incom.InfoState.init(kl * p, dev)
     st = dict(lane=lane0, alive=occ0, term=torch.zeros_like(occ0), cur=cur0, prev=cur0,
               info=incom.InfoState(**{f: shaped(getattr(info0, f)) for f in INFO_FIELDS}),
-              ring=torch.zeros(k, p, spec.ring_len(), device=dev),
-              h=torch.zeros(k, p, spec.h_len(), device=dev), prow=prow0,
+              ring=torch.zeros(kl, p, spec.ring_len(), device=dev),
+              h=torch.zeros(kl, p, spec.h_len(), device=dev), prow=prow0,
               t=torch.zeros((), dtype=torch.int64, device=dev),
               accepts=zk(torch.int64), rejects=zk(torch.int64), msg_count=zk(torch.int64),
               msg_bytes=zk(torch.float32), msg_bytes_analytic=zk(torch.float32),
               overflow=(resident0.sum(1) - p).clamp_min(0), peak_occ=occ0.sum(1))
-    fin_info0 = incom.InfoState.init(k * store, dev)
-    fin = dict(cur=torch.zeros(k, store, dtype=torch.int64, device=dev),
-               prev=torch.zeros(k, store, dtype=torch.int64, device=dev),
-               info=incom.InfoState(**{f: getattr(fin_info0, f).clone().reshape(k, store)
+    fin_info0 = incom.InfoState.init(kl * store, dev)
+    fin = dict(cur=torch.zeros(kl, store, dtype=torch.int64, device=dev),
+               prev=torch.zeros(kl, store, dtype=torch.int64, device=dev),
+               info=incom.InfoState(**{f: getattr(fin_info0, f).clone().reshape(kl, store)
                                        for f in INFO_FIELDS}),
-               ring=torch.zeros(k, store, spec.ring_len(), device=dev),
-               h=torch.zeros(k, store, spec.h_len(), device=dev),
-               valid=torch.zeros(k, store, dtype=torch.bool, device=dev),
-               active=torch.zeros(k, store, dtype=torch.bool, device=dev),
+               ring=torch.zeros(kl, store, spec.ring_len(), device=dev),
+               h=torch.zeros(kl, store, spec.h_len(), device=dev),
+               valid=torch.zeros(kl, store, dtype=torch.bool, device=dev),
+               active=torch.zeros(kl, store, dtype=torch.bool, device=dev),
                # The owner-local path fragments (the travelling walk in fullpath mode).
-               path=torch.full((k, store, L), -1, dtype=torch.int32, device=dev))
-    ghost_of = torch.full((k * store,), -1, dtype=torch.int64, device=dev)
+               path=torch.full((kl, store, L), -1, dtype=torch.int32, device=dev))
+    ghost_of = torch.full((kl * store,), -1, dtype=torch.int64, device=dev)
 
     def flush_into(st, mask, active_mask):
         """Retire ``mask`` slots into the lane-indexed stores: their path
         rows (the fragment; in fullpath mode only a finished walk's), and
         for a finished or (``active_mask``) live walker its final state."""
         lane = st["lane"]
-        rows = store_row(torch.where(mask, lane, b))
+        srows = store_row(torch.where(mask, lane, b))
         mfin = mask & (st["term"] | active_mask)
         frows = store_row(torch.where(mfin, lane, b))
-        fin["path"].view(k * store, L)[frows if fullpath else rows] = flat(st["prow"])
+        fin["path"].view(kl * store, L)[frows if fullpath else srows] = flat(st["prow"])
         fin["cur"].view(-1)[frows] = flat(st["cur"])
         fin["prev"].view(-1)[frows] = flat(st["prev"])
         for f in INFO_FIELDS:
             getattr(fin["info"], f).view(-1)[frows] = flat(getattr(st["info"], f))
-        fin["ring"].view(k * store, -1)[frows] = flat(st["ring"])
-        fin["h"].view(k * store, -1)[frows] = flat(st["h"])
+        fin["ring"].view(kl * store, -1)[frows] = flat(st["ring"])
+        fin["h"].view(kl * store, -1)[frows] = flat(st["h"])
         fin["valid"].view(-1)[frows] = True
         fin["active"].view(-1)[store_row(torch.where(mask & active_mask, lane, b))] = True
 
@@ -356,34 +391,42 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
         """One round of the packed exchange: ship up to ``cap`` pending
         migrants a shard (all under the pool transport), deliver each
         record to the owner of its candidate, revive returning walkers'
-        ghosts and place first arrivals in free slots. The collectives
-        move each record as its sender's slot id; a receiver reads the
-        record's fields from the senders' stacked payload ``pay`` by it,
-        which on one device stands for the wire."""
+        ghosts and place first arrivals in free slots. Stacked, the
+        collectives move each record as its sender's slot id and a
+        receiver reads the record's fields from the senders' stacked
+        payload ``pay`` by it, which on one device stands for the wire;
+        over a group the fields travel with the record."""
         pending = c["pending"]
-        cand_all = flat(pay["i"])[:, 2]
+        ship = {"slot": slot_id} if group is None else dict(pay, slot=slot_id)
         if transport == "a2a":
-            arr, arr_valid, sent = packed_all_to_all({"slot": slot_id}, c["dest"], pending,
-                                                     k, r_cap)
-            rec_slot, rec_valid = arr["slot"].reshape(-1), arr_valid.reshape(-1)
-            rec_dest = sid.expand(k, k * r_cap).reshape(-1)   # row d arrived at d
+            arr, arr_valid, sent = packed_all_to_all(ship, c["dest"], pending, k, r_cap, group)
+            rec_dest = sid.expand(kl, k * r_cap).reshape(-1)  # row d arrived at d
+        elif transport == "gather":
+            arr, arr_valid, sent = packed_all_gather(ship, pending, r_cap, group)
         else:
-            if transport == "gather":
-                arr, arr_valid, sent = packed_all_gather({"slot": slot_id}, pending, r_cap)
-                rec_slot, rec_valid = arr["slot"].reshape(-1), arr_valid.reshape(-1)
-            else:
-                # Flat pool transport: the P-wide payload travels masked, so
-                # one round always delivers every migrant.
-                sent = pending
-                rec_slot = all_gather(slot_id).reshape(-1)
-                rec_valid = all_gather(pending).reshape(-1)
-            # Receivers filter the broadcast records by the candidate's owner.
-            rec_dest = owner[cand_all[rec_slot]]
+            # Flat pool transport: the P-wide payload travels masked, so
+            # one round always delivers every migrant.
+            sent = pending
+            arr = all_gather_tree(dict(ship, _valid=pending), group)
+            arr_valid = arr.pop("_valid")
+        rec_slot, rec_valid = arr["slot"].reshape(-1), arr_valid.reshape(-1)
         n_rec = rec_slot.shape[0]
-        rec_lane = flat(pay["i"])[rec_slot, 0]
-        rec_dest = torch.where(rec_valid, rec_dest, k)
+        if group is None:
+            records = lambda name: flat(pay[name])[rec_slot]
+            fetch = lambda name, ri: flat(pay[name])[rec_slot[ri]]
+        else:
+            records = lambda name: arr[name].reshape((n_rec,) + arr[name].shape[-1:])
+            fetch = lambda name, ri: records(name)[ri]
+        rec_i = records("i")
+        if transport != "a2a":
+            # Receivers filter the broadcast records by the candidate's owner.
+            rec_dest = owner[rec_i[:, 2]]
+        rec_lane = rec_i[:, 0]
+        # Each record's row here (kl: addressed to a shard held elsewhere).
+        mine = rec_valid & (rec_dest >= first) & (rec_dest < first + kl)
+        rec_row = torch.where(mine, rec_dest - first, kl)
 
-        rrec = torch.full((k * p + 1,), -1, dtype=torch.int64, device=dev)
+        rrec = torch.full((kl * p + 1,), -1, dtype=torch.int64, device=dev)
         if fullpath:
             # The walk left with its walker; the sender's slot frees.
             lane1 = torch.where(sent, -1, c["lane"])
@@ -397,35 +440,35 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
             ghost = (lane1 >= 0) & ~c["alive"] & ~c["term"]
             grows = store_row(torch.where(ghost, lane1, b))
             ghost_of[grows] = slot_id.remainder(p).reshape(-1)
-            g = ghost_of[rec_dest.clamp(max=k - 1) * store + rec_lane.clamp_min(0)]
+            g = ghost_of[rec_row.clamp(max=kl - 1) * store + rec_lane.clamp_min(0)]
             ghost_of[grows] = -1
-            revive = rec_valid & (g >= 0)
-            rrec[torch.where(revive, rec_dest.clamp(max=k - 1) * p + g, k * p)] = \
+            revive = mine & (g >= 0)
+            rrec[torch.where(revive, rec_row.clamp(max=kl - 1) * p + g, kl * p)] = \
                 torch.arange(n_rec, device=dev)
-        rrec = rrec[:k * p].reshape(k, p)
+        rrec = rrec[:kl * p].reshape(kl, p)
         revived = rrec >= 0
         # First arrivals: the r-th free slot (ascending) of shard d takes the
         # r-th record addressed to d that revived nothing, in record order.
-        key = torch.where(rec_valid & ~revive, rec_dest, k)
+        key = torch.where(mine & ~revive, rec_row, kl)
         order = torch.sort(key, stable=True).indices
-        n_mine = torch.zeros(k + 1, dtype=torch.int64, device=dev).index_add_(
-            0, key, torch.ones_like(key))[:k]
+        n_mine = torch.zeros(kl + 1, dtype=torch.int64, device=dev).index_add_(
+            0, key, torch.ones_like(key))[:kl]
         starts = torch.cumsum(n_mine, 0) - n_mine
         free = lane1 < 0
         free_rank = row_cumsum(free) - 1
         takes = free & (free_rank < n_mine[:, None])
         rec_idx = order[(starts[:, None] + free_rank).clamp(0, n_rec - 1)]
         place = takes | revived
-        src = rec_slot[torch.where(revived, rrec, rec_idx)]      # (k, P) sender slots
-        t_i = flat(pay["i"])[src]
+        ri = torch.where(revived, rrec, rec_idx)                 # (kl, P) records placed
+        t_i = fetch("i", ri)
         if fullpath:
-            prow1 = torch.where(takes[..., None], flat(pay["path"])[src], c["prow"])
+            prow1 = torch.where(takes[..., None], fetch("path", ri), c["prow"])
         else:
             # A first visit's (or post-flush return's) fragment comes from
             # the lane-indexed store; a revived slot's is already in place.
             t_lane = torch.where(takes, t_i[..., 0], 0)
-            prow1 = torch.where(takes[..., None], fin["path"].view(k * store, L)[
-                store_row(t_lane)].reshape(k, p, L), c["prow"])
+            prow1 = torch.where(takes[..., None], fin["path"].view(kl * store, L)[
+                store_row(t_lane)].reshape(kl, p, L), c["prow"])
         put = lambda a, o: torch.where(place.reshape(place.shape + (1,) * (o.dim() - 2)), a, o)
         n_sent = sent.sum(1)
         if fullpath:
@@ -440,9 +483,9 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
             term=c["term"] & ~place,
             cur=put(t_i[..., 1], c["cur"]),
             prev=put(t_i[..., 1], c["prev"]),
-            info=_info_of(put(flat(pay["f"])[src], _info_rows(c["info"]))),
-            ring=put(flat(pay["ring"])[src], c["ring"]) if spec.reg_window else c["ring"],
-            h=put(flat(pay["h"])[src], c["h"]) if fullpath else c["h"],
+            info=_info_of(put(fetch("f", ri), _info_rows(c["info"]))),
+            ring=put(fetch("ring", ri), c["ring"]) if spec.reg_window else c["ring"],
+            h=put(fetch("h", ri), c["h"]) if fullpath else c["h"],
             prow=prow1,
             proc=c["proc"] | place,
             pcand=put(t_i[..., 2], c["pcand"]),
@@ -456,7 +499,7 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
         device flag of whether it stepped."""
         lane, info = st["lane"], st["info"]
         occ = (lane >= 0) & st["alive"]                        # ghosts/tombstones don't walk
-        stepping = (psum(occ.sum(1)) > 0) & (st["t"] < step_cap)
+        stepping = (psum(occ.sum(1), group) > 0) & (st["t"] < step_cap)
         u1f, u2f = keys.uniforms(t_host)
         ls = lane.clamp_min(0)
         u1, u2 = u1f[ls], u2f[ls]
@@ -512,7 +555,7 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
         if transport != "pool":
             # Spill rounds, while some shard has more than ``cap`` queued.
             while True:
-                more, stepped = torch.stack([c["pending"].any(), stepping]).tolist()
+                more, stepped = host_read([c["pending"].any(), stepping], group)
                 counts["host_reads"] += 1
                 if not more:
                     break
@@ -546,16 +589,16 @@ def _run_local(pcsr: PartitionedCSR, owner: torch.Tensor, sources: torch.Tensor,
         return st, stepped
 
     while True:
-        live_n, t0, overflow = torch.stack([((st["lane"] >= 0) & st["alive"]).sum(), st["t"],
-                                            st["overflow"].sum()]).tolist()
+        live, t0, overflow = host_read([((st["lane"] >= 0) & st["alive"]).any(), st["t"],
+                                        st["overflow"].sum()], group)
         counts["host_reads"] += 1
-        if overflow or not (live_n > 0 and t0 < step_cap):
+        if overflow or not (live and t0 < step_cap):
             break        # an overflowed run is run again with a larger pool: stop it here
         # ``compact_every`` supersteps, then one flush and repack. A stepping
         # superstep has t == t0 + i, so the host knows each one's draws.
         for i in range(max(compact_every, 1)):
             st, stepped = superstep(st, t0 + i)
-            if stepped is False:         # the walk ended: the rest of the block is idle
+            if stepped == 0:             # the walk ended: the rest of the block is idle
                 break
         flush_and_repack(st)
 
@@ -577,6 +620,92 @@ def _merge_local(out: Dict, spec: wk.WalkSpec, keys: wk.Keys) -> wk.WalkerBatchS
     return _combine(out, spec, keys, fv, lanes(fin["path"]), lanes(fin["cur"]),
                     lanes(fin["prev"]), info, lanes(fin["h"]), lanes(fin["ring"]),
                     fv & lanes(fin["active"]))
+
+
+# ---------------------------------------------------------------------------
+# SPMD drivers: one shard a rank, over the mesh's group
+# ---------------------------------------------------------------------------
+
+# The per-shard outputs each merge reads (and ``_shard_stats``).
+_REPLICATED_OUT = ("cur", "prev", "resident", "active", "info", "path", "h", "ring", "accepts",
+                   "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic")
+_LOCAL_OUT = ("fin", "accepts", "rejects", "msg_count", "msg_bytes", "msg_bytes_analytic",
+              "overflow", "peak_occ", "occ_final")
+
+
+def _gathered(out: Dict, names, group) -> Dict:
+    """``out`` with the per-shard outputs ``names`` all-gathered from
+    (1, ...) to (k, ...) in one collective, as the reference's
+    ``out_specs=P(AXIS)`` returns them; host-side values (``t``, the
+    counts) are the same on every rank."""
+    flat = {}
+    for name in names:
+        x = out[name]
+        for sub, v in (x.items() if isinstance(x, dict) else [("", x)]):
+            flat[f"{name}/{sub}"] = _info_rows(v) if isinstance(v, incom.InfoState) else v
+    got = all_gather_tree(flat, group)
+    res = dict(out)
+    for key, v in got.items():
+        name, sub = key.split("/")
+        like = out[name][sub] if sub else out[name]
+        v = _info_of(v) if isinstance(like, incom.InfoState) else v
+        if sub:
+            res[name] = dict(res[name]) if res[name] is out[name] else res[name]
+            res[name][sub] = v
+        else:
+            res[name] = v
+    return res
+
+
+def _run_spmd(graph: CSRGraph, owner, sources, keys, policy, spec, k: int, mesh) -> Dict:
+    """The replicated engine, this rank's shard of ``mesh``: the whole CSR
+    on every rank, all B lanes, the dense union exchange over the group."""
+    group = mesh.get_group(AXIS)
+    out = _run_replicated(graph, owner, sources, keys, policy, spec, k, group=group)
+    return _gathered(out, _REPLICATED_OUT, group)
+
+
+def _run_spmd_local(pcsr: PartitionedCSR, owner, sources, keys, policy, spec, k: int, mesh,
+                    pool: int, cap: int, compact_every: int, transport: str) -> Dict:
+    """The partition-local engine, this rank's shard of ``mesh`` (``pcsr``
+    holds its one slice). An overflow is one decision of all ranks: it
+    returns the overflow alone, and every rank re-runs with a doubled pool."""
+    group = mesh.get_group(AXIS)
+    out = _run_local(pcsr, owner, sources, keys, policy, spec, k, pool, cap, compact_every,
+                     transport, group=group)
+    (over,) = host_read([out["overflow"].sum()], group)
+    if over:
+        return {"overflow": torch.tensor([over])}
+    return _gathered(out, _LOCAL_OUT, group)
+
+
+_SLICE_CACHE: Dict = {}
+
+
+def rank_slice(graph: CSRGraph, assignment: np.ndarray, num_shards: int, rank: int,
+               device, key_obj: object = None) -> PartitionedCSR:
+    """Shard ``rank``'s partition-local store on ``device``: one ``ShardCSR``
+    row (the slice is cut on the host, so the device never holds the
+    others) with the replicated node metadata. Memoized like
+    ``partitioned_csr_for``."""
+    key_obj = graph if key_obj is None else key_obj
+    asn = np.asarray(assignment)
+    dev = torch.device(device)
+    key = (id(key_obj), graph_version(key_obj), num_shards, graph.edge_cm is not None,
+           hash(asn.tobytes()), rank, str(dev))
+    hit = _SLICE_CACHE.get(key)
+    if hit is not None and hit[0]() is key_obj:
+        return hit[1]
+    full = build_partitioned_csr(graph.to("cpu"), asn, num_shards)
+    cut = {f.name: getattr(full.slices, f.name) for f in dataclasses.fields(ShardCSR)}
+    one = ShardCSR(**{name: None if t is None else t[rank:rank + 1].to(dev, copy=True)
+                      for name, t in cut.items()})
+    pcsr = PartitionedCSR(slices=one, local_of=full.local_of.to(dev), owned=full.owned,
+                          num_owned=full.num_owned, num_parts=num_shards)
+    if len(_SLICE_CACHE) >= 8:
+        _SLICE_CACHE.clear()
+    _SLICE_CACHE[key] = (weakref.ref(key_obj), pcsr)
+    return pcsr
 
 
 def _shard_stats(out: Dict, k: int, pcsr: Optional[PartitionedCSR], pool: Optional[int],
@@ -703,27 +832,41 @@ def reconfigure_partitions(graph: CSRGraph, old_assignment: np.ndarray,
 
 
 def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
-                     policy: Policy, spec: wk.WalkSpec, assignment, num_shards: int, *,
-                     engine: str = "auto", pool_factor: float = 2.0,
+                     policy: Policy, spec: wk.WalkSpec, assignment, num_shards: int,
+                     mesh=None, *, engine: str = "auto", pool_factor: float = 2.0,
                      exchange_cap: Optional[int] = None, compact_every: int = 8,
                      transport: Optional[str] = None, with_stats: bool = False):
-    """Run one walk per source on ``num_shards`` partition shards, stacked
-    on the graph's device. ``assignment`` maps node -> shard (MPGP's).
+    """Run one walk per source on ``num_shards`` partition shards.
+    ``assignment`` maps node -> shard (MPGP's).
 
-    ``engine``: ``"replicated"`` (every shard on the whole CSR, all lanes;
-    what ``"auto"`` resolves to on one device, as in the reference) or
+    With ``mesh`` (``make_walk_mesh(num_shards)``, called on every rank)
+    each rank runs its shard on the mesh's device and returns the merged
+    state of all of them; otherwise the k shards run stacked on the
+    graph's device. The walks are bit for bit the same either way.
+
+    ``engine``: ``"replicated"`` (every shard on the whole CSR, all lanes),
     ``"local"`` (partition-local slices, slot pools, packed exchange; for
-    policies with ``supports_partition_local``). ``pool_factor`` is the
-    gamma of the MPGP balance bound that sizes each shard's pool (gamma B /
-    k slots, doubled and re-run on overflow, the size remembered);
-    ``exchange_cap`` bounds the records a shard ships per round (per
-    destination under ``a2a``; default P / 8, at least 8); ``transport``
-    picks ``"gather"`` (the default here), ``"a2a"`` or ``"pool"``. Walks
+    policies with ``supports_partition_local``) or ``"auto"``, as in the
+    reference: local on a mesh when the policy supports it, else
+    replicated (on one device the k programs run one after another and
+    there is no memory to save). ``pool_factor`` is the gamma of the MPGP
+    balance bound that sizes each shard's pool (gamma B / k slots, doubled
+    and re-run on overflow, the size remembered); ``exchange_cap`` bounds
+    the records a shard ships per round (per destination under ``a2a``;
+    default P / 8, at least 8); ``transport`` picks ``"gather"`` (the
+    stacked default), ``"a2a"`` (the mesh default) or ``"pool"``. Walks
     are the same under every engine, shard count and transport.
     ``with_stats=True`` also returns the per-shard stats dict."""
-    global BATCHES
+    global BATCHES, SPMD_BATCHES
     BATCHES += 1
-    dev = graph.device
+    use_mesh = mesh is not None and int(mesh.size()) == num_shards
+    if use_mesh:
+        if mesh.get_coordinate() is None:
+            raise ValueError("this rank is not in the walk mesh")
+        SPMD_BATCHES += 1
+        dev = mesh_device(mesh)
+    else:
+        dev = graph.device
     sources = torch.as_tensor(sources, device=dev).to(torch.int64)
     asn = np.asarray(assignment)
     owner = torch.as_tensor(asn, device=dev).to(torch.int64)
@@ -731,11 +874,12 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
     if policy.needs_edge_cm and graph.edge_cm is None:
         graph = graph.with_edge_cm()
     if engine == "auto":
-        # On one device the k programs run one after another and there is
-        # no memory to save; the reference picks the replicated engine there.
-        engine = "replicated"
+        engine = "local" if use_mesh and policy.supports_partition_local else "replicated"
     if engine == "replicated":
-        out = _run_replicated(graph, owner, sources, keys, policy, spec, num_shards)
+        if use_mesh:
+            out = _run_spmd(graph.to(dev), owner, sources, keys, policy, spec, num_shards, mesh)
+        else:
+            out = _run_replicated(graph, owner, sources, keys, policy, spec, num_shards)
         state = _merge(out, spec, keys)
         return (state, _shard_stats(out, num_shards, None, None, None, 0)) if with_stats \
             else state
@@ -746,11 +890,15 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
             f"{type(policy).__name__} cannot run partition-local (it reads "
             "non-local CSR rows); use engine='replicated'")
     if transport is None:
-        transport = "gather"
+        transport = "a2a" if use_mesh else "gather"
     if transport not in ("pool", "gather", "a2a"):
         raise ValueError(f"unknown transport {transport!r}")
 
-    pcsr = partitioned_csr_for(graph, asn, num_shards, key_obj=graph_key)
+    if use_mesh:
+        pcsr = rank_slice(graph, asn, num_shards, mesh.get_coordinate()[0], dev,
+                          key_obj=graph_key)
+    else:
+        pcsr = partitioned_csr_for(graph, asn, num_shards, key_obj=graph_key)
     b = int(sources.shape[0])
     init_occ = np.bincount(asn[sources.cpu().numpy()], minlength=num_shards) if b \
         else np.zeros(1, np.int64)
@@ -764,8 +912,12 @@ def run_walk_sharded(graph: CSRGraph, sources: torch.Tensor, keys: wk.Keys,
     retries = 0
     t0 = time.perf_counter() if obs.enabled() else 0.0
     while True:
-        out = _run_local(pcsr, owner, sources, keys, policy, spec, num_shards, pool, cap,
-                         compact_every, transport)
+        if use_mesh:
+            out = _run_spmd_local(pcsr, owner, sources, keys, policy, spec, num_shards, mesh,
+                                  pool, cap, compact_every, transport)
+        else:
+            out = _run_local(pcsr, owner, sources, keys, policy, spec, num_shards, pool, cap,
+                             compact_every, transport)
         if int(out["overflow"].sum()) == 0:
             break
         # Walkers piled onto one shard beyond gamma B / k: double the pool

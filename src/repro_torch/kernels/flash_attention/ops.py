@@ -27,6 +27,14 @@ too, and has no backward kernel). When the caller passes k as v, the
 kernel still sees one tensor, and autograd adds both uses' gradients into
 it, as the plain version's graph does.
 
+``DTensor`` arguments (``launch.steps``' mesh step runs the layers on
+them) run on their local shards. On each mesh dim q, k and v are placed
+as q is there when that is ``Shard(0)`` (batch) or ``Shard(1)`` (heads,
+whose even split keeps every query head's KV head on its rank), and are
+gathered whole otherwise (a shard of the sequence, as Megatron-SP's
+activations arrive, or a partial sum): under that placement the local
+computation is exact, and the result carries it.
+
 ``LAUNCHES`` counts kernel launches, so that a run can show it went
 through the kernel.
 """
@@ -88,12 +96,36 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
     tensors, the kernel for CUDA tensors."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _is_dtensor(q, k, v):
+        return _on_local_shards(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                  q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _on_card(q, k, v, bool(causal), float(sm_scale), int(q_offset))
+
+
+def _is_dtensor(*ts) -> bool:
+    if not any(type(t).__name__ == "DTensor" for t in ts):
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _on_local_shards(q, k, v, **kw) -> torch.Tensor:
+    """``attend`` on the local shards of DTensors (the module's
+    docstring)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must all be DTensors")
+    place = tuple(pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate()
+                  for pl in q.placements)
+    q, k, v = (t if t.placements == place else t.redistribute(t.device_mesh, place)
+               for t in (q, k, v))
+    out = attend(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, q.device_mesh, place, run_check=False)
 
 
 def _on_card(q, k, v, causal: bool, sm_scale: float, q_offset: int) -> torch.Tensor:

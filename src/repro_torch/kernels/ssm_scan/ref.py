@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.context import constrain_scan_inputs
+
 
 def ssd_scan_reference(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, s0: Optional[torch.Tensor] = None
@@ -58,6 +60,9 @@ def ssd_chunked_ref(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     reference selects after the exp: the same values, but 0 * inf = NaN in
     its gradient wherever the decay overflows above the diagonal, which the
     model's decay does within a chunk of 128 steps.)"""
+    # The chunk loop slices along S: the inputs stay batch-sharded under a
+    # mesh (``dist.context``), so each chunk is one rank's.
+    xdt, loga, b, c = (constrain_scan_inputs(t) for t in (xdt, loga, b, c))
     bh, s, p = xdt.shape
     n = b.shape[-1]
     q = min(chunk, s)

@@ -36,8 +36,10 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.context import constrain_activations
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import specs as specs_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     cross_entropy_loss, dtype_of, embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm,
@@ -88,6 +90,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     }
 
 
+def param_specs(cfg: ModelConfig) -> Params:
+    """The partition spec of every parameter leaf (``models.specs``), in the
+    tree layout of ``init_params``."""
+    return {"embed": specs_mod.embedding(cfg.tie_embeddings, cfg.fsdp),
+            "enc": [specs_mod.enc_block(cfg) for _ in range(cfg.enc_layers)],
+            "enc_norm": specs_mod.rmsnorm(),
+            "dec": [specs_mod.dec_block(cfg) for _ in range(cfg.dec_layers)],
+            "final_norm": specs_mod.rmsnorm()}
+
+
+def cache_specs(cfg: ModelConfig) -> List[Params]:
+    """The partition spec of every cache leaf, in the layout of
+    ``init_caches``."""
+    return [{"self": specs_mod.kv_cache(cfg), "cross": specs_mod.kv_cache(cfg)}
+            for _ in range(cfg.dec_layers)]
+
+
 def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat == "full" and torch.is_grad_enabled()
 
@@ -99,6 +118,7 @@ def _run(block, x, p, remat: bool):
 
 
 def _enc_block(x, p: Params, cfg: ModelConfig, positions) -> torch.Tensor:
+    x = constrain_activations(x)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attn_mod.attention(h, p["attn"], cfg, positions, causal=False)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -143,6 +163,7 @@ def _cross_from_cache(h, p: Params, cfg: ModelConfig, cache: Params) -> torch.Te
 
 def _dec_block(x, p: Params, cfg: ModelConfig, positions, enc_out, cache, cache_len,
                mode: str) -> torch.Tensor:
+    x = constrain_activations(x)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attn_mod.attention(h, p["self_attn"], cfg, positions, causal=True,
                                cache=None if cache is None else cache["self"],

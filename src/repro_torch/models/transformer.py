@@ -34,10 +34,12 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.context import constrain_activations
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import specs as specs_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontend import frontend_kind
@@ -191,6 +193,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return p
 
 
+def param_specs(cfg: ModelConfig) -> Params:
+    """The partition spec of every parameter leaf (``models.specs``), in the
+    tree layout of ``init_params``."""
+    p: Params = {"embed": specs_mod.embedding(cfg.tie_embeddings, cfg.fsdp),
+                 "final_norm": specs_mod.rmsnorm()}
+    if frontend_kind(cfg) == "audio":
+        p["frontend"] = {"proj": specs_mod.P(None, "model")}
+    for gi, (pattern, n_rep) in enumerate(_groups(cfg)):
+        p[f"group_{gi}"] = [{f"b{j}": specs_mod.block(kind, cfg)
+                             for j, kind in enumerate(pattern)} for _ in range(n_rep)]
+    return p
+
+
+def cache_specs(cfg: ModelConfig) -> Params:
+    """The partition spec of every cache leaf, in the layout of
+    ``init_caches``."""
+    return {f"group_{gi}": [{f"b{j}": specs_mod.block_cache(kind, cfg)
+                             for j, kind in enumerate(pattern)} for _ in range(n_rep)]
+            for gi, (pattern, n_rep) in enumerate(_groups(cfg))}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Params:
     _check(cfg)
     dev = resolve_device(device)
@@ -214,6 +237,7 @@ def _run_groups(params: Params, x, cfg: ModelConfig, positions, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, _) in enumerate(_groups(cfg)):
         for r, rep in enumerate(params[f"group_{gi}"]):
+            x = constrain_activations(x)
             for j, kind in enumerate(pattern):
                 cache = caches[f"group_{gi}"][r][f"b{j}"] if caches is not None else None
                 run = functools.partial(apply_block, kind=kind, cfg=cfg, positions=positions,

@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.context import constrain_scan_inputs
 from repro_torch.kernels.ssm_scan.ops import ssd_scan_heads
 from repro_torch.kernels.ssm_scan.ref import ssd_decode_step
 from repro_torch.kernels.ssm_scan.wide import empty_aligned
@@ -239,6 +240,7 @@ def slstm_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, *,
     when ``return_state``."""
     bsz, s, d = x.shape
     wx = x.float() @ p["w"] + p["b"]                             # (B, S, 4d)
+    wx = constrain_scan_inputs(wx, batch_dim=0)     # the recurrence's steps stay on one rank
     if state is None:
         init = init_slstm_state(cfg, bsz, x.device)
         c, n, h = init["c"], init["n"], init["h"]

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import P, batch_spec
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as transformer_mod
 from repro_torch.models.config import ModelConfig
@@ -90,6 +91,22 @@ def decode_fn(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return model_module(cfg).init_params(cfg, seed, device)
+
+
+def param_specs(cfg: ModelConfig):
+    return model_module(cfg).param_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig):
+    return model_module(cfg).cache_specs(cfg)
+
+
+def train_batch_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """A training batch's specs: batch-leading over ("pod", "data")."""
+    if cfg.encdec:
+        return {"frames": batch_spec(None, None), "tokens": batch_spec(None),
+                "labels": batch_spec(None)}
+    return {"tokens": batch_spec(None), "labels": batch_spec(None)}
 
 
 # ---------------------------------------------------------------------------

@@ -11,18 +11,20 @@ updated in float32 and stored in its own dtype. Unlike the reference,
 storage under ``torch.no_grad()`` and returns the same trees: a
 full-width model keeps one copy of its state on the card.
 
-The reference's ``opt_specs`` (the moments' sharding over a device mesh)
-has no counterpart: mesh tooling is ROADMAP.md queue 1, item 13.
+``opt_specs`` is the state's partition-spec tree: the moments shard as
+the parameters do. On a mesh ``opt_update`` runs on each rank's local
+shards, given the global gradient norm (``gnorm``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.ckpt.checkpoint import flatten
+from repro_torch.dist.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +73,14 @@ def init_opt_state(params: Any, cfg) -> Any:
     return {"m": tree_map(zeros, params), "count": count}
 
 
+def opt_specs(param_specs: Any, cfg) -> Any:
+    """The optimizer state's spec tree: moments shard exactly like the
+    parameters, the count is replicated."""
+    if isinstance(cfg, AdamWConfig):
+        return {"m": param_specs, "v": param_specs, "count": P()}
+    return {"m": param_specs, "count": P()}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over the leaves, in flatten order, of each leaf's
     float32 sum of squares."""
@@ -89,11 +99,16 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
 
 @torch.no_grad()
 def opt_update(grads: Any, state: Any, params: Any, cfg,
-               lr: torch.Tensor) -> Tuple[Any, Any, torch.Tensor]:
+               lr: torch.Tensor, gnorm: Optional[torch.Tensor] = None
+               ) -> Tuple[Any, Any, torch.Tensor]:
     """One step, in place. Returns (params, state, grad_norm): the trees
-    given, updated. ``lr`` is a float32 0-d tensor (a schedule's value)."""
+    given, updated. ``lr`` is a float32 0-d tensor (a schedule's value).
+    ``gnorm``, when given, is the gradients' global norm (a caller whose
+    trees are shards of the parameters passes the whole one's); else it is
+    computed from ``grads``. Every other operation is elementwise."""
     flat_g = leaves(grads)
-    gnorm = global_norm(flat_g)
+    if gnorm is None:
+        gnorm = global_norm(flat_g)
     if cfg.grad_clip:
         scale = _clip_scale(gnorm, cfg.grad_clip)
         flat_g = [(g.float() * scale).to(g.dtype) for g in flat_g]

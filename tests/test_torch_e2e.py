@@ -189,7 +189,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("name", ["obs", "ckpt", "common", "runtime.faults", "runtime.health",
                                   "runtime.ingest", "runtime.serve", "kernels.chain_dot",
-                                  "graph.io", "core.huge_d"])
+                                  "graph.io", "core.huge_d", "dist", "launch.mesh",
+                                  "launch.steps", "models.specs", "core.shard_engine"])
 def test_durability_and_telemetry_modules_import_neither_jax_nor_reference(name):
     """The telemetry, checkpoint, logging, fault, watchdog, ingest and
     serving modules, the scoring kernel's package, edge-list IO and the
